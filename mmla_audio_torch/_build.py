@@ -4,7 +4,8 @@ Two shared libraries, both loaded with ctypes and both built into the
 git-ignored ``mmla_audio_torch/_build/`` directory (never into the JAX
 package):
 
-* the CUDA kernels under ``csrc/``, compiled with ``nvcc`` for ``sm_90a``;
+* one library per CUDA source under ``csrc/``, compiled with ``nvcc`` for
+  ``sm_90a`` (``cuda_libraries`` starts every nvcc at once);
 * the host library ``libmmla_host.so`` (webrtcvad engine, ring buffer, WAV
   IO) from the JAX package's C++ sources, with its Makefile's flags.
 
@@ -22,13 +23,23 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "cuda_library", "host_library"]
+__all__ = ["BUILD_DIR", "cuda_library", "cuda_libraries", "host_library"]
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG / "_build"
-CUDA_SOURCES = (_PKG / "csrc" / "overlap_features.cu",)
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# library name -> (source, launch function, its argtypes)
+CUDA_KERNELS = {
+    "overlap_features": (
+        _PKG / "csrc" / "overlap_features.cu", "overlap_features_launch",
+        [_P, _LL, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "fused_resblock": (
+        _PKG / "csrc" / "fused_resblock.cu", "fused_resblock_launch",
+        [_P] * 10 + [_I] * 4 + [_P]),
+}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 # -fwrapv: the webrtcvad fixed-point engine relies on two's-complement
@@ -80,17 +91,27 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _cuda_build(name: str) -> Path:
+    return _build(f"lib{name}", _nvcc(), NVCC_FLAGS, (CUDA_KERNELS[name][0],))
+
+
+def cuda_libraries() -> dict:
+    """Build every CUDA library at once (one nvcc per source, in parallel)
+    and load them: ``{name: CDLL}``."""
+    with ThreadPoolExecutor(len(CUDA_KERNELS)) as pool:
+        list(pool.map(_cuda_build, CUDA_KERNELS))
+    return {name: cuda_library(name) for name in CUDA_KERNELS}
+
+
 @functools.lru_cache(maxsize=None)
-def cuda_library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the CUDA kernel library."""
-    lib = ctypes.CDLL(str(_build("liboverlap_features", _nvcc(), NVCC_FLAGS,
-                                 CUDA_SOURCES)))
-    fn = lib.overlap_features_launch
+def cuda_library(name: str) -> ctypes.CDLL:
+    """Build (once per source hash) and load one CUDA kernel library, its
+    launch function typed."""
+    lib = ctypes.CDLL(str(_cuda_build(name)))
+    _, fn_name, argtypes = CUDA_KERNELS[name]
+    fn = getattr(lib, fn_name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = argtypes
     return lib
 
 

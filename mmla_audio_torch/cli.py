@@ -3,9 +3,13 @@
     python -m mmla_audio_torch.cli setup        --root experiment
     python -m mmla_audio_torch.cli overlap-live --fake [--windows N] [--vad energy|webrtc]
     python -m mmla_audio_torch.cli overlap-run  -f clip.wav | --dir DIR
+    python -m mmla_audio_torch.cli overlap-post --root experiment
+    python -m mmla_audio_torch.cli charts       --root experiment [--kind overlap|speaker]
 
-Weights are random-init from ``--seed`` (Keras initializers, as the JAX CLI
-without ``--ckpt``).  ``--device`` defaults to the card when there is one.
+``--weights PATH.npz`` loads the model from the flat ``.npz`` that
+``params.py`` documents; without it the weights are random-init from
+``--seed`` (Keras initializers, as the JAX CLI without ``--ckpt``).
+``--device`` defaults to the card when there is one.
 """
 
 from __future__ import annotations
@@ -28,15 +32,32 @@ def _device(args) -> torch.device:
     return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
+def _cfg(args) -> PipelineConfig:
+    """PipelineConfig honoring ``--vad``."""
+    cfg = PipelineConfig()
+    if getattr(args, "vad", None):
+        cfg = dataclasses.replace(cfg, vad=VadConfig(decision=args.vad))
+    return cfg
+
+
 def _predictor(args, cfg):
     from mmla_audio_torch.inference import OverlapPredictor
     from mmla_audio_torch.models.overlap import OverlapResBLSTM, keras_init_
+    from mmla_audio_torch.params import (load_overlap_npz,
+                                         overlap_state_dict_from_jax)
 
-    model = keras_init_(OverlapResBLSTM(cfg.overlap_model),
-                        torch.Generator().manual_seed(args.seed))
-    print("[WARN] no checkpoint loading yet: using random-init weights "
-          f"(seed {args.seed})")
-    return OverlapPredictor(model.state_dict(), cfg.overlap_model,
+    if args.weights:
+        state_dict = overlap_state_dict_from_jax(
+            load_overlap_npz(args.weights, cfg.overlap_model),
+            cfg.overlap_model)
+        print(f"[INFO] weights: {args.weights}")
+    else:
+        state_dict = keras_init_(OverlapResBLSTM(cfg.overlap_model),
+                                 torch.Generator().manual_seed(args.seed)
+                                 ).state_dict()
+        print("[WARN] no --weights: using random-init weights "
+              f"(seed {args.seed})")
+    return OverlapPredictor(state_dict, cfg.overlap_model,
                             cfg.overlap_feature, device=_device(args),
                             matmul_precision=args.precision)
 
@@ -55,9 +76,7 @@ def cmd_overlap_live(args):
     if not args.fake:
         raise SystemExit("overlap-live: microphone capture is not ported "
                          "yet; pass --fake")
-    cfg = PipelineConfig()
-    if args.vad:
-        cfg = dataclasses.replace(cfg, vad=VadConfig(decision=args.vad))
+    cfg = _cfg(args)
     pred = _predictor(args, cfg)
     cap = CaptureThread(FakePCMSource(cfg.audio, seed=args.seed,
                                       realtime=args.realtime),
@@ -120,6 +139,32 @@ def cmd_overlap_run(args):
         print(f"[TIME] {stage}: {s * 1e3:.1f} ms")
 
 
+def cmd_overlap_post(args):
+    """Every recording under ``post-time/whole`` -> a TSV log and a chart."""
+    from mmla_audio_torch.analyze.post_time import overlap_post_analyze
+    from mmla_audio_torch.data.wavio import read_wav
+    from mmla_audio_torch.utils.experiment import bootstrap
+
+    cfg = _cfg(args)
+    dirs = bootstrap(args.root)
+    noise = read_wav(dirs.noise_path)[0] if dirs.noise_path.exists() else None
+    pred = _predictor(args, cfg)
+    t0 = time.perf_counter()
+    logs = overlap_post_analyze(dirs, pred, cfg=cfg, noise=noise)
+    print(f"[TIME] overlap-post: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    for name, log in logs.items():
+        print(f"[INFO] {name}: {log}")
+
+
+def cmd_charts(args):
+    from mmla_audio_torch.analyze.charts import visualize_all
+    from mmla_audio_torch.utils.experiment import ExperimentDirs
+
+    dirs = ExperimentDirs(args.root)
+    for out in visualize_all(dirs.logs, dirs.charts, kind=args.kind):
+        print(f"[INFO] {out}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="mmla_audio_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -135,6 +180,9 @@ def main(argv=None):
                        default="auto",
                        help="model convs/LSTM/GEMMs: 'auto' allows TF32 on "
                             "the card, 'highest' keeps IEEE fp32")
+        p.add_argument("--weights", default=None, metavar="PATH.npz",
+                       help="model weights as the flat .npz of params.py "
+                            "(default: random init from --seed)")
 
     p = sub.add_parser("setup")
     p.add_argument("--root", default="experiment")
@@ -159,6 +207,16 @@ def main(argv=None):
     p.add_argument("-f", "--file", default=None)
     p.add_argument("-dir", "--dir", default=None)
     p.set_defaults(fn=cmd_overlap_run)
+
+    p = sub.add_parser("overlap-post")
+    common(p)
+    p.add_argument("--root", default="experiment")
+    p.set_defaults(fn=cmd_overlap_post)
+
+    p = sub.add_parser("charts")
+    p.add_argument("--root", default="experiment")
+    p.add_argument("--kind", default="overlap", choices=["overlap", "speaker"])
+    p.set_defaults(fn=cmd_charts)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -22,14 +22,12 @@ from mmla_audio_torch.ops.cuda_features import (
     check_feature_config,
     overlap_model_input_cuda,
 )
+from mmla_audio_torch.ops.cuda_resblock import check_block_width
 from mmla_audio_torch.precision import fp32_policy
 
 __all__ = ["SILENT", "OverlapPredictor"]
 
 SILENT = -1  # label index for the silent gate (the log writes "silent")
-# fewer valid samples than this after VAD: the window is silent
-# (record_on_pc.py:142)
-SILENT_SAMPLES = 4000
 
 
 def _masked_prefix(buf: torch.Tensor, n: torch.Tensor,
@@ -55,7 +53,7 @@ class OverlapPredictor:
     ``predict(buf, n)``: ``buf (B, >=24000)`` or ``(>=24000,)`` raw PCM,
     int16 or float32 at int16 scale, with valid counts ``n`` ->
     ``(labels, probs)`` on ``device``; label ``SILENT`` where
-    ``n < SILENT_SAMPLES``.
+    ``n < silent_threshold``.
     """
 
     def __init__(self, state_dict: Mapping[str, torch.Tensor],
@@ -63,12 +61,16 @@ class OverlapPredictor:
                  feat_cfg: OverlapFeatureConfig = OverlapFeatureConfig(),
                  device: torch.device | str = "cpu",
                  compute_dtype: torch.dtype | None = None,
-                 matmul_precision: str | None = "auto"):
+                 matmul_precision: str | None = "auto",
+                 silent_threshold: int = 4000):
         """``compute_dtype=torch.bfloat16`` runs the model under autocast
         (the featurizer stays fp32).  ``matmul_precision="highest"`` keeps
         the model's convolutions, LSTM and GEMMs in IEEE fp32 (TF32 off);
         ``None`` allows TF32; ``"auto"`` is the overlap model's fast
-        default, ``None``, as in the JAX predictor."""
+        default, ``None``, as in the JAX predictor.  ``silent_threshold``:
+        post-VAD sample count below which the window is SILENT
+        (`record_on_pc.py:142`); pass ``cfg.vad.silent_samples`` to mirror
+        a tuned session gate."""
         if matmul_precision == "auto":
             matmul_precision = None
         if matmul_precision not in (None, "highest"):
@@ -76,12 +78,16 @@ class OverlapPredictor:
                              f"or None: {matmul_precision!r}")
         check_feature_config(feat_cfg)
         self.device = torch.device(device)
+        if self.device.type == "cuda":
+            for width in model_cfg.stage_filters:
+                check_block_width(width)
         self.model = OverlapResBLSTM(model_cfg)
         self.model.load_state_dict(state_dict)
         self.model.to(self.device).eval()
         self.feat_cfg = feat_cfg
         self.compute_dtype = compute_dtype
         self.matmul_precision = matmul_precision
+        self.silent_threshold = silent_threshold
 
     def apply_model(self, x: torch.Tensor) -> torch.Tensor:
         """Model forward under this predictor's numerics policy; float32
@@ -103,6 +109,6 @@ class OverlapPredictor:
         img = overlap_model_input_cuda(y, self.feat_cfg)   # (B, 128, 151, 3)
         probs = torch.softmax(self.apply_model(img), dim=-1)
         labels = torch.argmax(probs, dim=-1).to(torch.int32)
-        labels = torch.where(n < SILENT_SAMPLES,
+        labels = torch.where(n < self.silent_threshold,
                              torch.full_like(labels, SILENT), labels)
         return labels, probs

@@ -108,13 +108,17 @@ def _band_matrix(v: np.ndarray, n: int) -> np.ndarray:
     """(n, n) matrix M with ``(x @ M)[i] = sum_k v[k] * x[i + c - k]``
     (zero-padded 'same' convolution with the odd-length kernel v)."""
     c = len(v) // 2
-    m = np.zeros((n, n), np.float64)
+    m = np.zeros((n, n), np.float32)
     for d, val in enumerate(v):
-        m += np.eye(n, k=d - c) * val
-    return m.astype(np.float32)
+        k = d - c
+        i = np.arange(max(0, -k), min(n, n - k))
+        m[i, i + k] = val
+    return m
 
 
-@functools.lru_cache(maxsize=None)
+# A whole post-time recording gets a (T, T) time matrix of its own (1.4 GB
+# for 5 minutes): keep only the last two shapes.
+@functools.lru_cache(maxsize=2)
 def _smoothing_matrices(cfg: DenoiseConfig, sr: int, n_bins: int,
                         n_frames: int, device: torch.device):
     """Banded matrices for the frequency axis ``(K, K)`` and, transposed, the

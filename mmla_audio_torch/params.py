@@ -5,6 +5,12 @@ The JAX package keeps an ``OverlapResBLSTM``'s weights as a nested dict
 converter takes that tree as nested dicts of numpy arrays, so neither Flax
 nor JAX is needed to call it.
 
+Weights travel as a flat ``.npz`` (``load_overlap_npz``/``save_overlap_npz``):
+one array per leaf, keyed by the ``/``-joined path of the tree, e.g.
+``params/stage0_block1/Conv_0/kernel`` or
+``batch_stats/stage0_block0/KerasBatchNorm_0/BatchNorm_0/var``; a JAX host
+writes it from its variables with ``np.savez``.
+
 Layout changes: conv kernels HWIO -> OIHW; Dense and LSTM kernels are
 transposed ((in, out) -> (out, in)); the Keras LSTM's single ``bias`` goes to
 ``bias_ih`` with ``bias_hh = 0``; BatchNorm ``scale``/``bias``/``mean``/``var``
@@ -20,7 +26,8 @@ import torch
 
 from mmla_audio_torch.core.config import OverlapModelConfig
 
-__all__ = ["overlap_tree_shapes", "overlap_state_dict_from_jax"]
+__all__ = ["overlap_tree_shapes", "overlap_state_dict_from_jax",
+           "load_overlap_npz", "save_overlap_npz"]
 
 
 def _conv(kh, kw, cin, cout):
@@ -118,3 +125,35 @@ def overlap_state_dict_from_jax(tree: Mapping[str, Any],
     put("head.weight", np.asarray(p["head"]["kernel"]).T)
     put("head.bias", p["head"]["bias"])
     return sd
+
+
+def save_overlap_npz(tree: Mapping[str, Any], path) -> None:
+    """Write a tree of arrays as the flat ``.npz`` (keys ``a/b/c``)."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, Mapping):
+                walk(v, f"{prefix}{k}/")
+            else:
+                flat[prefix + k] = np.asarray(v, np.float32)
+
+    walk(tree, "")
+    np.savez(path, **flat)
+
+
+def load_overlap_npz(path, cfg: OverlapModelConfig = OverlapModelConfig()
+                     ) -> Dict[str, Any]:
+    """Read the flat ``.npz`` into the nested tree that
+    ``overlap_state_dict_from_jax`` takes, checked against
+    ``overlap_tree_shapes(cfg)``."""
+    tree: Dict[str, Any] = {}
+    with np.load(path) as data:
+        for key in data.files:
+            *parents, leaf = key.split("/")
+            node = tree
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = data[key]
+    _check(tree, overlap_tree_shapes(cfg))
+    return tree

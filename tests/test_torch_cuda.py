@@ -1,5 +1,6 @@
-"""Tests that need the card: the CUDA featurizer kernel against its plain
-version, and the predictor on the card against the CPU.
+"""Tests that need the card: the CUDA kernels (featurizer, one window and
+grouped; fused residual block) against their plain versions, the block's
+dispatch rule, and the predictor on the card against the CPU.
 
 This file imports neither JAX nor tests/conftest.py, so it runs where JAX is
 not installed:  python -m pytest --noconftest tests/test_torch_cuda.py
@@ -10,11 +11,16 @@ import numpy as np
 import pytest
 import torch
 
-from mmla_audio_torch.core.config import OverlapModelConfig
+from mmla_audio_torch.core.config import (OverlapFeatureConfig,
+                                          OverlapModelConfig)
 from mmla_audio_torch.inference import OverlapPredictor
-from mmla_audio_torch.models.overlap import OverlapResBLSTM, keras_init_
+from mmla_audio_torch.models.overlap import (OverlapResBLSTM, ResBlock2D,
+                                             keras_init_)
 from mmla_audio_torch.ops.cuda_features import overlap_model_input_cuda
+from mmla_audio_torch.ops.cuda_resblock import (fused_resblock_cuda,
+                                                fused_resblock_plain)
 from mmla_audio_torch.ops.features import overlap_model_input
+from mmla_audio_torch.precision import fp32_policy
 
 pytestmark = pytest.mark.cuda
 
@@ -68,3 +74,71 @@ def test_predictor_card_matches_cpu(device):
     (lc, pc), (l0, p0) = (p.predict(buf, n) for p in preds)
     np.testing.assert_allclose(pc.cpu().numpy(), p0.numpy(), atol=1e-4)
     np.testing.assert_array_equal(lc.cpu().numpy(), l0.numpy())
+
+
+@pytest.mark.parametrize("batch,time_dim,group", [
+    (6, 150, 4),        # partial last group
+    (4, 151, 2),        # 152 frames: none duplicated
+    (480, 150, None),   # above 3 windows per SM: the wrapper picks G=2
+])
+def test_grouped_kernel_matches_one_window(device, batch, time_dim, group):
+    cfg = OverlapFeatureConfig(time_dim=time_dim)
+    y = torch.from_numpy(_audio(batch, cfg.n_samples, seed=batch)).to(device)
+    before = overlap_model_input_cuda.launches_grouped
+    got = overlap_model_input_cuda(y, cfg, group=group)
+    torch.cuda.synchronize()
+    assert overlap_model_input_cuda.launches_grouped == before + 1
+    assert torch.equal(got, overlap_model_input_cuda(y, cfg, group=1))
+    diff = (got - overlap_model_input(y, cfg)).abs()
+    assert float(diff.max()) <= 1.0
+    assert float((diff > 0).float().mean()) < 0.02
+
+
+def _block_operands(C, seed):
+    g = torch.Generator().manual_seed(seed)
+
+    def r(*shape, scale=0.1):
+        return torch.randn(*shape, generator=g) * scale
+
+    k1 = r(3, 3, C, C, scale=(2 / (9 * C)) ** 0.5)
+    k2 = r(4, 1, C, C, scale=(2 / (4 * C)) ** 0.5)
+    return (k1, r(C), k2, r(C), 1 + r(C), r(C), 1 + r(C), r(C))
+
+
+@pytest.mark.parametrize("C,H,W", [
+    (32, 64, 76), (64, 32, 38), (128, 16, 19),        # the full-width model
+    (4, 10, 7), (8, 9, 11), (16, 20, 23), (48, 12, 9),  # Q = C or 16
+    (12, 8, 9), (6, 5, 13), (3, 7, 5),                # Q = 4, 2, 1
+    (128, 64, 76), (256, 16, 19),                     # rows cut into column tiles
+])
+@pytest.mark.parametrize("batch", [1, 8])
+def test_fused_block_matches_plain(device, C, H, W, batch):
+    ops = [a.to(device) for a in _block_operands(C, seed=C)]
+    x = torch.randn(batch, C, H, W, generator=torch.Generator().manual_seed(1)
+                    ).to(device)
+    before = fused_resblock_cuda.launches
+    with fp32_policy(False):
+        got = fused_resblock_cuda(x, *ops)
+        ref = fused_resblock_plain(x, *ops)
+    torch.cuda.synchronize()
+    assert fused_resblock_cuda.launches == before + 1
+    assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+def test_resblock_dispatch_rule(device):
+    block = ResBlock2D(32, 32).to(device)
+    x = torch.randn(2, 32, 8, 6, device=device)
+    before = fused_resblock_cuda.launches
+    with torch.no_grad():
+        block.train()(x)                               # batch statistics
+        block.eval()
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            block(x)
+    block(x)                                           # autograd recording
+    assert fused_resblock_cuda.launches == before
+    with torch.no_grad(), fp32_policy(False):
+        fused = block(x)
+        unfused = block.forward_unfused(x)
+    assert fused_resblock_cuda.launches == before + 1
+    assert float((fused - unfused).abs().max()) <= \
+        1e-4 * float(unfused.abs().max())

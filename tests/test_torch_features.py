@@ -82,3 +82,39 @@ def test_wrapper_refuses_non_default_config(windows, field):
     with pytest.raises(ValueError, match="requires png_quantize=True"):
         cuda_features.overlap_model_input_cuda(torch.from_numpy(windows[1]),
                                                cfg)
+
+
+@pytest.mark.parametrize("case", ["partial_group", "frames_multiple_of_8"])
+def test_grouped_matches_pallas_grouped(case):
+    """The wrapper with ``group`` (its plain version on the CPU) against the
+    grouped Pallas kernel: 6 windows with group 4 (a partial last group),
+    and time_dim=151 with group 2 (152 frames, which the TPU kernel must not
+    duplicate)."""
+    if case == "partial_group":
+        cfg, batch, group, seed = OverlapFeatureConfig(), 6, 4, 40
+    else:
+        cfg, batch, group, seed = OverlapFeatureConfig(time_dim=151), 4, 2, 60
+    ys = np.stack([synth_speech(cfg.n_samples, seed=seed + s)
+                   for s in range(batch)])
+    got = cuda_features.overlap_model_input_cuda(torch.from_numpy(ys), cfg,
+                                                 group=group).numpy()
+    from mmla_audio_tpu.core.config import OverlapFeatureConfig as JaxCfg
+
+    ref = np.asarray(overlap_model_input_pallas(
+        jnp.asarray(ys), JaxCfg(time_dim=cfg.time_dim), group=group))
+    assert got.shape == (batch, 128, cfg.n_frames, 3)
+    _assert_budget(got, ref)
+
+
+@pytest.mark.parametrize("batch,group", [(1, 1), (132, 1), (200, 1),
+                                         (396, 1), (397, 2), (480, 2),
+                                         (1024, 2), (2400, 2)])
+def test_pick_group_rule(batch, group):
+    assert cuda_features.pick_group(batch, 132) == group
+
+
+@pytest.mark.parametrize("group", [3, 8])
+def test_wrapper_refuses_unbuilt_group(windows, group):
+    with pytest.raises(ValueError, match="group must be one of"):
+        cuda_features.overlap_model_input_cuda(torch.from_numpy(windows[1]),
+                                               group=group)

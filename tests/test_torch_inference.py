@@ -173,8 +173,12 @@ def test_pipeline_config_copy_is_a_subset_of_jax_package():
 
 
 def test_port_imports_no_jax():
-    code = ("import mmla_audio_torch.cli, mmla_audio_torch.streaming.session, "
-            "sys; bad = [m for m in sys.modules if m.split('.')[0] in "
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts)
+        for p in (REPO / "mmla_audio_torch").rglob("*.py")
+        if p.name != "__init__.py")
+    code = (f"import sys, {', '.join(modules)}; bad = [m for m in "
+            "sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'mmla_audio_tpu')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
@@ -186,3 +190,19 @@ def test_port_imports_no_jax():
                  if p.suffix in (".py", ".cu") and
                  pattern.search(p.read_text())]
     assert offenders == []
+
+
+def test_silent_threshold_matches_jax():
+    """A tuned gate (``cfg.vad.silent_samples`` passed through) gives the
+    same labels in both predictors."""
+    tree = perturbed_tree(CFG, seed=1)
+    jax_pred = JaxPredictor(jax.tree_util.tree_map(jnp.asarray, tree),
+                            model_cfg=CFG, silent_threshold=6000)
+    pred = OverlapPredictor(overlap_state_dict_from_jax(tree, as_port(CFG)),
+                            as_port(CFG), silent_threshold=6000)
+    buf = np.stack([synth_speech_i16(40960, seed=s) for s in (4, 5)])
+    n = np.array([5000, 7000], np.int32)
+    labels, _ = pred.predict(buf, n)
+    ref, _ = jax_pred.predict(buf, n)
+    np.testing.assert_array_equal(labels.numpy(), np.asarray(ref))
+    assert labels[0] == SILENT and labels[1] != SILENT
