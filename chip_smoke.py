@@ -13,11 +13,12 @@ per source, all at once), then:
    480 (the post-time conversations), 1024 and 2400 every group bit-equal
    to ``group=1``, within the budget of the plain version, and CUDA-event
    timings of each group and the plain version beside the wrapper's pick;
-2. fused residual block: the kernel vs ``fused_resblock_plain`` at the three
-   non-pooling shapes of the full-width model, B=1, 64, 200 and 480 (the
-   last two are the post-time batches), TF32 off, max |diff| <= 1e-4 *
-   max |ref|; CUDA-event timings of the kernel, the plain version and the
-   unfused ``ResBlock2D``;
+2. fused residual block: the tensor-core kernel (every width with C % 8 ==
+   0) vs ``fused_resblock_plain`` at the three non-pooling shapes of the
+   full-width model, B=1, 64, 200 and 480 (the last two are the post-time
+   batches), and the FFMA kernel (C % 8 != 0) at C=12, TF32 off, max |diff|
+   <= 1e-4 * max |ref|; CUDA-event timings of the kernel, the plain version
+   and the unfused ``ResBlock2D`` (cuDNN, the yardstick);
 3. predictor: the full-width default ``OverlapModelConfig()`` with weights
    from a seeded numpy tree through ``params.py``; B=8 on the card vs the
    same predictor on the CPU, TF32 off;
@@ -27,15 +28,20 @@ per source, all at once), then:
 5. post-time: ``overlap_post_analyze`` over a 5-minute ``audio*`` recording
    (3 denoise passes, 200 windows) and a 12-minute ``zoom*`` one (480
    windows, enough for ``pick_group`` to take the grouped featurizer),
-   the other main path whose launches are counted, on the card and on the
-   CPU; labels equal where the CPU's top-2 margin is above 1e-3; windows per
+   the other main path whose launches are counted (the fused block's on the
+   tensor cores), on the card and on the CPU; labels equal where the CPU's
+   top-2 margin is above 1e-3; windows per
    second on the host clock; then the CLI's ``overlap-post --weights``;
 6. CLI: ``python -m mmla_audio_torch.cli overlap-run -f <wav>``.
 
-The line before the last is a JSON object describing each kernel; the last
-line is ``{"ok": true, "device": {...}}``.  Any failure raises, so nothing
-after it is printed and the exit code is not 0.  Without a CUDA device the
-script stops before doing anything.
+The line before the last is a JSON object describing each kernel, with its
+bound: the larger of its bytes (each input read once, each output written
+once) over 3.35 TB/s and its fp32 FLOPs as 3xTF32 on the tensor cores (three
+TF32 products for each fp32 one at 495 TFLOP/s, 165 TFLOP/s of fp32 work,
+faster than the CUDA cores' 67 TFLOP/s), H100 SXM peaks.  The last line is
+``{"ok": true, "device": {...}}``.  Any failure raises, so nothing after it
+is printed and the exit code is not 0.  Without a CUDA device the script
+stops before doing anything.
 """
 
 from __future__ import annotations
@@ -61,6 +67,39 @@ BLOCK_SHAPES = ((32, 64, 76), (64, 32, 38), (128, 16, 19))
 # post-time recordings: name -> (seconds, windows); each is one batch
 RECORDINGS = {"audio_conv0": (300, 200), "zoom_conv1": (720, 480)}
 POST_BATCHES = tuple(n for _, n in RECORDINGS.values())
+# H100 SXM peaks: device memory, TF32 on the tensor cores; an fp32 product
+# at fp32 accuracy is three TF32 ones (3xTF32)
+HBM_BYTES_S, TF32_FLOP_S, TF32_PER_FP32 = 3.35e12, 495e12, 3
+
+
+def bound(flop: float, nbytes: float) -> dict:
+    """The least time the card could take: bytes at its memory rate, or fp32
+    FLOPs as 3xTF32 at its tensor-core rate."""
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = flop * TF32_PER_FP32 / TF32_FLOP_S
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def featurizer_bound(batch: int) -> dict:
+    """DFT (re and im) and mel GEMMs of every frame; the windows in, the
+    images out and the bases read once."""
+    from mmla_audio_torch.core.config import OverlapFeatureConfig
+
+    cfg = OverlapFeatureConfig()
+    win, T, M = cfg.win_length, cfg.n_frames, cfg.n_mels
+    bins = win // 2 + 1
+    flop = batch * T * (4 * win * bins + 2 * bins * M)
+    nbytes = 4 * (batch * (cfg.n_samples + 3 * M * T)
+                  + 2 * win * bins + bins * M)
+    return bound(flop, nbytes)
+
+
+def block_work(batch: int, C: int, H: int, W: int) -> tuple:
+    """(FLOPs, bytes) of a block: both convolutions (2 * 13 C^2 FLOPs a
+    pixel); x in, out out, the weights and vectors read once."""
+    return (2 * 13 * C * C * H * W * batch,
+            4 * (2 * batch * C * H * W + 13 * C * C + 6 * C))
 
 
 def log(msg: str) -> None:
@@ -127,7 +166,8 @@ def phase_featurizer(device):
         plain_b = time_ms(overlap_model_input, y)
         result[batch] = dict(max_abs_err=err, share=share,
                              ms=min(kern_a, kern_b),
-                             plain_ms=min(plain_a, plain_b))
+                             plain_ms=min(plain_a, plain_b),
+                             **featurizer_bound(batch), library_ms=None)
         log(f"[featurizer] B={batch}: max |diff| {err} on {share:.4%} of "
             f"pixels (budget {BUDGET_STEP} on < {BUDGET_SHARE:.0%}); kernel "
             f"{kern_a:.4f}/{kern_b:.4f} ms, plain {plain_a:.4f}/"
@@ -198,42 +238,65 @@ def phase_grouped(device):
                 raise AssertionError(f"pick_group takes G=1 at the post-time "
                                      f"batch {batch} on {sms} SMs")
             result = dict(max_abs_err=err, ms=min(times[picked]),
-                          plain_ms=min(times["plain"]))
+                          plain_ms=min(times["plain"]),
+                          **featurizer_bound(batch), library_ms=None)
     return result
 
 
-def phase_block(device):
+def seeded_block(C: int, device, rng):
+    """An eval-mode ``ResBlock2D(C, C)`` on ``device``, every weight and
+    BatchNorm statistic drawn from ``rng``."""
     from mmla_audio_torch.models.overlap import ResBlock2D
-    from mmla_audio_torch.ops.cuda_resblock import (fused_resblock_cuda,
+
+    block = ResBlock2D(C, C).to(device).eval()
+    with torch.no_grad():
+        for t in block.state_dict().values():
+            if t.is_floating_point():
+                t.copy_(torch.from_numpy(
+                    rng.uniform(0.5, 1.5, t.shape).astype(np.float32)
+                    if t.ndim == 1 else rng.randn(*t.shape).astype(
+                        np.float32) / np.sqrt(t[0].numel())))
+    return block
+
+
+def block_error(got, ref) -> tuple:
+    """(max |got - ref|, its limit BLOCK_RTOL * max |ref|, whether got is
+    finite and within it); synchronizes first."""
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    limit = BLOCK_RTOL * float(ref.abs().max())
+    return err, limit, err <= limit and bool(torch.isfinite(got).all())
+
+
+def phase_block(device):
+    from mmla_audio_torch.ops.cuda_resblock import (block_route,
+                                                    fused_resblock_cuda,
                                                     fused_resblock_plain)
     from mmla_audio_torch.precision import fp32_policy
 
     rng = np.random.RandomState(5)
     worst = worst_rel = 0.0
-    sums = dict(ms=0.0, plain_ms=0.0, unfused_ms=0.0)
-    for C, H, W in BLOCK_SHAPES:
-        block = ResBlock2D(C, C).to(device).eval()
-        with torch.no_grad():
-            for t in block.state_dict().values():
-                if t.is_floating_point():
-                    t.copy_(torch.from_numpy(
-                        rng.uniform(0.5, 1.5, t.shape).astype(np.float32)
-                        if t.ndim == 1 else rng.randn(*t.shape).astype(
-                            np.float32) / np.sqrt(t[0].numel())))
+    sums = dict(ms=0.0, plain_ms=0.0, unfused_ms=0.0, flop=0, bytes=0)
+    for C, H, W in BLOCK_SHAPES + ((12, 8, 9),):
+        block = seeded_block(C, device, rng)
         ops = block.fused_operands()
-        for batch in (1, 64) + POST_BATCHES:
+        route = block_route(C)
+        for batch in (8,) if route == "ffma" else (1, 64) + POST_BATCHES:
             x = torch.from_numpy(rng.randn(batch, C, H, W).astype(np.float32)
                                  ).to(device)
             reps = 20 if batch <= 64 else 5
             with torch.no_grad(), fp32_policy(False):
+                before = fused_resblock_cuda.launches_mma
                 got = fused_resblock_cuda(x, *ops)
                 ref = fused_resblock_plain(x, *ops)
-                torch.cuda.synchronize()
-                err = float((got - ref).abs().max())
-                limit = BLOCK_RTOL * float(ref.abs().max())
-                if not (err <= limit and bool(torch.isfinite(got).all())):
+                err, limit, ok = block_error(got, ref)
+                if not ok:
                     raise AssertionError(f"fused block C={C} B={batch}: "
                                          f"max |diff| {err} > {limit}")
+                if fused_resblock_cuda.launches_mma - before != (
+                        route == "mma"):
+                    raise AssertionError(f"fused block C={C}: not the "
+                                         f"{route} kernel")
                 # plain, kernel, unfused, unfused, kernel, plain
                 plain_a = time_ms(fused_resblock_plain, x, *ops, reps=reps)
                 kern_a = time_ms(fused_resblock_cuda, x, *ops, reps=reps)
@@ -243,21 +306,29 @@ def phase_block(device):
                 plain_b = time_ms(fused_resblock_plain, x, *ops, reps=reps)
             worst = max(worst, err)
             worst_rel = max(worst_rel, err / float(ref.abs().max()))
-            if batch in POST_BATCHES:
+            work = block_work(batch, C, H, W)
+            bnd = bound(*work)
+            if batch in POST_BATCHES and route == "mma":
                 sums["ms"] += min(kern_a, kern_b)
                 sums["plain_ms"] += min(plain_a, plain_b)
                 sums["unfused_ms"] += min(mod_a, mod_b)
-            log(f"[block] C={C} {H}x{W} B={batch}: max |diff| {err:.3g} "
-                f"(limit {limit:.3g}); kernel {kern_a:.4f}/{kern_b:.4f} ms, "
-                f"plain {plain_a:.4f}/{plain_b:.4f} ms, unfused ResBlock2D "
-                f"{mod_a:.4f}/{mod_b:.4f} ms")
+                sums["flop"] += work[0]
+                sums["bytes"] += work[1]
+            log(f"[block] C={C} {H}x{W} B={batch} ({route}): max |diff| "
+                f"{err:.3g} (limit {limit:.3g}); kernel {kern_a:.4f}/"
+                f"{kern_b:.4f} ms, plain {plain_a:.4f}/{plain_b:.4f} ms, "
+                f"unfused ResBlock2D {mod_a:.4f}/{mod_b:.4f} ms, bound "
+                f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+    total = bound(sums["flop"], sums["bytes"])
     log(f"[block] the three shapes at B={' and B='.join(map(str, POST_BATCHES))}"
         f" (one block of each shape per post-time conversation), summed: "
         f"kernel {sums['ms']:.4f} ms, plain {sums['plain_ms']:.4f} ms, "
-        f"unfused ResBlock2D {sums['unfused_ms']:.4f} ms; worst max |diff| "
+        f"unfused ResBlock2D {sums['unfused_ms']:.4f} ms, bound "
+        f"{total['bound_ms']:.4f} ms ({total['bound_by']}); worst max |diff| "
         f"{worst:.3g}, / max |ref| {worst_rel:.3g}")
     return dict(max_abs_err=worst, max_rel_err=worst_rel, ms=sums["ms"],
-                plain_ms=sums["plain_ms"])
+                plain_ms=sums["plain_ms"], **total,
+                library_ms=sums["unfused_ms"])
 
 
 def phase_predictor(device, state_dict, cfg):
@@ -344,7 +415,7 @@ def phase_post(device, tree, state_dict, cfg, noise, tmp: Path):
                                          device=dev,
                                          matmul_precision="highest"))
         overlap_model_input_cuda.launches_grouped = 0
-        fused_resblock_cuda.launches = 0
+        fused_resblock_cuda.launches = fused_resblock_cuda.launches_mma = 0
         t0 = time.perf_counter()
         logs = overlap_post_analyze(dirs, pred, cfg=cfg, noise=noise,
                                     start_time=start)
@@ -352,7 +423,7 @@ def phase_post(device, tree, state_dict, cfg, noise, tmp: Path):
             torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = (overlap_model_input_cuda.launches_grouped,
-                    fused_resblock_cuda.launches)
+                    fused_resblock_cuda.launches_mma)
         rows = {name: parse_log(path) for name, path in logs.items()}
         for name, (_, n_rows) in recordings.items():
             if len(rows[name]) != n_rows or \
@@ -364,7 +435,8 @@ def phase_post(device, tree, state_dict, cfg, noise, tmp: Path):
         log(f"[post] {key}: {n_windows} windows in {seconds:.3f} s = "
             f"{n_windows / seconds:.1f} windows/s (host clock, standardize "
             f"+ denoise + predict + logs + charts); launches: grouped "
-            f"featurizer {launches[0]}, fused block {launches[1]}")
+            f"featurizer {launches[0]}, fused block on the tensor cores "
+            f"{launches[1]}")
         if key not in runs:                  # the card's first run counts
             runs[key] = dict(rows=rows, probs=pred.probs, launches=launches,
                              wps=n_windows / seconds)
@@ -373,8 +445,8 @@ def phase_post(device, tree, state_dict, cfg, noise, tmp: Path):
     card, cpu = runs["card"], runs["cpu"]
     if min(card["launches"]) <= 0:
         raise AssertionError(f"post-time on the card launched the grouped "
-                             f"featurizer / fused block {card['launches']} "
-                             f"times")
+                             f"featurizer / tensor-core fused block "
+                             f"{card['launches']} times")
     decided = agree = 0
     for i, name in enumerate(sorted(recordings)):
         top2 = np.sort(cpu["probs"][i], axis=1)
@@ -455,11 +527,11 @@ def main() -> int:
     noise = (np.random.RandomState(3).randn(160000) * 20).astype(np.int16)
     with tempfile.TemporaryDirectory() as tmp:
         overlap_model_input_cuda.launches = 0
-        fused_resblock_cuda.launches = 0
+        fused_resblock_cuda.launches = fused_resblock_cuda.launches_mma = 0
         sess, rows = run_session(device, state_dict, cfg, samples, noise,
                                  Path(tmp) / "card")
         launches = overlap_model_input_cuda.launches
-        block_launches = fused_resblock_cuda.launches
+        block_launches = fused_resblock_cuda.launches_mma
         labels = [r[1] for r in rows]
         logged = parse_log(sess.log.path)
         if len(rows) != 4 or len(logged) != 4 or labels[1] != "silent":
@@ -481,7 +553,7 @@ def main() -> int:
             times.append((time.perf_counter() - t0) * 1e3)
         log(f"[session] card labels {labels} == CPU labels; {len(logged)} "
             f"TSV rows; launches in the run: featurizer {launches}, "
-            f"fused block {block_launches}; "
+            f"fused block on the tensor cores {block_launches}; "
             f"window-to-decision median {statistics.median(times):.2f} ms "
             f"(min {min(times):.2f}, max {max(times):.2f}, 10 windows)")
 

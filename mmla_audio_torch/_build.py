@@ -7,7 +7,8 @@ package):
 * one library per CUDA source under ``csrc/``, compiled with ``nvcc`` for
   ``sm_90a`` (``cuda_libraries`` starts every nvcc at once);
 * the host library ``libmmla_host.so`` (webrtcvad engine, ring buffer, WAV
-  IO) from the JAX package's C++ sources, with its Makefile's flags.
+  IO) from ``csrc/host/``, unchanged copies of the JAX package's C++
+  sources, with its Makefile's flags.
 
 Each library's file name carries a hash of its sources and flags, so a stale
 build is never loaded.  Builds write to a temporary name and rename into
@@ -26,19 +27,22 @@ import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "cuda_library", "cuda_libraries", "host_library"]
+__all__ = ["BUILD_DIR", "cuda_library", "cuda_libraries", "host_library",
+           "nvcc"]
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG / "_build"
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# library name -> (source, launch function, its argtypes)
+# library name -> (source, {launch function: its argtypes})
 CUDA_KERNELS = {
     "overlap_features": (
-        _PKG / "csrc" / "overlap_features.cu", "overlap_features_launch",
-        [_P, _LL, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        _PKG / "csrc" / "overlap_features.cu",
+        {"overlap_features_launch":
+         [_P, _LL, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]}),
     "fused_resblock": (
-        _PKG / "csrc" / "fused_resblock.cu", "fused_resblock_launch",
-        [_P] * 10 + [_I] * 4 + [_P]),
+        _PKG / "csrc" / "fused_resblock.cu",
+        {"fused_resblock_launch": [_P] * 10 + [_I] * 4 + [_P],
+         "fused_resblock_mma_launch": [_P] * 10 + [_I] * 8 + [_P]}),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -48,8 +52,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-fwrapv", "-shared")
 
 
-# the JAX package's C++ sources, read as files (nothing of it is imported)
-HOST_SOURCES = tuple(_PKG.parent / "mmla_audio_tpu" / "native" / f
+# the port's copies of the JAX package's native/*.cpp (a test pins them
+# byte for byte to the originals)
+HOST_SOURCES = tuple(_PKG / "csrc" / "host" / f
                      for f in ("ringbuffer.cpp", "wavio.cpp", "webrtcvad.cpp"))
 
 
@@ -79,7 +84,8 @@ def _build(name: str, compiler: str, flags, sources) -> Path:
     return target
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
+    """The CUDA compiler: ``nvcc`` on PATH, else under ``CUDA_HOME``."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     found = shutil.which("nvcc")
@@ -92,7 +98,7 @@ def _nvcc() -> str:
 
 
 def _cuda_build(name: str) -> Path:
-    return _build(f"lib{name}", _nvcc(), NVCC_FLAGS, (CUDA_KERNELS[name][0],))
+    return _build(f"lib{name}", nvcc(), NVCC_FLAGS, (CUDA_KERNELS[name][0],))
 
 
 def cuda_libraries() -> dict:
@@ -106,12 +112,12 @@ def cuda_libraries() -> dict:
 @functools.lru_cache(maxsize=None)
 def cuda_library(name: str) -> ctypes.CDLL:
     """Build (once per source hash) and load one CUDA kernel library, its
-    launch function typed."""
+    launch functions typed."""
     lib = ctypes.CDLL(str(_cuda_build(name)))
-    _, fn_name, argtypes = CUDA_KERNELS[name]
-    fn = getattr(lib, fn_name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = argtypes
+    for fn_name, argtypes in CUDA_KERNELS[name][1].items():
+        fn = getattr(lib, fn_name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
     return lib
 
 

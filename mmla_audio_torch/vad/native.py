@@ -1,9 +1,9 @@
 """Host-native webrtcvad through ctypes (counterpart of
 ``mmla_audio_tpu.vad.native``).
 
-The engine is the JAX package's C++ transcription of ``webrtcvad.Vad``
-(``mmla_audio_tpu/native/webrtcvad.cpp``), bit-identical to the golden in
-``tests/golden/webrtc_vad_ref.py``.  ``_build.host_library`` compiles it into
+The engine is the JAX package's C++ transcription of ``webrtcvad.Vad``,
+copied unchanged to ``mmla_audio_torch/csrc/host/webrtcvad.cpp`` and
+bit-identical to the golden in ``tests/golden/webrtc_vad_ref.py``.  ``_build.host_library`` compiles it into
 the port's own build directory.  The filterbank is a sample-serial int16 IIR
 cascade, so a single stream runs it on the host.
 """

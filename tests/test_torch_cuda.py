@@ -17,7 +17,8 @@ from mmla_audio_torch.inference import OverlapPredictor
 from mmla_audio_torch.models.overlap import (OverlapResBLSTM, ResBlock2D,
                                              keras_init_)
 from mmla_audio_torch.ops.cuda_features import overlap_model_input_cuda
-from mmla_audio_torch.ops.cuda_resblock import (fused_resblock_cuda,
+from mmla_audio_torch.ops.cuda_resblock import (block_route,
+                                                fused_resblock_cuda,
                                                 fused_resblock_plain)
 from mmla_audio_torch.ops.features import overlap_model_input
 from mmla_audio_torch.precision import fp32_policy
@@ -107,21 +108,24 @@ def _block_operands(C, seed):
 
 @pytest.mark.parametrize("C,H,W", [
     (32, 64, 76), (64, 32, 38), (128, 16, 19),        # the full-width model
-    (4, 10, 7), (8, 9, 11), (16, 20, 23), (48, 12, 9),  # Q = C or 16
-    (12, 8, 9), (6, 5, 13), (3, 7, 5),                # Q = 4, 2, 1
-    (128, 64, 76), (256, 16, 19),                     # rows cut into column tiles
+    (8, 9, 11), (16, 20, 23), (24, 7, 6), (48, 12, 9),  # tensor cores, C < 32
+    (40, 5, 33),                                      # and C % 32 != 0
+    (4, 10, 7), (12, 8, 9), (6, 5, 13), (3, 7, 5),    # FFMA, Q = 4, 4, 2, 1
+    (128, 64, 76), (256, 16, 19), (544, 6, 5),        # narrow column tiles
 ])
 @pytest.mark.parametrize("batch", [1, 8])
 def test_fused_block_matches_plain(device, C, H, W, batch):
     ops = [a.to(device) for a in _block_operands(C, seed=C)]
     x = torch.randn(batch, C, H, W, generator=torch.Generator().manual_seed(1)
                     ).to(device)
-    before = fused_resblock_cuda.launches
+    before = fused_resblock_cuda.launches, fused_resblock_cuda.launches_mma
     with fp32_policy(False):
         got = fused_resblock_cuda(x, *ops)
         ref = fused_resblock_plain(x, *ops)
     torch.cuda.synchronize()
-    assert fused_resblock_cuda.launches == before + 1
+    assert fused_resblock_cuda.launches == before[0] + 1
+    assert fused_resblock_cuda.launches_mma == before[1] + (
+        block_route(C) == "mma")
     assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
 
 

@@ -1,7 +1,8 @@
 """The fused residual block's plain version (``fused_resblock_plain``, the CUDA
-kernel's reference) and ``ResBlock2D``'s folded operands, held against the
+kernels' reference) and ``ResBlock2D``'s folded operands, held against the
 TPU probe's Pallas kernel (interpret mode), the probe's XLA block, and the
-JAX ``ResBlock2D`` in eval.
+JAX ``ResBlock2D`` in eval; the kernels' route rule and the tensor-core
+kernel's tile plan.
 
 Tolerance rtol 1e-4, atol 1e-5: fp32 accumulation order (no TF32 on the
 CPU), as tests/test_torch_model.py.
@@ -22,15 +23,21 @@ from mmla_audio_torch.core.config import OverlapModelConfig
 from mmla_audio_torch.inference import OverlapPredictor
 from mmla_audio_torch.models.overlap import ResBlock2D
 from mmla_audio_torch.ops.cuda_resblock import (FUSED_MAX_CHANNELS,
+                                                MMA_TILE_M, SM_SHARED_BYTES,
+                                                block_route, block_smem_bytes,
+                                                block_tilings,
                                                 check_block_width, fold_bn,
                                                 fused_resblock_cuda,
-                                                fused_resblock_plain)
+                                                fused_resblock_plain,
+                                                plan_block_tiles)
 
 torch.set_num_threads(1)
 
 PROBE = Path(__file__).resolve().parent.parent / "benchmarks" / \
     "fused_block_probe.py"
 TOL = dict(rtol=1e-4, atol=1e-5)
+H100_SMS = 132
+FULL_WIDTH = [(32, 64, 76), (64, 32, 38), (128, 16, 19)]
 
 
 @pytest.fixture(scope="module")
@@ -183,3 +190,74 @@ def test_block_width_bound(channels, ok):
         check_block_width(channels)
     with pytest.raises(ValueError, match="fused residual block"):
         OverlapPredictor({}, cfg, device="cuda")
+
+
+@pytest.mark.parametrize("channels,route", [
+    (3, "ffma"), (4, "ffma"), (8, "mma"), (12, "ffma"), (32, "mma"),
+    (64, "mma"), (128, "mma"), (256, "mma")])
+def test_block_route(channels, route):
+    """Every width with C % 8 == 0 takes the tensor-core kernel, any other
+    the FFMA kernel: the rule looks at the width only."""
+    assert block_route(channels) == route
+
+
+def _check_plan(plan, C, H, W, smem_limit):
+    assert plan.rows * plan.row_tiles >= H > plan.rows * (plan.row_tiles - 1)
+    assert plan.cols * plan.col_tiles >= W > plan.cols * (plan.col_tiles - 1)
+    assert plan.mt in MMA_TILE_M and plan.kc % 8 == 0 and plan.kc > 0
+    assert plan.smem_bytes == block_smem_bytes(C, plan.rows, plan.cols,
+                                               plan.kc)
+    assert plan.smem_bytes <= 227 * 1024
+    assert plan.ctas_per_sm * (plan.smem_bytes + 1024) <= smem_limit
+
+
+@pytest.mark.parametrize("batch", [1, 64, 200, 480])
+@pytest.mark.parametrize("C,H,W", FULL_WIDTH)
+def test_plan_full_width(C, H, W, batch):
+    """At the full-width model's stages the tiles cover the image exactly,
+    fit Hopper's shared memory, and let two CTAs share an SM; from B=64 on,
+    whole image columns (no middle row computed twice)."""
+    plan = plan_block_tiles(C, H, W, SM_SHARED_BYTES, batch, H100_SMS)
+    _check_plan(plan, C, H, W, SM_SHARED_BYTES)
+    assert plan.ctas_per_sm >= 2
+    assert 2 * (plan.smem_bytes + 1024) <= SM_SHARED_BYTES
+    if batch >= 64:
+        assert plan.rows == H and plan.kc >= 24
+
+
+@pytest.mark.parametrize("smem_limit", [SM_SHARED_BYTES, 160_000, 100_000])
+@pytest.mark.parametrize("C,H,W", [(128, 64, 76), (256, 16, 19),
+                                   (FUSED_MAX_CHANNELS // 8 * 8, 16, 19)])
+def test_plan_respects_limit(C, H, W, smem_limit):
+    """A wide block on a large image, or a card with less shared memory,
+    gets tiles that fit; one CTA per SM only when two cannot fit."""
+    for batch in (1, 480):
+        plan = plan_block_tiles(C, H, W, smem_limit, batch, H100_SMS)
+        _check_plan(plan, C, H, W, smem_limit)
+        if smem_limit == SM_SHARED_BYTES:
+            assert plan.ctas_per_sm == 2
+
+
+def test_plan_rejects_ffma_widths():
+    with pytest.raises(ValueError, match="C % 8 == 0"):
+        plan_block_tiles(12, 8, 9, SM_SHARED_BYTES, 1, H100_SMS)
+
+
+@pytest.mark.parametrize("batch", [1, 8, 64])
+@pytest.mark.parametrize("C,H,W", FULL_WIDTH)
+def test_plan_is_last_tiling_of_one_wave(C, H, W, batch):
+    """The tilings start at whole image columns and, as they go, compute no
+    fewer middle rows an output row and give no fewer CTAs; the plan is the
+    last whose CTAs fit one to an SM, or the first if none does."""
+    tilings = block_tilings(C, H, W)
+    assert tilings[0].rows == H
+    recompute = [min(p.rows + 3, H) / p.rows for p in tilings]
+    ctas = [batch * p.row_tiles * p.col_tiles for p in tilings]
+    assert recompute == sorted(recompute) and ctas == sorted(ctas)
+    plan = plan_block_tiles(C, H, W, SM_SHARED_BYTES, batch, H100_SMS)
+    i = tilings.index(plan)
+    if ctas[0] > H100_SMS:
+        assert i == 0
+    else:
+        assert ctas[i] <= H100_SMS
+        assert i + 1 == len(tilings) or ctas[i + 1] > H100_SMS
