@@ -5,14 +5,17 @@
 Builds the port's CUDA kernels from ``mmla_audio_torch/csrc`` (one nvcc
 per source, all at once), then:
 
-1. featurizer: kernel vs its plain PyTorch version on the card, B=1 and
-   B=64 seeded windows (|diff| <= 1 quantization step on < 2 % of pixels),
-   with CUDA-event timings of both;
+1. featurizer: kernel vs its plain PyTorch version on the card at B=1 (a
+   live window), 64, 200 and 480 (the post-time conversations) seeded
+   windows (|diff| <= 1 quantization step on < 2 % of pixels), with
+   CUDA-event timings of both and, as a yardstick for the FFT stage alone,
+   of ``torch.fft.rfft`` of the same windowed frames at B=480 (the port
+   never calls it);
    grouped: ``group=4`` on B=6 (a partial group) and ``group=2`` on
    ``time_dim=151`` (152 frames), each bit-equal to ``group=1``; at B=200,
-   480 (the post-time conversations), 1024 and 2400 every group bit-equal
-   to ``group=1``, within the budget of the plain version, and CUDA-event
-   timings of each group and the plain version beside the wrapper's pick;
+   480, 1024 and 2400 every group bit-equal to ``group=1``, within the
+   budget of the plain version, and CUDA-event timings of each group and
+   the plain version beside the wrapper's pick (G=1 at every batch);
 2. fused residual block: the tensor-core kernel (every width with C % 8 ==
    0) vs ``fused_resblock_plain`` at the three non-pooling shapes of the
    full-width model, B=1, 64, 200 and 480 (the last two are the post-time
@@ -27,18 +30,21 @@ per source, all at once), then:
    CPU must give the same labels; window-to-decision time;
 5. post-time: ``overlap_post_analyze`` over a 5-minute ``audio*`` recording
    (3 denoise passes, 200 windows) and a 12-minute ``zoom*`` one (480
-   windows, enough for ``pick_group`` to take the grouped featurizer),
-   the other main path whose launches are counted (the fused block's on the
-   tensor cores), on the card and on the CPU; labels equal where the CPU's
-   top-2 margin is above 1e-3; windows per
-   second on the host clock; then the CLI's ``overlap-post --weights``;
+   windows), the other main path whose launches are counted (the
+   featurizer at G=1, one launch a conversation, and the fused block on
+   the tensor cores), on the card and on the CPU; labels equal where the CPU's top-2
+   margin is above 1e-3; windows per second on the host clock; then the
+   CLI's ``overlap-post --weights``;
 6. CLI: ``python -m mmla_audio_torch.cli overlap-run -f <wav>``.
 
 The line before the last is a JSON object describing each kernel, with its
 bound: the larger of its bytes (each input read once, each output written
 once) over 3.35 TB/s and its fp32 FLOPs as 3xTF32 on the tensor cores (three
 TF32 products for each fp32 one at 495 TFLOP/s, 165 TFLOP/s of fp32 work,
-faster than the CUDA cores' 67 TFLOP/s), H100 SXM peaks.  The last line is
+faster than the CUDA cores' 67 TFLOP/s), H100 SXM peaks.  The featurizer's
+FLOPs are the least its function needs (a real FFT per frame, the banded
+mel product), not the dense GEMMs of the TPU kernel, whose bound the
+featurizer's log lines print beside it.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises, so nothing after it
 is printed and the exit code is not 0.  Without a CUDA device the script
 stops before doing anything.
@@ -82,8 +88,29 @@ def bound(flop: float, nbytes: float) -> dict:
 
 
 def featurizer_bound(batch: int) -> dict:
-    """DFT (re and im) and mel GEMMs of every frame; the windows in, the
-    images out and the bases read once."""
+    """The least work of the featurizer's function.  Per frame: the window
+    (win multiplies), a real FFT of win points as a win/2-point complex FFT
+    (5 n log2 n FLOPs, n = win/2) and its split into the win/2 + 1 bins
+    (16 FLOPs a bin), the power (3 a bin) and the banded mel product (2 per
+    nonzero weight, 394 at the default geometry): ~1.9 MFLOP a window.
+    Bytes: the windows in, the images out, the kernel's tables read once."""
+    from mmla_audio_torch.core.config import OverlapFeatureConfig
+    from mmla_audio_torch.ops.cuda_features import feature_tables
+
+    cfg = OverlapFeatureConfig()
+    tab = feature_tables(cfg)
+    win, T, M = cfg.win_length, cfg.n_frames, cfg.n_mels
+    n2 = win // 2
+    nnz = int((tab.mel_weight != 0).sum())
+    frame = win + 5 * n2 * np.log2(n2) + 19 * (n2 + 1) + 2 * nnz
+    nbytes = 4 * (batch * (cfg.n_samples + 3 * M * T) + 3 * win
+                  + tab.mel_weight.size + len(tab.radices) + 2 * M)
+    return bound(batch * T * frame, nbytes)
+
+
+def featurizer_dense_bound(batch: int) -> float:
+    """bound_ms of the TPU kernel's formulation (dense DFT and mel GEMMs,
+    the DFT bases read once), which the port's earlier tables used."""
     from mmla_audio_torch.core.config import OverlapFeatureConfig
 
     cfg = OverlapFeatureConfig()
@@ -92,7 +119,7 @@ def featurizer_bound(batch: int) -> dict:
     flop = batch * T * (4 * win * bins + 2 * bins * M)
     nbytes = 4 * (batch * (cfg.n_samples + 3 * M * T)
                   + 2 * win * bins + bins * M)
-    return bound(flop, nbytes)
+    return bound(flop, nbytes)["bound_ms"]
 
 
 def block_work(batch: int, C: int, H: int, W: int) -> tuple:
@@ -147,14 +174,20 @@ def speech_windows(n_windows: int, n: int, seed: int) -> np.ndarray:
     return np.stack([src.read(n) for _ in range(n_windows)])
 
 
+def feature_windows(batch: int, n: int, device) -> torch.Tensor:
+    """``batch`` float32 speech windows of ``n`` samples on ``device``,
+    seeded by ``batch``."""
+    return torch.from_numpy(speech_windows(batch, n, seed=batch)
+                            .astype(np.float32) / 32768.0).to(device)
+
+
 def phase_featurizer(device):
     from mmla_audio_torch.ops.cuda_features import overlap_model_input_cuda
     from mmla_audio_torch.ops.features import overlap_model_input
 
     result = {}
-    for batch in (1, 64):
-        y = torch.from_numpy(speech_windows(batch, 24000, seed=batch)
-                             .astype(np.float32) / 32768.0).to(device)
+    for batch in (1, 64) + POST_BATCHES:
+        y = feature_windows(batch, 24000, device)
         got = overlap_model_input_cuda(y)
         torch.cuda.synchronize()
         err, share = check_budget(f"featurizer B={batch}", got,
@@ -164,15 +197,41 @@ def phase_featurizer(device):
         kern_a = time_ms(overlap_model_input_cuda, y)
         kern_b = time_ms(overlap_model_input_cuda, y)
         plain_b = time_ms(overlap_model_input, y)
+        bnd = featurizer_bound(batch)
         result[batch] = dict(max_abs_err=err, share=share,
                              ms=min(kern_a, kern_b),
                              plain_ms=min(plain_a, plain_b),
-                             **featurizer_bound(batch), library_ms=None)
+                             **bnd, library_ms=None)
         log(f"[featurizer] B={batch}: max |diff| {err} on {share:.4%} of "
             f"pixels (budget {BUDGET_STEP} on < {BUDGET_SHARE:.0%}); kernel "
             f"{kern_a:.4f}/{kern_b:.4f} ms, plain {plain_a:.4f}/"
-            f"{plain_b:.4f} ms")
+            f"{plain_b:.4f} ms; bound {bnd['bound_ms']:.4f} ms "
+            f"({bnd['bound_by']}), dense-GEMM bound "
+            f"{featurizer_dense_bound(batch):.4f} ms")
+        if batch == max(POST_BATCHES):
+            log(f"[featurizer] yardstick, FFT stage alone: torch.fft.rfft of "
+                f"the B={batch} windowed frames {rfft_ms(y):.4f} ms")
     return result
+
+
+def rfft_ms(y) -> float:
+    """CUDA-event time of ``torch.fft.rfft`` of ``y``'s reflect-padded,
+    Hann-windowed frames, with their power: the FFT stage of the featurizer
+    alone, as a library computes it."""
+    from mmla_audio_torch.core.config import OverlapFeatureConfig
+    from mmla_audio_torch.ops.spectral import frame_signal, hann_periodic, pad_last
+
+    cfg = OverlapFeatureConfig()
+    win = cfg.win_length
+    frames = frame_signal(pad_last(y, win // 2, win // 2, "reflect"), win,
+                          cfg.hop_length, cfg.n_frames)
+    frames = (frames * torch.from_numpy(hann_periodic(win)).to(y.device)
+              ).contiguous()
+
+    def power(x):
+        return torch.fft.rfft(x).abs().square()
+
+    return time_ms(power, frames, reps=5)
 
 
 def check_budget(name, got, ref):
@@ -188,18 +247,12 @@ def check_budget(name, got, ref):
 def phase_grouped(device):
     from mmla_audio_torch.core.config import OverlapFeatureConfig
     from mmla_audio_torch.ops.cuda_features import (GROUPS,
-                                                    overlap_model_input_cuda,
-                                                    pick_group)
+                                                    overlap_model_input_cuda)
     from mmla_audio_torch.ops.features import overlap_model_input
-
-    def windows(batch, cfg):
-        return torch.from_numpy(speech_windows(batch, cfg.n_samples,
-                                               seed=batch).astype(np.float32)
-                                / 32768.0).to(device)
 
     for batch, time_dim, group in ((6, 150, 4), (4, 151, 2)):
         cfg = OverlapFeatureConfig(time_dim=time_dim)
-        y = windows(batch, cfg)
+        y = feature_windows(batch, cfg.n_samples, device)
         got = overlap_model_input_cuda(y, cfg, group=group)
         if not torch.equal(got, overlap_model_input_cuda(y, cfg, group=1)):
             raise AssertionError(f"grouped featurizer B={batch} G={group}: "
@@ -208,12 +261,11 @@ def phase_grouped(device):
                                   got, overlap_model_input(y, cfg))
         log(f"[grouped] B={batch} T={cfg.n_frames} G={group}: bit-equal to "
             f"G=1; max |diff| {err} on {share:.4%} of pixels")
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
     cfg = OverlapFeatureConfig()
     result = None
+    grouped = [g for g in GROUPS if g > 1]
     for batch in POST_BATCHES + (1024, 2400):
-        y = windows(batch, cfg)
-        picked = pick_group(batch, sms)
+        y = feature_windows(batch, cfg.n_samples, device)
         outs = {g: overlap_model_input_cuda(y, cfg, group=g) for g in GROUPS}
         if not all(torch.equal(outs[1], outs[g]) for g in GROUPS):
             raise AssertionError(f"grouped featurizer B={batch}: the groups "
@@ -230,14 +282,12 @@ def phase_grouped(device):
                 times[g].append(time_ms(overlap_model_input_cuda, y, cfg, g,
                                         reps=5))
         log(f"[grouped] B={batch}: every G bit-equal to G=1; max |diff| {err}"
-            f" on {share:.4%} of pixels; pick_group takes G={picked}; " +
+            f" on {share:.4%} of pixels; the wrapper takes G=1; " +
             ", ".join(f"{'plain' if g == 'plain' else f'G={g}'} "
                       f"{t[0]:.4f}/{t[1]:.4f} ms" for g, t in times.items()))
         if batch == max(POST_BATCHES):
-            if picked == 1:
-                raise AssertionError(f"pick_group takes G=1 at the post-time "
-                                     f"batch {batch} on {sms} SMs")
-            result = dict(max_abs_err=err, ms=min(times[picked]),
+            best = min(grouped, key=lambda g: min(times[g]))
+            result = dict(max_abs_err=err, group=best, ms=min(times[best]),
                           plain_ms=min(times["plain"]),
                           **featurizer_bound(batch), library_ms=None)
     return result
@@ -414,6 +464,7 @@ def phase_post(device, tree, state_dict, cfg, noise, tmp: Path):
         pred = ProbsTap(OverlapPredictor(state_dict, cfg.overlap_model,
                                          device=dev,
                                          matmul_precision="highest"))
+        overlap_model_input_cuda.launches = 0
         overlap_model_input_cuda.launches_grouped = 0
         fused_resblock_cuda.launches = fused_resblock_cuda.launches_mma = 0
         t0 = time.perf_counter()
@@ -422,7 +473,8 @@ def phase_post(device, tree, state_dict, cfg, noise, tmp: Path):
         if dev != "cpu":
             torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = (overlap_model_input_cuda.launches_grouped,
+        launches = (overlap_model_input_cuda.launches,
+                    overlap_model_input_cuda.launches_grouped,
                     fused_resblock_cuda.launches_mma)
         rows = {name: parse_log(path) for name, path in logs.items()}
         for name, (_, n_rows) in recordings.items():
@@ -434,19 +486,22 @@ def phase_post(device, tree, state_dict, cfg, noise, tmp: Path):
         n_windows = sum(n for _, n in recordings.values())
         log(f"[post] {key}: {n_windows} windows in {seconds:.3f} s = "
             f"{n_windows / seconds:.1f} windows/s (host clock, standardize "
-            f"+ denoise + predict + logs + charts); launches: grouped "
-            f"featurizer {launches[0]}, fused block on the tensor cores "
-            f"{launches[1]}")
+            f"+ denoise + predict + logs + charts); launches: featurizer "
+            f"{launches[0]} one-window, {launches[1]} grouped; fused block "
+            f"on the tensor cores {launches[2]}")
         if key not in runs:                  # the card's first run counts
             runs[key] = dict(rows=rows, probs=pred.probs, launches=launches,
                              wps=n_windows / seconds)
         else:
             runs[key]["wps_warm"] = n_windows / seconds
     card, cpu = runs["card"], runs["cpu"]
-    if min(card["launches"]) <= 0:
-        raise AssertionError(f"post-time on the card launched the grouped "
-                             f"featurizer / tensor-core fused block "
-                             f"{card['launches']} times")
+    # the featurizer at G=1, one launch a conversation
+    want = (len(recordings), 0)
+    if tuple(card["launches"][:2]) != want or card["launches"][2] <= 0:
+        raise AssertionError(f"post-time on the card launched the featurizer"
+                             f" (one-window, grouped) {card['launches'][:2]}"
+                             f" times, want {want}; the tensor-core fused "
+                             f"block {card['launches'][2]} times")
     decided = agree = 0
     for i, name in enumerate(sorted(recordings)):
         top2 = np.sort(cpu["probs"][i], axis=1)
@@ -576,15 +631,17 @@ def main() -> int:
                 "source": f"mmla_audio_torch/csrc/{source}",
                 "replaces": replaces, "launches": n, **measured}
 
+    # launches: the session's and the post-time pass's, each counted from 0
     log(json.dumps({"kernels": [
         entry("overlap_features", "overlap_features.cu",
-              "mmla_audio_tpu/ops/pallas_features.py:44", launches, feat[1]),
+              "mmla_audio_tpu/ops/pallas_features.py:44",
+              launches + post["launches"][0], feat[1]),
         entry("overlap_features_grouped", "overlap_features.cu",
               "mmla_audio_tpu/ops/pallas_features.py:90",
-              post["launches"][0], grouped),
+              post["launches"][1], grouped),
         entry("fused_resblock", "fused_resblock.cu",
-              "benchmarks/fused_block_probe.py:64", post["launches"][1],
-              block),
+              "benchmarks/fused_block_probe.py:64",
+              block_launches + post["launches"][2], block),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,7 +38,7 @@ CUDA_KERNELS = {
     "overlap_features": (
         _PKG / "csrc" / "overlap_features.cu",
         {"overlap_features_launch":
-         [_P, _LL, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]}),
+         [_P, _LL, _I, _I, _P, _P, _P] + [_I] * 7 + [_P]}),
     "fused_resblock": (
         _PKG / "csrc" / "fused_resblock.cu",
         {"fused_resblock_launch": [_P] * 10 + [_I] * 4 + [_P],

@@ -9,7 +9,8 @@
 ``--weights PATH.npz`` loads the model from the flat ``.npz`` that
 ``params.py`` documents; without it the weights are random-init from
 ``--seed`` (Keras initializers, as the JAX CLI without ``--ckpt``).
-``--device`` defaults to the card when there is one.
+``--device`` defaults to ``cuda``; a run without a card fails unless it
+asks for ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -27,9 +28,7 @@ from mmla_audio_torch.core.config import PipelineConfig, VadConfig
 
 
 def _device(args) -> torch.device:
-    if args.device:
-        return torch.device(args.device)
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    return torch.device(args.device or "cuda")
 
 
 def _cfg(args) -> PipelineConfig:
@@ -174,8 +173,8 @@ def main(argv=None):
                        help="seed of the random-init weights (and of the "
                             "fake source)")
         p.add_argument("--device", default=None,
-                       help="torch device; default: cuda if available, "
-                            "else cpu")
+                       help="torch device (default cuda; pass cpu to run "
+                            "without a card)")
         p.add_argument("--precision", choices=["auto", "highest"],
                        default="auto",
                        help="model convs/LSTM/GEMMs: 'auto' allows TF32 on "

@@ -3,308 +3,448 @@
 // Replaces the TPU kernels `_kernel` (wrapper `_pallas_impl`) and
 // `_kernel_grouped` (wrapper `_pallas_impl_grouped`) of
 // mmla_audio_tpu/ops/pallas_features.py, public `overlap_model_input_pallas`.
-// Per window: reflect-padded framing, Hann-windowed real DFT, power, mel
-// projection (mel columns pre-reversed on the host, so rows come out
-// flipped), power_to_db (ref = window max, amin 1e-10, top_db 80), min-max
-// normalize, ZCR on edge-padded frames (/win), PNG quantize
-// floor(clip(x, 0, 1) * 255).  Output (B, 3, M, T) float32 holding integers
-// 0..255; R = ZCR, G = B = 1 - norm.
+// Per window: reflect-padded framing, periodic-Hann window, power spectrum,
+// mel projection (rows in image order, i.e. flipped), power_to_db (ref =
+// window max, amin 1e-10, top_db 80), min-max normalize, ZCR on edge-padded
+// frames (/win), PNG quantize floor(clip(x, 0, 1) * 255).  Output (B, 3, M, T)
+// float32 holding integers 0..255; R = ZCR, G = B = 1 - norm.
 //
-// What bounds it: at the default geometry (24000 samples, win 400, hop 160,
-// 151 frames, 201 bins, 128 mels) one window needs ~56 MFLOP of fp32 (DFT
-// 48.6, mel 7.8), reads 96 KB of signal and writes 232 KB.  The DFT bases
-// (2 x 400 x 201 f32, 643 KB) and the mel matrix (103 KB) are shared by all
-// windows and stay in L2; the loop is bound by the latency of those basis
-// loads, so every basis value read feeds kFrames = 40 FMAs.
+// The TPU kernels ran the DFT and the mel projection as dense GEMMs on the
+// MXU: 56 MFLOP a window at the default geometry (24000 samples, win 400,
+// hop 160, 151 frames, 201 bins, 128 mels).  The function needs ~30x less:
+// a real FFT of 400 points is a 200-point complex FFT of z[n] = x[2n] +
+// i x[2n+1] (radix 5, 5, 8) and a split step, and the mel matrix has 394
+// nonzeros of 25,728, one contiguous band of 1..9 bins a row.  The least
+// time is then the bytes: 96 KB of samples in, 232 KB of image out a window.
+// What bounds this kernel is the SM's instruction issue and the latency of
+// each frame's dependent steps (framing, three butterfly stages, split,
+// mel band; each warp's steps wait on shared memory), not memory: a
+// window takes ~50 us on one SM whatever the batch (PERF.md).
 //
-// Design: one CTA holds G windows (G = 1, 2 or 4, the template parameter;
-// the TPU kernel's "group").  Each DFT pass computes F = 40 / G frames of
-// each of its G windows, so a thread accumulates 40 frames whichever G is
-// (registers allow ~40, see PERF.md) and the G windows share each basis load.
-// Each pass stages only its span of each window's reflect-padded signal,
-// (F - 1) * hop + win samples (26.5 KB at G = 1).  The window's (M, T) mel
-// tile (77 KB) stays in shared memory at G = 1 (137 KB per CTA); it does not
-// fit G times, so at G > 1 it goes to plane 1 of the window's own output
-// image and the epilogue reads it back from L2 (61-71 KB per CTA, two CTAs
-// per SM: the register file is the limit).  Frames are exactly T per window; the TPU
-// kernel's padding to 152 rows was sublane tiling and is not copied.  A CTA
-// whose last group is partial neither reads nor writes past the batch.  All
-// arithmetic is IEEE fp32 on the CUDA cores (no tensor cores, so no TF32), as
-// the TPU kernel ran its GEMMs at Precision.HIGHEST; every G gives the same
-// bits, since each (frame, bin) and (frame, mel) sum runs in the same order.
+// Design: one warp owns one frame at a time.  It reads its samples from
+// global memory (L1/L2: neighbouring frames overlap; a frame inside the
+// signal reads each sample pair once, as 8 bytes), windows and packs them
+// into a per-warp buffer, runs Stockham stages ping-pong between two
+// per-warp buffers in shared memory (only __syncwarp between stages), forms
+// the 201 powers, and each lane sums four mel rows side by side over their
+// bands.  ZCR is a ballot over the loaded samples' signs.  Each mel value
+// goes into the window's (M, T) tile as 10 log10(max(mel, amin)); the warp
+// also keeps the window's max mel and min/max of that log, so the epilogue
+// needs one pass: dB = log - ref_db is monotone in the log, so its extremes
+// are those of the log shifted.  The host tables (window, twiddles
+// exp(-2 pi i m / win) computed in float64 and rounded to f32, FFT plan, mel
+// bands) are `feature_tables` in ops/cuda_features.py.  A CTA has 1024
+// threads: 32 warps hide each other's latency, the most the register file
+// holds at 64 registers (one CTA an SM, 184 KB of shared memory); a longer
+// window whose per-warp buffers do not fit halves the block until they do.
+//
+// G (the TPU kernel's "group") windows per CTA: at G = 1 the tile stays in
+// shared memory (77 KB); at G > 1 it goes to plane 1 of each window's own
+// output image and the epilogue reads it back from L2.  G > 1 was slower at
+// every batch measured and is not picked.  Every G gives the same bits: each
+// value is computed by the same code whatever warp or CTA runs it, and the
+// statistics are max/min.  A CTA whose last group is partial neither reads
+// nor writes past the batch.  All arithmetic is IEEE fp32 on the CUDA cores
+// (no tensor cores, no TF32).  The banded mel sum runs in ascending bin order
+// with fmaf, as the dense sum did: the bins it skips have weight exactly 0,
+// which leaves fmaf's sum unchanged.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kFrames = 40;        // frames per DFT pass over all G windows (multiple of 8)
-constexpr int kStage = 8;          // staged samples in flight per thread
+constexpr unsigned kFull = 0xffffffffu;
 constexpr float kAmin = 1e-10f;    // power_to_db amin
 constexpr float kSnap = 1e-10f;    // zero_crossing_rate threshold
 constexpr float kTopDb = 80.0f;
 
 __host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
 
-struct MaxOp {
-  __device__ float operator()(float a, float b) const { return fmaxf(a, b); }
-};
-struct MinOp {
-  __device__ float operator()(float a, float b) const { return fminf(a, b); }
-};
-
-// Reduce over the block; every thread gets the result.
-template <class Op>
-__device__ float block_reduce(float v, Op op, float* scratch) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();                 // earlier readers of scratch are done
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  v = scratch[0];
-  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) v = op(v, scratch[w]);
-  return v;
-}
-
 __device__ inline float quantize(float x) {
   return floorf(fminf(fmaxf(x, 0.0f), 1.0f) * 255.0f);
 }
 
-// power_to_db before the top_db clamp.  The __f*_rn intrinsics keep nvcc
-// from contracting into FMAs, so the rounding matches the reference's
-// separate multiply and subtract.
-__device__ inline float to_db(float mel, float ref_db) {
-  return __fsub_rn(__fmul_rn(10.0f, log10f(fmaxf(mel, kAmin))), ref_db);
+__device__ inline float2 cmul(float2 a, float2 w) {
+  return make_float2(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x);
+}
+__device__ inline float2 operator+(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
+__device__ inline float2 operator-(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
+__device__ inline float2 operator*(float s, float2 a) { return make_float2(s * a.x, s * a.y); }
+__device__ inline float2 mul_mi(float2 a) { return make_float2(a.y, -a.x); }   // -i a
+
+// In-place forward DFT of R points, exp(-2 pi i r s / R).
+template <int R> __device__ inline void dft(float2* a);
+
+template <> __device__ inline void dft<2>(float2* a) {
+  const float2 t = a[1];
+  a[1] = a[0] - t;
+  a[0] = a[0] + t;
 }
 
-// Staged samples per window: one pass's frames.
-__host__ __device__ inline int span_of(int G, int hop, int win) {
-  return round4((kFrames / G - 1) * hop + win);
+template <> __device__ inline void dft<3>(float2* a) {
+  const float s = 0.86602540378443865f;          // sin(2 pi / 3)
+  const float2 t1 = a[1] + a[2], t2 = a[1] - a[2];
+  const float2 b = a[0] - 0.5f * t1;
+  const float2 c = s * mul_mi(t2);
+  a[0] = a[0] + t1;
+  a[1] = b + c;
+  a[2] = b - c;
 }
 
-template <int G>
-__global__ void __launch_bounds__(kThreads)
+template <> __device__ inline void dft<4>(float2* a) {
+  const float2 b0 = a[0] + a[2], b1 = a[0] - a[2];
+  const float2 b2 = a[1] + a[3], b3 = mul_mi(a[1] - a[3]);
+  a[0] = b0 + b2;
+  a[2] = b0 - b2;
+  a[1] = b1 + b3;
+  a[3] = b1 - b3;
+}
+
+template <> __device__ inline void dft<5>(float2* a) {
+  const float c1 = 0.30901699437494742f, c2 = -0.80901699437494742f;  // cos(2 pi / 5), cos(4 pi / 5)
+  const float s1 = 0.95105651629515357f, s2 = 0.58778525229247313f;   // sin(2 pi / 5), sin(4 pi / 5)
+  const float2 t1 = a[1] + a[4], t2 = a[2] + a[3];
+  const float2 t3 = a[1] - a[4], t4 = a[2] - a[3];
+  const float2 b1 = a[0] + c1 * t1 + c2 * t2;
+  const float2 b2 = a[0] + c2 * t1 + c1 * t2;
+  const float2 d1 = mul_mi(s1 * t3 + s2 * t4);
+  const float2 d2 = mul_mi(s2 * t3 - s1 * t4);
+  a[0] = a[0] + t1 + t2;
+  a[1] = b1 + d1;
+  a[4] = b1 - d1;
+  a[2] = b2 + d2;
+  a[3] = b2 - d2;
+}
+
+template <> __device__ inline void dft<8>(float2* a) {
+  const float h = 0.70710678118654752f;          // sqrt(1/2)
+  const float2 b0 = a[0] + a[4], b1 = a[0] - a[4];
+  const float2 b2 = a[2] + a[6], b3 = mul_mi(a[2] - a[6]);
+  const float2 b4 = a[1] + a[5], b5 = a[1] - a[5];
+  const float2 b6 = a[3] + a[7], b7 = mul_mi(a[3] - a[7]);
+  const float2 e0 = b0 + b2, e2 = b0 - b2, e1 = b1 + b3, e3 = b1 - b3;   // DFT4 of the even
+  const float2 o0 = b4 + b6, o2 = b4 - b6, o1 = b5 + b7, o3 = b5 - b7;   // and odd points
+  const float2 w1 = make_float2(h * (o1.x + o1.y), h * (o1.y - o1.x));   // W8 o1
+  const float2 w2 = mul_mi(o2);                                          // W8^2 o2
+  const float2 w3 = make_float2(h * (o3.y - o3.x), -h * (o3.x + o3.y));  // W8^3 o3
+  a[0] = e0 + o0;
+  a[4] = e0 - o0;
+  a[1] = e1 + w1;
+  a[5] = e1 - w1;
+  a[2] = e2 + w2;
+  a[6] = e2 - w2;
+  a[3] = e3 + w3;
+  a[7] = e3 - w3;
+}
+
+// One Stockham stage of radix R over an n2-point sequence; p is the product
+// of the earlier stages' radices.  Butterfly i reads x[i + r S] (S = n2 / R),
+// twiddles input r by W^(k r) with k = i mod p and W = exp(-2 pi i / (p R))
+// (table index k r tstep, tstep = win / (p R)), and writes y[(i - k) R + k +
+// r p].  The 32 lanes of the warp share the butterflies.
+template <int R>
+__device__ inline void stage(const float2* x, float2* y, int n2, int p, int tstep,
+                             const float2* tw, int lane) {
+  const int S = n2 / R;
+  for (int i = lane; i < S; i += 32) {
+    const int k = i % p;
+    float2 a[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) a[r] = x[i + r * S];
+    if (k != 0) {
+#pragma unroll
+      for (int r = 1; r < R; ++r) a[r] = cmul(a[r], tw[k * r * tstep]);
+    }
+    dft<R>(a);
+    const int j = (i - k) * R + k;
+#pragma unroll
+    for (int r = 0; r < R; ++r) y[j + r * p] = a[r];
+  }
+}
+
+__device__ inline int reflect(int i, int n) {
+  return i < 0 ? -i : (i >= n ? 2 * (n - 1) - i : i);
+}
+
+// Window statistics a warp kept over its frames: max mel, min and max of
+// 10 log10(max(mel, amin)); merged into stats[(g, warp)] by lane 0.
+__device__ inline void flush_stats(float mx, float lmn, float lmx, float* slot, int lane) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+    lmn = fminf(lmn, __shfl_xor_sync(kFull, lmn, o));
+    lmx = fmaxf(lmx, __shfl_xor_sync(kFull, lmx, o));
+  }
+  if (lane == 0) {
+    slot[0] = mx;
+    slot[1] = lmn;
+    slot[2] = lmx;
+  }
+}
+
+constexpr int kRows = 4;           // mel rows a lane sums at once
+
+// Shared memory of one CTA, in floats.
+__host__ __device__ inline size_t smem_floats(int win, int T, int M, int K, int G, int nwarps) {
+  return (size_t)2 * win                       // twiddles (win float2)
+         + (size_t)nwarps * 2 * win            // two buffers of win/2 float2 per warp
+         + round4(K * M) + round4(2 * M)       // mel band weights, first bins and sizes
+         + round4(G * T)                       // quantized ZCR (G, T)
+         + round4(G * nwarps * 3)              // statistics (G, nwarps, 3)
+         + (G == 1 ? (size_t)round4(M * T) : 0);  // the window's tile, G = 1
+}
+
+// ftab: float32 [window (win)] [twiddles (win, 2)] [mel weights (K, M)];
+// itab: int32 [radices (nrad)] [mel first bin (M)] [mel band size (M)].
+template <bool kTileInSmem>
+__global__ void __launch_bounds__(1024)
 overlap_features_kernel(const float* __restrict__ y, long long row_stride, int B, int n,
-                        const float* __restrict__ cosb, const float* __restrict__ sinb,
-                        const float* __restrict__ melb, float* out,
-                        int win, int hop, int T, int M) {
-  constexpr int F = kFrames / G;             // frames of each window per pass
+                        const float* __restrict__ ftab, const int* __restrict__ itab,
+                        float* out, int win, int hop, int T, int M, int K, int nrad, int G) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int half = win / 2;
-  const int bins = win / 2 + 1;
-  const int pstride = round4(bins);
-  const int span = span_of(G, hop, win);
-  float* sig = smem;                         // (G, span) reflect-padded samples
-  float* pw = sig + G * span;                // (kFrames, pstride) power spectrum, row g * F + f
-  float* zcr = pw + kFrames * pstride;       // (G, T)
-  float* scratch = zcr + round4(G * T);      // (32,) reduction scratch
-  float* melt = scratch + 32;                // (M, T) mel tile, G = 1 only
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int n2 = win / 2;
+  float2* tw = reinterpret_cast<float2*>(smem4);            // (win,)
+  float2* za = tw + win + warp * win;                       // this warp's two buffers
+  float2* zb = za + n2;
+  float* melw = reinterpret_cast<float*>(tw + win + nwarps * win);  // (K, M)
+  int* mel_first = reinterpret_cast<int*>(melw + round4(K * M));     // (M,)
+  int* mel_count = mel_first + M;                                    // (M,)
+  float* zq = melw + round4(K * M) + round4(2 * M);         // (G, T)
+  float* stats = zq + round4(G * T);                        // (G, nwarps, 3)
+  float* tile = stats + round4(G * nwarps * 3);             // (M, T), G = 1
 
+  const float2* window2 = reinterpret_cast<const float2*>(ftab);
   const int b0 = blockIdx.x * G;
   const int MT = M * T;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31, nwarps = blockDim.x >> 5;
 
-  for (int t0 = 0; t0 < T; t0 += F) {
-    const int nf = min(F, T - t0);           // frames of this pass
-    const int len = (nf - 1) * hop + win;    // padded samples they cover
-    const int origin = t0 * hop - half;      // signal index of the span's first sample
-    __syncthreads();                         // the previous pass is done with sig and pw
+  for (int i = tid; i < win; i += blockDim.x)
+    tw[i] = __ldg(reinterpret_cast<const float2*>(ftab + win) + i);
+  for (int i = tid; i < K * M; i += blockDim.x) melw[i] = __ldg(ftab + 3 * win + i);
+  for (int i = tid; i < 2 * M; i += blockDim.x) mel_first[i] = __ldg(itab + nrad + i);
+  for (int i = tid; i < G * nwarps; i += blockDim.x) {
+    stats[3 * i] = -INFINITY;
+    stats[3 * i + 1] = INFINITY;
+    stats[3 * i + 2] = -INFINITY;
+  }
+  __syncthreads();
 
-    // 1. stage each window's span, reflect padding by index arithmetic (the
-    // TPU version pre-gathered frames); windows past the batch stage zeros.
-    // Each thread issues its loads before its stores, so they are in flight
-    // together.
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float* yg = y + (long long)(b0 + g) * row_stride;
-      const bool live = b0 + g < B;
-      for (int p0 = 0; p0 < span; p0 += kStage * kThreads) {
-        float v[kStage];
-#pragma unroll
-        for (int u = 0; u < kStage; ++u) {
-          const int p = p0 + u * kThreads + tid;
-          int i = origin + p;
-          if (i < 0) i = -i;
-          else if (i >= n) i = 2 * (n - 1) - i;
-          v[u] = live && p < len ? yg[i] : 0.0f;
+  // frames: warp w takes frames w, w + nwarps, ... of the CTA's G windows
+  int cur = -1;
+  float mx = -INFINITY, lmn = INFINITY, lmx = -INFINITY;
+  for (int f = warp; f < G * T; f += nwarps) {
+    const int g = f / T, t = f - g * T;
+    if (b0 + g >= B) break;
+    if (g != cur) {
+      if (cur >= 0) flush_stats(mx, lmn, lmx, stats + 3 * (cur * nwarps + warp), lane);
+      cur = g;
+      mx = -INFINITY;
+      lmn = INFINITY;
+      lmx = -INFINITY;
+    }
+    const float* yg = y + (long long)(b0 + g) * row_stride;
+    const int i0 = t * hop - n2;                 // the frame's first signal index
+    __syncwarp();                                // the last frame's readers are done
+
+    // 1-2. the frame windowed and packed as z[p] = x[2p] + i x[2p+1], and
+    // the zero crossings of the edge-padded frame: sample j is negative
+    // when below -snap (|x| <= snap snaps to +0); a ballot gives 32 samples'
+    // signs at a time.  A frame inside the signal (no padding: reflect and
+    // edge agree) reads each sample pair once, as 8 bytes.
+    int cnt = 0;
+    unsigned prev = 0;                           // sign of the previous chunk's last sample
+    if (i0 >= 0 && i0 + win <= n && (reinterpret_cast<uintptr_t>(yg + i0) & 7) == 0) {
+      const float2* y2 = reinterpret_cast<const float2*>(yg + i0);
+      for (int c = 0; c < n2; c += 32) {
+        const int p = c + lane;
+        const bool in = p < n2;
+        const float2 v = in ? __ldg(y2 + p) : make_float2(0.0f, 0.0f);
+        if (in) {
+          const float2 w = __ldg(window2 + p);
+          za[p] = make_float2(__fmul_rn(v.x, w.x), __fmul_rn(v.y, w.y));
         }
-#pragma unroll
-        for (int u = 0; u < kStage; ++u) {
-          const int p = p0 + u * kThreads + tid;
-          if (p < span) sig[g * span + p] = v[u];
-        }
+        const unsigned e = __ballot_sync(kFull, in && v.x < -kSnap);   // samples 2p
+        const unsigned o = __ballot_sync(kFull, in && v.y < -kSnap);   // samples 2p + 1
+        const unsigned valid = __ballot_sync(kFull, in);
+        unsigned d = e ^ ((o << 1) | prev);      // pairs (2p - 1, 2p)
+        if (c == 0) d &= ~1u;                    // sample 0 has no predecessor
+        cnt += __popc((e ^ o) & valid) + __popc(d & valid);
+        prev = o >> 31;
+      }
+    } else {
+      for (int p = lane; p < n2; p += 32) {      // reflect padding
+        const float2 w = __ldg(window2 + p);
+        const float a = __ldg(yg + reflect(i0 + 2 * p, n));
+        const float b = __ldg(yg + reflect(i0 + 2 * p + 1, n));
+        za[p] = make_float2(__fmul_rn(a, w.x), __fmul_rn(b, w.y));
+      }
+      for (int c = 0; c < win; c += 32) {        // edge padding
+        const int j = c + lane;
+        const bool in = j < win;
+        const float v = in ? __ldg(yg + min(max(i0 + j, 0), n - 1)) : 0.0f;
+        const unsigned neg = __ballot_sync(kFull, in && v < -kSnap);
+        const unsigned valid = __ballot_sync(kFull, in);
+        unsigned d = (neg ^ ((neg << 1) | prev)) & valid;
+        if (c == 0) d &= ~1u;
+        cnt += __popc(d);
+        prev = neg >> 31;
       }
     }
-    __syncthreads();
+    if (lane == 0) zq[g * T + t] = quantize((float)cnt / (float)win);   // librosa divides by win
+    __syncwarp();
 
-    // 2. zero-crossing rate on edge-padded frames: one warp per frame.
-    // Edge padding clamps the signal index; the clamped sample lies in the
-    // span.  signbit(|z| <= snap ? 0 : z) is z < -snap.
-    for (int r = warp; r < G * nf; r += nwarps) {
-      const int g = r / nf, t = t0 + (r - g * nf);
-      const float* s = sig + g * span - origin;
-      int cnt = 0;
-      for (int j = lane; j < win - 1; j += 32) {
-        const int i0 = t * hop + j - half;
-        const float a = s[min(max(i0, 0), n - 1)];
-        const float b = s[min(max(i0 + 1, 0), n - 1)];
-        cnt += (a < -kSnap) != (b < -kSnap);
+    // 3. n2-point complex FFT, Stockham stages ping-pong between za and zb
+    float2* src = za;
+    float2* dst = zb;
+    for (int s = 0, p = 1; s < nrad; ++s) {
+      const int R = __ldg(itab + s);
+      const int tstep = win / (p * R);
+      switch (R) {
+        case 2: stage<2>(src, dst, n2, p, tstep, tw, lane); break;
+        case 3: stage<3>(src, dst, n2, p, tstep, tw, lane); break;
+        case 4: stage<4>(src, dst, n2, p, tstep, tw, lane); break;
+        case 5: stage<5>(src, dst, n2, p, tstep, tw, lane); break;
+        default: stage<8>(src, dst, n2, p, tstep, tw, lane); break;
       }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) cnt += __shfl_xor_sync(0xffffffffu, cnt, o);
-      if (lane == 0) zcr[g * T + t] = (float)cnt / (float)win;   // librosa divides by win
+      __syncwarp();
+      float2* tmp = src;
+      src = dst;
+      dst = tmp;
+      p *= R;
     }
 
-    // 3. DFT power of the pass's frames; a ragged last pass repeats a frame
-    for (int k = tid; k < bins; k += blockDim.x) {
-      float re[kFrames], im[kFrames];
-      int base[kFrames];
-#pragma unroll
-      for (int r = 0; r < kFrames; ++r) {
-        re[r] = 0.0f;
-        im[r] = 0.0f;
-        base[r] = (r / F) * span + min(r % F, nf - 1) * hop;
-      }
-      for (int j = 0; j < win; j += 4) {
-        const float c0 = cosb[(j + 0) * bins + k], s0 = sinb[(j + 0) * bins + k];
-        const float c1 = cosb[(j + 1) * bins + k], s1 = sinb[(j + 1) * bins + k];
-        const float c2 = cosb[(j + 2) * bins + k], s2 = sinb[(j + 2) * bins + k];
-        const float c3 = cosb[(j + 3) * bins + k], s3 = sinb[(j + 3) * bins + k];
-#pragma unroll
-        for (int r = 0; r < kFrames; ++r) {
-          const float4 x = *reinterpret_cast<const float4*>(sig + base[r] + j);
-          re[r] = fmaf(x.x, c0, re[r]);
-          im[r] = fmaf(x.x, s0, im[r]);
-          re[r] = fmaf(x.y, c1, re[r]);
-          im[r] = fmaf(x.y, s1, im[r]);
-          re[r] = fmaf(x.z, c2, re[r]);
-          im[r] = fmaf(x.z, s2, im[r]);
-          re[r] = fmaf(x.w, c3, re[r]);
-          im[r] = fmaf(x.w, s3, im[r]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kFrames; ++r)
-        pw[r * pstride + k] = __fadd_rn(__fmul_rn(re[r], re[r]), __fmul_rn(im[r], im[r]));
+    // 4. split into the real FFT's bins 0..n2: X[k] = E[k] + W^k O[k] with
+    // E = (Z[k] + conj Z[n2-k]) / 2, O = (Z[k] - conj Z[n2-k]) / 2i; power
+    float* pw = reinterpret_cast<float*>(dst);
+    for (int k = lane; k <= n2; k += 32) {
+      const float2 a = src[k == n2 ? 0 : k];
+      const float2 b = src[k == 0 ? 0 : n2 - k];
+      const float2 e = make_float2(0.5f * (a.x + b.x), 0.5f * (a.y - b.y));
+      const float2 o = make_float2(0.5f * (a.y + b.y), -0.5f * (a.x - b.x));
+      const float2 x = e + cmul(o, tw[k]);
+      pw[k] = __fadd_rn(__fmul_rn(x.x, x.x), __fmul_rn(x.y, x.y));
     }
-    __syncthreads();
+    __syncwarp();
 
-    // 4. mel power into the tile (G = 1) or plane 1 of each window's image;
-    // each item: one mel row m for 8 consecutive rows of pw
-    for (int q = tid; q < M * (kFrames / 8); q += blockDim.x) {
-      const int m = q % M, r0 = (q / M) * 8;
-      float acc[8];
+    // 5. mel rows over their bands, ascending bins, fmaf from 0 as the dense
+    // sum; a lane runs kRows rows' sums side by side (rows m0 + 32 r); the
+    // tile takes 10 log10(max(mel, amin))
+    float* dst_tile = kTileInSmem ? tile : out + ((long long)(b0 + g) * 3 + 1) * MT;
+    for (int m0 = lane; m0 < M; m0 += 32 * kRows) {
+      float acc[kRows];
+      int first[kRows], count[kRows];
+      int nb = 0;
 #pragma unroll
-      for (int f = 0; f < 8; ++f) acc[f] = 0.0f;
-      int b = 0;
-      for (; b + 4 <= bins; b += 4) {
-        const float w0 = melb[(b + 0) * M + m], w1 = melb[(b + 1) * M + m];
-        const float w2 = melb[(b + 2) * M + m], w3 = melb[(b + 3) * M + m];
-#pragma unroll
-        for (int f = 0; f < 8; ++f) {
-          const float4 p = *reinterpret_cast<const float4*>(pw + (r0 + f) * pstride + b);
-          acc[f] = fmaf(p.x, w0, acc[f]);
-          acc[f] = fmaf(p.y, w1, acc[f]);
-          acc[f] = fmaf(p.z, w2, acc[f]);
-          acc[f] = fmaf(p.w, w3, acc[f]);
-        }
+      for (int r = 0; r < kRows; ++r) {
+        const int m = m0 + 32 * r;
+        first[r] = m < M ? mel_first[m] : 0;
+        count[r] = m < M ? mel_count[m] : 0;
+        acc[r] = 0.0f;
+        nb = max(nb, count[r]);
       }
-      for (; b < bins; ++b) {
-        const float w = melb[b * M + m];
+      for (int j = 0; j < nb; ++j) {
 #pragma unroll
-        for (int f = 0; f < 8; ++f) acc[f] = fmaf(pw[(r0 + f) * pstride + b], w, acc[f]);
+        for (int r = 0; r < kRows; ++r)
+          if (j < count[r]) acc[r] = fmaf(pw[first[r] + j], melw[j * M + m0 + 32 * r], acc[r]);
       }
 #pragma unroll
-      for (int f = 0; f < 8; ++f) {
-        const int g = (r0 + f) / F, fr = (r0 + f) % F;
-        if (fr < nf && b0 + g < B) {
-          float* dst = G == 1 ? melt : out + ((long long)(b0 + g) * 3 + 1) * MT;
-          dst[m * T + t0 + fr] = acc[f];
+      for (int r = 0; r < kRows; ++r) {
+        const int m = m0 + 32 * r;
+        if (m < M) {
+          const float l = __fmul_rn(10.0f, log10f(fmaxf(acc[r], kAmin)));
+          mx = fmaxf(mx, acc[r]);
+          lmn = fminf(lmn, l);
+          lmx = fmaxf(lmx, l);
+          dst_tile[m * T + t] = l;
         }
       }
     }
   }
-  __syncthreads();                           // mel planes written and visible to the block
+  if (cur >= 0) flush_stats(mx, lmn, lmx, stats + 3 * (cur * nwarps + warp), lane);
+  __syncthreads();                               // tiles, ZCR and statistics visible
 
-  // 5. per window: power_to_db with ref = window max, top_db clamp, min-max
-  // normalize, image planes (3, M, T): R = ZCR, G = B = 1 - norm.  At G > 1
-  // the mel plane is read three times from L2; the loops are unrolled so
-  // that each thread keeps 8 loads in flight.  With
-  // hi = max(db) and lo = max(min(db), hi - top_db), the clamped values'
-  // extremes are exactly the one-window reference's.
+  // 6. per window: ref = max mel; dB = log - ref_db, clamped at hi - top_db;
+  // min-max normalize; planes R = ZCR, G = B = 1 - norm.  Since rounding
+  // log - ref_db is monotone in log, hi and lo come from the log's extremes
+  // exactly as from a pass over the dB values.
   for (int g = 0; g < G && b0 + g < B; ++g) {
-    float* ob = out + (long long)(b0 + g) * 3 * MT;
-    const float* mel = G == 1 ? melt : ob + MT;
-    float v = -INFINITY;
-#pragma unroll 8
-    for (int i = tid; i < MT; i += blockDim.x) v = fmaxf(v, mel[i]);
-    const float ref = block_reduce(v, MaxOp(), scratch);
-    const float ref_db = __fmul_rn(10.0f, log10f(fmaxf(ref, kAmin)));
-    float lo = INFINITY, hi = -INFINITY;
-#pragma unroll 8
-    for (int i = tid; i < MT; i += blockDim.x) {
-      const float d = to_db(mel[i], ref_db);
-      lo = fminf(lo, d);
-      hi = fmaxf(hi, d);
+    float ref = -INFINITY, lo_l = INFINITY, hi_l = -INFINITY;
+    for (int w = 0; w < nwarps; ++w) {
+      const float* s = stats + 3 * (g * nwarps + w);
+      ref = fmaxf(ref, s[0]);
+      lo_l = fminf(lo_l, s[1]);
+      hi_l = fmaxf(hi_l, s[2]);
     }
-    lo = block_reduce(lo, MinOp(), scratch);
-    hi = block_reduce(hi, MaxOp(), scratch);
+    const float ref_db = __fmul_rn(10.0f, log10f(fmaxf(ref, kAmin)));
+    const float hi = __fsub_rn(hi_l, ref_db);
     const float floor_db = __fsub_rn(hi, kTopDb);
-    lo = fmaxf(lo, floor_db);
+    const float lo = fmaxf(__fsub_rn(lo_l, ref_db), floor_db);
     const float diff = __fsub_rn(hi, lo);
-#pragma unroll 8
+    float* ob = out + (long long)(b0 + g) * 3 * MT;
+    const float* lg = kTileInSmem ? tile : ob + MT;
+    const float* zg = zq + g * T;
+    const int step = blockDim.x % T;
+    int t = tid % T;
+#pragma unroll 4
     for (int i = tid; i < MT; i += blockDim.x) {
-      const float d = fmaxf(to_db(mel[i], ref_db), floor_db);
+      const float d = fmaxf(__fsub_rn(lg[i], ref_db), floor_db);
       const float norm = diff > 0.0f ? __fdiv_rn(__fsub_rn(d, lo), diff) : 0.0f;
       const float gb = quantize(__fsub_rn(1.0f, norm));
-      ob[i] = quantize(zcr[g * T + i % T]);
+      ob[i] = zg[t];
       ob[MT + i] = gb;
       ob[2 * MT + i] = gb;
+      t += step;
+      if (t >= T) t -= T;
     }
   }
-}
-
-template <int G>
-int launch(const float* y, long long row_stride, int B, int n, const float* cosb,
-           const float* sinb, const float* melb, float* out, int win, int hop, int T,
-           int M, cudaStream_t stream) {
-  const int bins = win / 2 + 1;
-  const size_t floats = (size_t)G * span_of(G, hop, win) + (size_t)kFrames * round4(bins) +
-                        round4(G * T) + 32 + (G == 1 ? (size_t)round4(M * T) : 0);
-  const size_t smem = floats * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(overlap_features_kernel<G>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  overlap_features_kernel<G><<<(B + G - 1) / G, kThreads, smem, stream>>>(
-      y, row_stride, B, n, cosb, sinb, melb, out, win, hop, T, M);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Launch on `stream`.  y: (B, row_stride) float32 rows, the first n samples of
-// each row used.  cosb/sinb: (win, win/2+1) Hann-windowed DFT bases.  melb:
-// (win/2+1, M) mel filterbank, columns reversed.  out: (B, 3, M, T) float32.
-// group: windows per CTA, 1, 2 or 4.  Returns the cudaError_t of the
-// launch (0 on success).
+// each row used.  ftab / itab: the tables of `feature_tables` (see the
+// kernel).  out: (B, 3, M, T) float32.  group: windows per CTA, 1, 2 or 4.
+// The block is 1024 threads, halved (down to 256) while its shared memory
+// does not fit the device (the per-warp buffers grow with the window).
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int overlap_features_launch(const float* y, long long row_stride, int B, int n,
-                                       const float* cosb, const float* sinb,
-                                       const float* melb, float* out,
-                                       int win, int hop, int T, int M, int group,
-                                       void* stream) {
-  if (B <= 0 || n <= win / 2 || win % 4 != 0 || hop % 4 != 0 || T <= 0 || M <= 0 ||
-      (T - 1) * hop + win > n + 2 * (win / 2))
+                                       const float* ftab, const int* itab, float* out,
+                                       int win, int hop, int T, int M, int K, int nrad,
+                                       int group, void* stream) {
+  const int half = win / 2;
+  if (B <= 0 || win < 2 || win % 2 != 0 || n <= half || hop <= 0 || T <= 0 || M <= 0 ||
+      K <= 0 || nrad < 0 || (T - 1) * hop + win > n + 2 * half)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (group) {
-    case 1: return launch<1>(y, row_stride, B, n, cosb, sinb, melb, out, win, hop, T, M, s);
-    case 2: return launch<2>(y, row_stride, B, n, cosb, sinb, melb, out, win, hop, T, M, s);
-    case 4: return launch<4>(y, row_stride, B, n, cosb, sinb, melb, out, win, hop, T, M, s);
-    default: return (int)cudaErrorInvalidValue;
+  if (group != 1 && group != 2 && group != 4) return (int)cudaErrorInvalidValue;
+  int device = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return (int)err;
+  int threads = 1024;
+  size_t smem = smem_floats(win, T, M, K, group, threads / 32) * sizeof(float);
+  while (smem > (size_t)limit && threads > 256) {
+    threads /= 2;
+    smem = smem_floats(win, T, M, K, group, threads / 32) * sizeof(float);
   }
+  if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
+  const int grid = (B + group - 1) / group;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (group == 1) {
+    err = cudaFuncSetAttribute(overlap_features_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    overlap_features_kernel<true><<<grid, threads, smem, s>>>(
+        y, row_stride, B, n, ftab, itab, out, win, hop, T, M, K, nrad, 1);
+  } else {
+    err = cudaFuncSetAttribute(overlap_features_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    overlap_features_kernel<false><<<grid, threads, smem, s>>>(
+        y, row_stride, B, n, ftab, itab, out, win, hop, T, M, K, nrad, group);
+  }
+  return (int)cudaGetLastError();
 }

@@ -62,7 +62,7 @@ def standardize_audio(y: np.ndarray, sr: int, *, target_sr: int = 16_000,
                       denoise_cfg: DenoiseConfig = DenoiseConfig(),
                       vad_cfg: VadConfig = VadConfig(),
                       vad=None,
-                      device: torch.device | str = "cpu") -> np.ndarray:
+                      device: torch.device | str = "cuda") -> np.ndarray:
     """Standardize one conversation/corpus recording.
 
     ``y``: int16 samples (or float [-1, 1], auto-detected).  Returns int16 @

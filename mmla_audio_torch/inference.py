@@ -59,7 +59,7 @@ class OverlapPredictor:
     def __init__(self, state_dict: Mapping[str, torch.Tensor],
                  model_cfg: OverlapModelConfig = OverlapModelConfig(),
                  feat_cfg: OverlapFeatureConfig = OverlapFeatureConfig(),
-                 device: torch.device | str = "cpu",
+                 device: torch.device | str = "cuda",
                  compute_dtype: torch.dtype | None = None,
                  matmul_precision: str | None = "auto",
                  silent_threshold: int = 4000):
@@ -76,8 +76,8 @@ class OverlapPredictor:
         if matmul_precision not in (None, "highest"):
             raise ValueError(f"matmul_precision must be 'auto', 'highest' "
                              f"or None: {matmul_precision!r}")
-        check_feature_config(feat_cfg)
         self.device = torch.device(device)
+        check_feature_config(feat_cfg, on_card=self.device.type == "cuda")
         if self.device.type == "cuda":
             for width in model_cfg.stage_filters:
                 check_block_width(width)

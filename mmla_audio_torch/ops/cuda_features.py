@@ -4,70 +4,152 @@
 (``mmla_audio_tpu/ops/pallas_features.py``, TPU kernels ``_kernel`` and, with
 ``group > 1``, ``_kernel_grouped``).  The kernel source, with its design and
 cost notes, is ``mmla_audio_torch/csrc/overlap_features.cu``; it is built
-with nvcc for ``sm_90a`` at first use and bound with ctypes.
+with nvcc for ``sm_90a`` at first use and bound with ctypes.  The kernel
+computes each frame's spectrum with a mixed-radix FFT and each mel row as
+the band of bins its filter covers; ``feature_tables`` builds the tables it
+reads (window, twiddles, FFT plan, mel bands).
 
 Dispatch is by the tensor's device only: a CPU tensor goes to the plain
 version (``ops.features.overlap_model_input``); a CUDA tensor launches the
 kernel or raises.  ``overlap_model_input_cuda.launches`` counts launches with
-one window per CTA, ``.launches_grouped`` those with several.
+one window per CTA, ``.launches_grouped`` those with several (G = 2 or 4,
+served and held but never the default: G = 1 was the fastest at every batch
+measured, ``PERF.md``).
 """
 
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from mmla_audio_torch.core.config import OverlapFeatureConfig
 from mmla_audio_torch.ops.features import fit_length, overlap_model_input
-from mmla_audio_torch.ops.spectral import _dft_basis, mel_filterbank
+from mmla_audio_torch.ops.spectral import hann_periodic, mel_filterbank
 
-__all__ = ["GROUPS", "check_feature_config", "pick_group",
+__all__ = ["GROUPS", "FeatureTables", "check_feature_config",
+           "feature_tables", "fft_radices", "launch_overlap_features",
            "overlap_model_input_cuda"]
 
-GROUPS = (1, 2, 4)         # windows per CTA the kernel is built for
-ONE_WINDOW_PER_SM = 3      # pick_group: G=1 up to this many windows per SM
+GROUPS = (1, 2, 4)          # windows per CTA the kernel is built for
 
 
-def check_feature_config(cfg: OverlapFeatureConfig) -> None:
+def fft_radices(n: int) -> tuple:
+    """The kernel's radix plan for an ``n``-point complex FFT: the factors 3
+    and 5 first, then 4 and 2, radix 8 last (its stage writes contiguous
+    runs).  ``None`` where ``n`` has a prime factor above 5."""
+    radices, m = [], n
+    for r in (3, 5):
+        while m % r == 0:
+            radices.append(r)
+            m //= r
+    tail = []
+    while m % 8 == 0:
+        tail.append(8)
+        m //= 8
+    for r in (4, 2):
+        if m % r == 0:
+            radices.append(r)
+            m //= r
+    return tuple(radices + tail) if m == 1 else None
+
+
+def check_feature_config(cfg: OverlapFeatureConfig,
+                         on_card: bool = True) -> None:
     """The kernel hardcodes the PNG quantize and the mel-axis flip; a config
-    that disables either would make the two paths disagree."""
+    that disables either would make the two paths disagree.  Its FFT takes a
+    window of ``2 n`` samples with ``n`` a product of 2, 3 and 5; the plain
+    version (``on_card=False``) takes any window."""
     if not cfg.png_quantize or not cfg.flip_mel_axis:
         raise ValueError(
             "the overlap feature kernel requires png_quantize=True and "
             "flip_mel_axis=True (it hardcodes both)")
-
-
-@functools.lru_cache(maxsize=None)
-def _kernel_bases(cfg: OverlapFeatureConfig, device: torch.device):
+    if not on_card:
+        return
     win = cfg.win_length
-    cos, sin = _dft_basis(win, win, windowed=True)
-    # (bins, M) with mel columns reversed: image rows come out pre-flipped
-    fb = mel_filterbank(cfg.sample_rate, win, cfg.n_mels, cfg.fmin,
-                        cfg.fmax).T[:, ::-1]
-    return tuple(torch.as_tensor(np.ascontiguousarray(a), device=device)
-                 for a in (cos, sin, fb))
+    if win < 2 or win % 2 or fft_radices(win // 2) is None:
+        raise ValueError(
+            f"the overlap feature kernel's FFT needs an even window whose "
+            f"half factors into 2, 3 and 5; win_length {win} "
+            f"(sample_rate {cfg.sample_rate}, win_ms {cfg.win_ms}) does not")
+
+
+class FeatureTables(NamedTuple):
+    """What the kernel reads besides the audio, for one config."""
+    window: np.ndarray      # (win,) periodic Hann
+    twiddle: np.ndarray     # (win, 2) cos and -sin of 2 pi m / win
+    radices: tuple          # FFT plan of the win/2-point complex FFT
+    mel_first: np.ndarray   # (M,) int32 first bin of each mel row
+    mel_count: np.ndarray   # (M,) int32 bins in the row's band
+    mel_weight: np.ndarray  # (K, M) band weights, K = the widest band
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+def feature_tables(cfg: OverlapFeatureConfig,
+                   dtype=np.float32) -> FeatureTables:
+    """The kernel's tables for ``cfg``.  Twiddles are computed in float64
+    and rounded to ``dtype``; the window is ``hann_periodic``'s float32.
+    Mel rows come in image order (reversed: the flip), each as the
+    contiguous band of bins between its first and last nonzero weight."""
+    check_feature_config(cfg)
+    win = cfg.win_length
+    ang = 2.0 * np.pi * np.arange(win) / win
+    twiddle = np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(dtype)
+    fb = mel_filterbank(cfg.sample_rate, win, cfg.n_mels, cfg.fmin,
+                        cfg.fmax)[::-1]                    # (M, bins)
+    nz = fb != 0
+    first = np.where(nz.any(1), nz.argmax(1), 0)
+    last = np.where(nz.any(1), fb.shape[1] - 1 - nz[:, ::-1].argmax(1), -1)
+    count = last - first + 1
+    weight = np.zeros((max(int(count.max()), 1), fb.shape[0]), np.float32)
+    for m, (f, c) in enumerate(zip(first, count)):
+        weight[:c, m] = fb[m, f:f + c]
+    return FeatureTables(hann_periodic(win).astype(dtype), twiddle,
+                         fft_radices(win // 2), first.astype(np.int32),
+                         count.astype(np.int32), weight.astype(dtype))
 
 
-def pick_group(batch: int, sm_count: int) -> int:
-    """Windows per CTA: 1 while the batch is at most ``ONE_WINDOW_PER_SM``
-    windows per SM, 2 above.  Every G gives the same output.
+@functools.lru_cache(maxsize=None)
+def _device_tables(cfg: OverlapFeatureConfig, device: torch.device):
+    """``(ftab, itab)`` on ``device``: float32 [window, twiddles, mel
+    weights] and int32 [radices, mel first bins, mel counts]."""
+    tab = feature_tables(cfg)
+    ftab = np.concatenate([tab.window, tab.twiddle.ravel(),
+                           tab.mel_weight.ravel()])
+    itab = np.concatenate([np.asarray(tab.radices, np.int32), tab.mel_first,
+                           tab.mel_count])
+    return (torch.as_tensor(ftab, device=device),
+            torch.as_tensor(itab, device=device))
 
-    The cut-over is measured (H100 SXM, 132 SMs, CUDA events).  At G=1 one
-    CTA holds its mel tile in shared memory (137 KB), so one CTA runs per SM
-    at ~0.48 ms per window: 0.52 ms at B <= 132, 1.0 at 200, 1.47 at 300.
-    At G=2 a CTA of two windows takes ~1.1 ms alone on an SM, but two CTAs
-    fit an SM and hide each other's basis-load latency, ~0.4 ms per window:
-    G=2 wins from B=400 (1.64 vs 1.93 ms) to 2,400 (7.63 vs 9.08).  G=4 is
-    never faster than G=2 (3.20 vs 3.21 ms at 1,024, 7.88 vs 7.63 at
-    2,400); it stays for callers that pass it."""
-    return 1 if batch <= ONE_WINDOW_PER_SM * sm_count else 2
+
+def launch_overlap_features(y2: torch.Tensor, cfg: OverlapFeatureConfig,
+                            group: int, launch=None) -> torch.Tensor:
+    """Launch the kernel on ``y2 (B, n)`` float32 CUDA audio, ``B >= 1``,
+    samples contiguous, at ``group`` windows per CTA -> ``(B, 3, M, T)``
+    float32.  Counts nothing: the wrapper does.  ``launch``: the library's
+    ``overlap_features_launch`` (default) or that of another build of the
+    source, which a probe times against it."""
+    from mmla_audio_torch._build import cuda_library
+
+    if launch is None:
+        launch = cuda_library("overlap_features").overlap_features_launch
+    B, n = y2.shape
+    T, M = cfg.n_frames, cfg.n_mels
+    out = torch.empty((B, 3, M, T), dtype=torch.float32, device=y2.device)
+    ftab, itab = _device_tables(cfg, y2.device)
+    tab = feature_tables(cfg)
+    with torch.cuda.device(y2.device):
+        stream = torch.cuda.current_stream(y2.device).cuda_stream
+        err = launch(
+            y2.data_ptr(), y2.stride(0), B, n, ftab.data_ptr(),
+            itab.data_ptr(), out.data_ptr(), cfg.win_length, cfg.hop_length,
+            T, M, tab.mel_weight.shape[0], len(tab.radices), group, stream)
+    if err != 0:
+        raise RuntimeError(f"overlap_features kernel launch failed "
+                           f"(cudaError {err})")
+    return out
 
 
 def overlap_model_input_cuda(y: torch.Tensor,
@@ -76,11 +158,10 @@ def overlap_model_input_cuda(y: torch.Tensor,
     """``y (B, n)`` or ``(n,)`` float32 audio in [-1, 1] -> ``(B, 128, 151, 3)``
     (or ``(128, 151, 3)``) float32 0..255, as ``overlap_model_input``.
 
-    ``group``: windows per CTA, one of ``GROUPS``; ``None`` takes
-    ``pick_group(B, SM count)``.  Every group gives the same output.  For a
-    CUDA tensor the result is a permuted view of the kernel's
-    ``(B, 3, 128, 151)`` output."""
-    check_feature_config(cfg)
+    ``group``: windows per CTA, one of ``GROUPS``; ``None`` takes 1.  Every
+    group gives the same output.  For a CUDA tensor the result is a permuted
+    view of the kernel's ``(B, 3, 128, 151)`` output."""
+    check_feature_config(cfg, on_card=y.device.type != "cpu")
     if group is not None and group not in GROUPS:
         raise ValueError(f"overlap_model_input_cuda: group must be one of "
                          f"{GROUPS}, got {group}")
@@ -100,28 +181,17 @@ def overlap_model_input_cuda(y: torch.Tensor,
     if y2.stride(-1) != 1:
         raise ValueError("overlap_model_input_cuda: samples must be "
                          "contiguous along the last axis")
-    B, n = y2.shape
-    T, M = cfg.n_frames, cfg.n_mels
-    out = torch.empty((B, 3, M, T), dtype=torch.float32, device=y.device)
+    B = y2.shape[0]
     if B:
-        from mmla_audio_torch._build import cuda_library
-
-        if group is None:
-            group = pick_group(B, _sm_count(y.device))
-        cos, sin, fb = _kernel_bases(cfg, y.device)
-        with torch.cuda.device(y.device):
-            stream = torch.cuda.current_stream(y.device).cuda_stream
-            err = cuda_library("overlap_features").overlap_features_launch(
-                y2.data_ptr(), y2.stride(0), B, n, cos.data_ptr(),
-                sin.data_ptr(), fb.data_ptr(), out.data_ptr(),
-                cfg.win_length, cfg.hop_length, T, M, group, stream)
-        if err != 0:
-            raise RuntimeError(f"overlap_features kernel launch failed "
-                               f"(cudaError {err})")
+        group = group or 1
+        out = launch_overlap_features(y2, cfg, group)
         if group == 1:
             overlap_model_input_cuda.launches += 1
         else:
             overlap_model_input_cuda.launches_grouped += 1
+    else:
+        out = torch.empty((0, 3, cfg.n_mels, cfg.n_frames),
+                          dtype=torch.float32, device=y.device)
     img = out.permute(0, 2, 3, 1)                  # (B, M, T, 3)
     return img[0] if squeeze else img
 

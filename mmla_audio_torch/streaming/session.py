@@ -53,7 +53,7 @@ class StreamingSession:
 
     def __init__(self, capture, dirs: ExperimentDirs | str,
                  cfg: PipelineConfig = PipelineConfig(),
-                 device: torch.device | str = "cpu",
+                 device: torch.device | str = "cuda",
                  save_recordings: bool = False):
         self.capture = capture
         self.dirs = dirs if isinstance(dirs, ExperimentDirs) else bootstrap(dirs)

@@ -1,6 +1,7 @@
 """Tests that need the card: the CUDA kernels (featurizer, one window and
-grouped; fused residual block) against their plain versions, the block's
-dispatch rule, and the predictor on the card against the CPU.
+grouped, on speech, silence and a clipped sine; fused residual block)
+against their plain versions, the block's dispatch rule, and the predictor
+on the card against the CPU.
 
 This file imports neither JAX nor tests/conftest.py, so it runs where JAX is
 not installed:  python -m pytest --noconftest tests/test_torch_cuda.py
@@ -43,8 +44,8 @@ def _audio(batch, n, seed=0):
     return (0.3 * y / np.abs(y).max(axis=1, keepdims=True)).astype(np.float32)
 
 
-@pytest.mark.parametrize("batch,n", [(1, 24000), (64, 24000), (3, 10000),
-                                     (2, 40960)])
+@pytest.mark.parametrize("batch,n", [(1, 24000), (64, 24000), (200, 24000),
+                                     (480, 24000), (3, 10000), (2, 40960)])
 def test_kernel_matches_plain(device, batch, n):
     y = torch.from_numpy(_audio(batch, n)).to(device)
     before = overlap_model_input_cuda.launches
@@ -80,7 +81,8 @@ def test_predictor_card_matches_cpu(device):
 @pytest.mark.parametrize("batch,time_dim,group", [
     (6, 150, 4),        # partial last group
     (4, 151, 2),        # 152 frames: none duplicated
-    (480, 150, None),   # above 3 windows per SM: the wrapper picks G=2
+    (480, 150, 2),      # the post-time batch, every G
+    (480, 150, 4),
 ])
 def test_grouped_kernel_matches_one_window(device, batch, time_dim, group):
     cfg = OverlapFeatureConfig(time_dim=time_dim)
@@ -91,6 +93,45 @@ def test_grouped_kernel_matches_one_window(device, batch, time_dim, group):
     assert overlap_model_input_cuda.launches_grouped == before + 1
     assert torch.equal(got, overlap_model_input_cuda(y, cfg, group=1))
     diff = (got - overlap_model_input(y, cfg)).abs()
+    assert float(diff.max()) <= 1.0
+    assert float((diff > 0).float().mean()) < 0.02
+
+
+@pytest.mark.parametrize("sample_rate", [4000, 8000, 12800, 24000])
+def test_kernel_other_window_lengths(device, sample_rate):
+    """The butterflies of radix 2, 4 and 3: FFT plans (5, 5, 2), (5, 5, 4),
+    (5, 4, 8) and (3, 5, 5, 4) of 25 ms windows at these rates."""
+    cfg = OverlapFeatureConfig(sample_rate=sample_rate)
+    y = torch.from_numpy(_audio(3, cfg.n_samples, seed=2)).to(device)
+    got = overlap_model_input_cuda(y, cfg)
+    assert torch.equal(got, overlap_model_input_cuda(y, cfg, group=2))
+    diff = (got - overlap_model_input(y, cfg)).abs()
+    assert float(diff.max()) <= 1.0
+    assert float((diff > 0).float().mean()) < 0.02
+
+
+def test_kernel_refuses_non_kernel_window(device):
+    """A window whose half has a prime factor above 5 (350 = 2 * 5^2 * 7)
+    raises on the card; it does not fall back to the plain version."""
+    cfg = OverlapFeatureConfig(sample_rate=14000)
+    y = torch.zeros(2, cfg.n_samples, device=device)
+    with pytest.raises(ValueError, match="half factors into 2, 3 and 5"):
+        overlap_model_input_cuda(y, cfg)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_kernel_silence_and_clipped_sine(device, group):
+    """An all-zero window (dB floor: every G/B pixel 255, no crossings) and
+    a full-scale sine clipped at +-1 (the window's max is the dB ref)."""
+    t = np.arange(24000) / 16000
+    sine = np.clip(1.5 * np.sin(2 * np.pi * 440.0 * t), -1.0, 1.0)
+    y = torch.from_numpy(np.stack([np.zeros_like(sine), sine]).astype(
+        np.float32)).to(device)
+    got = overlap_model_input_cuda(y, group=group)
+    assert bool((got[0, ..., 1:] == 255).all())
+    assert bool((got[0, ..., 0] == 0).all())
+    assert torch.equal(got, overlap_model_input_cuda(y, group=1))
+    diff = (got - overlap_model_input(y)).abs()
     assert float(diff.max()) <= 1.0
     assert float((diff > 0).float().mean()) < 0.02
 

@@ -106,13 +106,6 @@ def test_grouped_matches_pallas_grouped(case):
     _assert_budget(got, ref)
 
 
-@pytest.mark.parametrize("batch,group", [(1, 1), (132, 1), (200, 1),
-                                         (396, 1), (397, 2), (480, 2),
-                                         (1024, 2), (2400, 2)])
-def test_pick_group_rule(batch, group):
-    assert cuda_features.pick_group(batch, 132) == group
-
-
 @pytest.mark.parametrize("group", [3, 8])
 def test_wrapper_refuses_unbuilt_group(windows, group):
     with pytest.raises(ValueError, match="group must be one of"):

@@ -40,7 +40,8 @@ def predictors():
     jax_pred = JaxPredictor(jax.tree_util.tree_map(jnp.asarray, tree),
                             model_cfg=CFG)
     pred = OverlapPredictor(overlap_state_dict_from_jax(tree, as_port(CFG)),
-                            as_port(CFG), matmul_precision="highest")
+                            as_port(CFG), device="cpu",
+                            matmul_precision="highest")
     return jax_pred, pred
 
 
@@ -64,7 +65,7 @@ def test_predictor_bf16_autocast(predictors):
     returns float32 probabilities close to the fp32 run."""
     pred = predictors[1]
     bf16 = OverlapPredictor(pred.model.state_dict(), as_port(CFG),
-                            compute_dtype=torch.bfloat16)
+                            device="cpu", compute_dtype=torch.bfloat16)
     buf = np.stack([synth_speech_i16(40960, seed=s) for s in (1, 2)])
     n = np.array([40960, 40960], np.int32)
     _, ref = pred.predict(buf, n)
@@ -77,7 +78,7 @@ def test_predictor_refuses_non_default_feature_config(predictors):
     feat = port_config.OverlapFeatureConfig(flip_mel_axis=False)
     with pytest.raises(ValueError, match="requires png_quantize=True"):
         OverlapPredictor(predictors[1].model.state_dict(), as_port(CFG),
-                         feat_cfg=feat)
+                         feat_cfg=feat, device="cpu")
 
 
 def test_session_matches_jax_session(predictors, tmp_path):
@@ -199,7 +200,7 @@ def test_silent_threshold_matches_jax():
     jax_pred = JaxPredictor(jax.tree_util.tree_map(jnp.asarray, tree),
                             model_cfg=CFG, silent_threshold=6000)
     pred = OverlapPredictor(overlap_state_dict_from_jax(tree, as_port(CFG)),
-                            as_port(CFG), silent_threshold=6000)
+                            as_port(CFG), device="cpu", silent_threshold=6000)
     buf = np.stack([synth_speech_i16(40960, seed=s) for s in (4, 5)])
     n = np.array([5000, 7000], np.int32)
     labels, _ = pred.predict(buf, n)

@@ -103,7 +103,7 @@ def test_overlap_post_matches_jax(weights, tmp_path):
     pred = OverlapPredictor(
         overlap_state_dict_from_jax(load_overlap_npz(path, as_port(CFG)),
                                     as_port(CFG)),
-        as_port(CFG), matmul_precision="highest")
+        as_port(CFG), device="cpu", matmul_precision="highest")
     logs = overlap_post_analyze(dirs, pred, noise=NOISE, start_time=T0)
 
     assert sorted(logs) == sorted(jlogs) == ["audio_conv0", "zoom_conv1"]
@@ -133,7 +133,7 @@ def test_overlap_post_empty_recording_and_rerun(weights, tmp_path):
     _recordings(dirs.root, [("audio_short.wav", 1, 3),
                             ("zoom_long.wav", 3, 4)])
     pred = OverlapPredictor(overlap_state_dict_from_jax(tree, as_port(CFG)),
-                            as_port(CFG))
+                            as_port(CFG), device="cpu")
     for _ in range(2):
         logs = overlap_post_analyze(dirs, pred, start_time=T0,
                                     make_charts=False)
@@ -165,7 +165,7 @@ def test_standardize_matches_jax(case):
         thr = jax_denoise.noise_threshold(jnp.asarray(NOISE / 32768.0))
         first = np.asarray(jax_denoise.quantize_i16(jax_denoise.reduce_noise(
             jnp.asarray(y / 32768.0, jnp.float32), thr))).astype(np.int16)
-        got = standardize.standardize_audio(first, sr, **kw)
+        got = standardize.standardize_audio(first, sr, device="cpu", **kw)
         ref = jax_std.standardize_audio(y, sr, noise=NOISE, noise_passes=2)
         diff = np.abs(got.astype(np.int32) - ref)
         assert diff.max() <= 1 and (diff > 0).mean() <= 0.005
@@ -178,7 +178,7 @@ def test_standardize_matches_jax(case):
 
         kw_jax["vad_cfg"] = JaxVad(decision=decision)
         kw["vad_cfg"] = VadConfig(decision=decision)
-    got = standardize.standardize_audio(y, sr, **kw)
+    got = standardize.standardize_audio(y, sr, device="cpu", **kw)
     ref = jax_std.standardize_audio(y, sr, **(kw_jax if case.startswith(
         "vad") else kw))
     assert got.dtype == ref.dtype == np.int16
