@@ -11,6 +11,9 @@ per source, all at once), then:
    CUDA-event timings of both and, as a yardstick for the FFT stage alone,
    of ``torch.fft.rfft`` of the same windowed frames at B=480 (the port
    never calls it);
+   the three windows whose half has a prime factor without a written-out
+   butterfly (14 kHz and 22 kHz at 25 ms, ``win_ms=25.5`` at 16 kHz: the
+   generic radix stage) at B=64, within the same budget, timed;
    grouped: ``group=4`` on B=6 (a partial group) and ``group=2`` on
    ``time_dim=151`` (152 frames), each bit-equal to ``group=1``; at B=200,
    480, 1024 and 2400 every group bit-equal to ``group=1``, within the
@@ -35,7 +38,20 @@ per source, all at once), then:
    the tensor cores), on the card and on the CPU; labels equal where the CPU's top-2
    margin is above 1e-3; windows per second on the host clock; then the
    CLI's ``overlap-post --weights``;
-6. CLI: ``python -m mmla_audio_torch.cli overlap-run -f <wav>``.
+6. CLI: ``python -m mmla_audio_torch.cli overlap-run -f <wav>``;
+7. speaker identification at the full width of ``SpeakerModelConfig()``
+   (weights from a seeded numpy tree through ``params.py``), a main path
+   that must launch none of the kernels above: ``SpeakerPredictor`` at B=1
+   and B=64 on the card vs the CPU (labels equal where the CPU's top-2
+   logit margin is above 1e-3, logits within 1e-3 of their largest
+   magnitude), the model's forward time at B=1 and B=282 with TF32 off
+   (the policy) and allowed (for information); ``SpeakerSession`` over 10
+   windows on the card and the CPU (the same margin rule) and its
+   window-to-decision p50 and p90; ``speaker_post_analyze`` over the two
+   recordings of phase 5 with a 3-speaker corpus (118 and 282 windows),
+   card twice (cold, warm) then CPU, rows equal under the margin rule,
+   windows per second and the whole-file MFCC's CUDA-event time; then the
+   CLI's ``speaker-post --weights`` in a fresh process.
 
 The line before the last is a JSON object describing each kernel, with its
 bound: the larger of its bytes (each input read once, each output written
@@ -67,7 +83,12 @@ import torch
 ROOT = Path(__file__).resolve().parent
 BUDGET_STEP, BUDGET_SHARE = 1.0, 0.02      # featurizer pixel budget
 TOP2_MARGIN, PROB_ATOL = 1e-3, 1e-4        # predictor card vs CPU
+LOGIT_RTOL = 1e-3                          # speaker logits: of max |ref|
 BLOCK_RTOL = 1e-4                          # fused block: of max |ref|
+# windows whose half has a prime factor of 7, 17 or 11: the generic stage
+GENERIC_GEOMETRIES = (dict(sample_rate=14000), dict(win_ms=25.5),
+                      dict(sample_rate=22000))
+SPEAKERS = ("alice", "bob", "carol")       # the post phase's corpus
 # non-pooling ResBlock2D shapes of the full-width model: (C, H, W)
 BLOCK_SHAPES = ((32, 64, 76), (64, 32, 38), (128, 16, 19))
 # post-time recordings: name -> (seconds, windows); each is one batch
@@ -182,7 +203,9 @@ def feature_windows(batch: int, n: int, device) -> torch.Tensor:
 
 
 def phase_featurizer(device):
-    from mmla_audio_torch.ops.cuda_features import overlap_model_input_cuda
+    from mmla_audio_torch.core.config import OverlapFeatureConfig
+    from mmla_audio_torch.ops.cuda_features import (feature_tables,
+                                                    overlap_model_input_cuda)
     from mmla_audio_torch.ops.features import overlap_model_input
 
     result = {}
@@ -211,6 +234,19 @@ def phase_featurizer(device):
         if batch == max(POST_BATCHES):
             log(f"[featurizer] yardstick, FFT stage alone: torch.fft.rfft of "
                 f"the B={batch} windowed frames {rfft_ms(y):.4f} ms")
+    for kw in GENERIC_GEOMETRIES:
+        cfg = OverlapFeatureConfig(**kw)
+        y = feature_windows(64, cfg.n_samples, device)
+        got = overlap_model_input_cuda(y, cfg)
+        torch.cuda.synchronize()
+        err, share = check_budget(f"featurizer {kw}", got,
+                                  overlap_model_input(y, cfg))
+        kern = time_ms(overlap_model_input_cuda, y, cfg)
+        plain = time_ms(overlap_model_input, y, cfg)
+        log(f"[featurizer] {kw}: win {cfg.win_length}, FFT plan "
+            f"{feature_tables(cfg).radices}, B=64: max |diff| {err} on "
+            f"{share:.4%} of pixels; kernel {kern:.4f} ms, plain "
+            f"{plain:.4f} ms")
     return result
 
 
@@ -438,29 +474,46 @@ class ProbsTap:
         return labels, probs
 
 
-def phase_post(device, tree, state_dict, cfg, noise, tmp: Path):
+def post_clips(cfg) -> dict:
+    """The post-time recordings of ``RECORDINGS``: synthetic speech."""
+    from mmla_audio_torch.streaming.capture import FakePCMSource
+
+    src = FakePCMSource(seed=31, speech_ratio=0.8)
+    return {name: src.read(sec * cfg.audio.sample_rate)
+            for name, (sec, _) in RECORDINGS.items()}
+
+
+def write_experiment(root: Path, clips: dict, noise, sr: int, corpus=()):
+    """An experiment tree with the recordings, the ambient noise clip and
+    one short enrollment clip per name in ``corpus``."""
+    from mmla_audio_torch.data.wavio import write_wav
+    from mmla_audio_torch.utils.experiment import bootstrap
+
+    dirs = bootstrap(root)
+    for name, clip in clips.items():
+        write_wav(dirs.post_whole / f"{name}.wav", clip, sr)
+    write_wav(dirs.noise_path, noise, sr)
+    for i, name in enumerate(corpus):
+        write_wav(dirs.corpus / f"{name}.wav",
+                  speech_windows(1, sr, seed=60 + i)[0], sr)
+    return dirs
+
+
+def phase_post(device, tree, state_dict, cfg, noise, tmp: Path, clips):
     from mmla_audio_torch.analyze.logs import parse_log
     from mmla_audio_torch.analyze.post_time import overlap_post_analyze
-    from mmla_audio_torch.data.wavio import write_wav
     from mmla_audio_torch.inference import OverlapPredictor
     from mmla_audio_torch.ops.cuda_features import overlap_model_input_cuda
     from mmla_audio_torch.ops.cuda_resblock import fused_resblock_cuda
-    from mmla_audio_torch.params import save_overlap_npz
-    from mmla_audio_torch.streaming.capture import FakePCMSource
-    from mmla_audio_torch.utils.experiment import bootstrap
+    from mmla_audio_torch.params import save_npz
 
     sr = cfg.audio.sample_rate
     recordings = RECORDINGS
-    src = FakePCMSource(seed=31, speech_ratio=0.8)
-    clips = {name: src.read(sec * sr) for name, (sec, _) in recordings.items()}
     start = datetime(2026, 1, 1)
     runs = {}
     for dev in (device, device, "cpu"):
         key = "card" if dev != "cpu" else "cpu"
-        dirs = bootstrap(tmp / f"post_{key}")
-        for name, clip in clips.items():
-            write_wav(dirs.post_whole / f"{name}.wav", clip, sr)
-        write_wav(dirs.noise_path, noise, sr)
+        dirs = write_experiment(tmp / f"post_{key}", clips, noise, sr)
         pred = ProbsTap(OverlapPredictor(state_dict, cfg.overlap_model,
                                          device=dev,
                                          matmul_precision="highest"))
@@ -518,13 +571,9 @@ def phase_post(device, tree, state_dict, cfg, noise, tmp: Path):
         f"windows)")
 
     npz = tmp / "weights.npz"
-    save_overlap_npz(tree, npz)
+    save_npz(tree, npz)
     cli_root = tmp / "post_cli"
-    bootstrap(cli_root)
-    for name, clip in clips.items():
-        write_wav(cli_root / "recordings/post-time/whole" / f"{name}.wav",
-                  clip, sr)
-    write_wav(cli_root / "Ambient_Noise.wav", noise, sr)
+    write_experiment(cli_root, clips, noise, sr)
     proc = subprocess.run(
         [sys.executable, "-m", "mmla_audio_torch.cli", "overlap-post",
          "--root", str(cli_root), "--weights", str(npz)],
@@ -537,6 +586,244 @@ def phase_post(device, tree, state_dict, cfg, noise, tmp: Path):
     log("[post] cli: " + " | ".join(ln for ln in proc.stdout.splitlines()
                                      if ln.startswith(("[INFO]", "[TIME]"))))
     return card
+
+
+class LogitsTap:
+    """A SpeakerPredictor whose ``score`` and ``logits_from_features`` also
+    keep the logits, so card and CPU labels can be compared where the
+    CPU's top-2 margin is clear."""
+
+    def __init__(self, pred):
+        self.pred, self.device, self.logits = pred, pred.device, []
+
+    def score(self, buf, n):
+        logits, probs = self.pred.score(buf, n)
+        self.logits.append(logits.cpu().numpy())
+        return logits, probs
+
+    def logits_from_features(self, feats):
+        logits = self.pred.logits_from_features(feats)
+        self.logits.append(logits.cpu().numpy())
+        return logits
+
+
+def speaker_windows(seconds: int, sr: int = 16000) -> int:
+    """Windows of the speaker post path for a recording: ceil(T / 256) of
+    its T = 1 + ceil((n - 400) / 160) MFCC frames."""
+    frames = 1 + -(-(seconds * sr - 400) // 160)
+    return -(-frames // 256)
+
+
+def clear_rows(logits) -> np.ndarray:
+    """Rows whose top-2 logit margin is above ``TOP2_MARGIN``."""
+    top2 = np.sort(logits, axis=1)
+    return (top2[:, -1] - top2[:, -2]) > TOP2_MARGIN
+
+
+def compare_labels(name, got, ref, ref_logits) -> tuple:
+    """Card labels ``got`` vs CPU labels ``ref`` (names or indices, silent
+    included): equal wherever the CPU's margin is clear; raises otherwise.
+    Returns (clear rows, rows)."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    clear = clear_rows(ref_logits)
+    if got.shape != ref.shape or not (got[clear] == ref[clear]).all():
+        raise AssertionError(f"{name}: card {got.tolist()} vs CPU "
+                             f"{ref.tolist()} where the margin is clear")
+    return int(clear.sum()), len(ref)
+
+
+def phase_speaker_predictor(device, state_dict, mcfg):
+    from mmla_audio_torch.inference import SILENT, SpeakerPredictor
+    from mmla_audio_torch.ops.features import speaker_feature_batch
+
+    buf = speech_windows(64, 40960, seed=41)
+    n = np.full(64, 40960, np.int32)
+    n[1::8], n[2::8], n[3::8] = 30001, 12000, 3999
+    preds = {dev: SpeakerPredictor(state_dict, mcfg, device=dev)
+             for dev in (device, "cpu")}
+    for batch in (1, 64):
+        outs = {}
+        for dev, pred in preds.items():
+            logits, _ = pred.score(buf[:batch], n[:batch])
+            labels, _ = pred.predict(buf[:batch], n[:batch])
+            outs[dev] = labels.cpu().numpy(), logits.cpu().numpy()
+        (lc, zc), (l0, z0) = outs[device], outs["cpu"]
+        err = float(np.abs(zc - z0).max())
+        limit = LOGIT_RTOL * float(np.abs(z0).max())
+        if zc.shape != (batch, mcfg.num_speakers) or not np.isfinite(zc).all() \
+                or err > limit or not (l0[n[:batch] < 4000] == SILENT).all():
+            raise AssertionError(f"speaker predictor B={batch}: logits "
+                                 f"{zc.shape}, max |dlogit| {err} > {limit}")
+        clear, rows = compare_labels(f"speaker predictor B={batch}", lc, l0,
+                                     z0)
+        log(f"[speaker] predictor B={batch} full width: card labels == CPU "
+            f"labels where the top-2 logit margin > {TOP2_MARGIN} "
+            f"({clear}/{rows}); max |dlogit| {err:.3g} (limit {limit:.3g}, "
+            f"{LOGIT_RTOL} of max |logit|); {int((l0 == SILENT).sum())} "
+            f"silent")
+    # the model's forward on MFCC rows: TF32 off (the policy) and allowed
+    tf32 = SpeakerPredictor(state_dict, mcfg, device=device,
+                            matmul_precision=None)
+    for batch in (1, speaker_windows(RECORDINGS["zoom_conv1"][0])):
+        rows = np.resize(buf, (batch, buf.shape[1]))
+        feats, _ = speaker_feature_batch(
+            torch.from_numpy(rows).to(device).float(),
+            torch.full((batch,), 40960, device=device))
+        reps = 20 if batch == 1 else 5
+        with torch.no_grad():
+            times = [time_ms(p.apply_model, feats, reps=reps)
+                     for p in (preds[device], tf32, tf32, preds[device])]
+        log(f"[speaker] model forward B={batch}: TF32 off (the policy) "
+            f"{times[0]:.4f}/{times[3]:.4f} ms, TF32 allowed (information) "
+            f"{times[1]:.4f}/{times[2]:.4f} ms")
+
+
+def phase_speaker_session(device, state_dict, cfg, noise, tmp: Path):
+    from mmla_audio_torch.analyze.logs import parse_log
+    from mmla_audio_torch.inference import SpeakerPredictor
+    from mmla_audio_torch.streaming.capture import ArraySource, CaptureThread
+    from mmla_audio_torch.streaming.session import SpeakerSession
+
+    n_win = cfg.audio.window_samples
+    speech = speech_windows(9, n_win, seed=51)
+    windows = [speech[0], np.zeros(n_win, np.int16)] + list(speech[1:])
+    runs = {}
+    for dev in (device, torch.device("cpu")):
+        pred = LogitsTap(SpeakerPredictor(state_dict, cfg.speaker_model,
+                                          device=dev))
+        cap = CaptureThread(ArraySource(np.concatenate(windows)),
+                            cfg.audio).start()
+        try:
+            sess = SpeakerSession(pred, cap, tmp / f"speaker_{dev.type}",
+                                  cfg=cfg)
+            sess.set_noise_profile(noise)
+            rows = sess.run(max_windows=len(windows))
+        finally:
+            cap.stop()
+        labels = [r[1] for r in rows]
+        if len(rows) != 10 or len(parse_log(sess.log.path)) != 10 or \
+                labels[1] != "silent":
+            raise AssertionError(f"speaker session on {dev}: rows {rows}")
+        runs[dev] = sess, labels, np.concatenate(pred.logits)
+    sess, labels, _ = runs[device]
+    _, cpu_labels, cpu_logits = runs[torch.device("cpu")]
+    clear, n = compare_labels("speaker session", labels, cpu_labels,
+                              cpu_logits)
+    times = []
+    for w in windows:
+        t0 = time.perf_counter()
+        sess.process_window(w)
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f"[speaker] session: card labels == CPU labels where the top-2 "
+        f"logit margin > {TOP2_MARGIN} ({clear}/{n}); 10 TSV rows; "
+        f"window-to-decision p50 {np.percentile(times, 50):.2f} ms, p90 "
+        f"{np.percentile(times, 90):.2f} ms (min {min(times):.2f}, max "
+        f"{max(times):.2f}, 10 windows, host clock)")
+
+
+def phase_speaker_post(device, tree, cfg, noise, tmp: Path, clips):
+    from mmla_audio_torch.analyze.logs import parse_log
+    from mmla_audio_torch.analyze.post_time import (speaker_post_analyze,
+                                                    whole_file_mfcc39)
+    from mmla_audio_torch.inference import SpeakerPredictor
+    from mmla_audio_torch.params import save_npz, speaker_state_dict_from_jax
+
+    sr, mcfg = cfg.audio.sample_rate, cfg.speaker_model
+    state_dict = speaker_state_dict_from_jax(tree, mcfg, len(SPEAKERS))
+    start = datetime(2026, 1, 1)
+    want = {name: speaker_windows(sec) for name, (sec, _) in RECORDINGS.items()}
+    runs = {}
+    for dev in (device, device, "cpu"):
+        key = "card" if dev != "cpu" else "cpu"
+        dirs = write_experiment(tmp / f"speaker_post_{key}", clips, noise,
+                                sr, SPEAKERS)
+        pred = LogitsTap(SpeakerPredictor(
+            state_dict, mcfg, head_units=len(SPEAKERS), sigmoid_head=True,
+            device=dev))
+        t0 = time.perf_counter()
+        logs = speaker_post_analyze(dirs, pred, cfg=cfg, noise=noise,
+                                    start_time=start)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        rows = {name: [r[1] for r in parse_log(path)]
+                for name, path in logs.items()}
+        for name, n_rows in want.items():
+            if len(rows[name]) != n_rows or \
+                    not (dirs.charts / f"{name}.html").exists():
+                raise AssertionError(f"speaker post {key}: {name} has "
+                                     f"{len(rows[name])} rows, want "
+                                     f"{n_rows}, or no chart")
+        n_windows = sum(want.values())
+        log(f"[speaker] post {key}: {n_windows} windows in {seconds:.3f} s "
+            f"= {n_windows / seconds:.1f} windows/s (host clock, "
+            f"standardize + denoise + VAD + whole-file MFCC + predict + logs "
+            f"+ charts); silent rows "
+            f"{sum(r.count('silent') for r in rows.values())}")
+        if key not in runs:
+            runs[key] = dict(rows=rows, logits=pred.logits)
+    card, cpu = runs["card"], runs["cpu"]
+    clear = total = 0
+    for i, name in enumerate(sorted(want)):
+        c, t = compare_labels(f"speaker post {name}", card["rows"][name],
+                              cpu["rows"][name], cpu["logits"][i])
+        clear, total = clear + c, total + t
+    log(f"[speaker] post: card rows == CPU rows where the top-2 logit margin "
+        f"> {TOP2_MARGIN} ({clear}/{total} windows)")
+    sig = torch.from_numpy(clips["zoom_conv1"]).to(device)
+    ms = time_ms(whole_file_mfcc39, sig, cfg, device, reps=3)
+    log(f"[speaker] whole-file MFCC-39 of the {len(sig) / sr / 60:.0f}-minute "
+        f"recording ({len(sig)} samples, on the card): {ms:.3f} ms (CUDA "
+        f"events)")
+
+    npz = tmp / "speaker_weights.npz"
+    save_npz(tree, npz)
+    cli_root = tmp / "speaker_post_cli"
+    write_experiment(cli_root, clips, noise, sr, SPEAKERS)
+    proc = subprocess.run(
+        [sys.executable, "-m", "mmla_audio_torch.cli", "speaker-post",
+         "--root", str(cli_root), "--weights", str(npz)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    made = [(cli_root / d / f"{name}.{ext}").exists() for name in want
+            for d, ext in (("logs", "txt"), ("charts", "html"))]
+    if proc.returncode != 0 or not all(made):
+        raise AssertionError(f"CLI speaker-post failed ({proc.returncode}):"
+                             f"\n{proc.stdout}\n{proc.stderr}")
+    log("[speaker] cli: " + " | ".join(
+        ln for ln in proc.stdout.splitlines()
+        if ln.startswith(("[INFO]", "[TIME]"))))
+
+
+def phase_speaker(device, cfg, noise, tmp: Path, clips) -> None:
+    """The speaker path at full width; it must launch none of the port's
+    kernels (its convolutions, LSTM and GEMMs are cuDNN and cuBLAS, as the
+    JAX package leaves them to XLA)."""
+    from mmla_audio_torch.ops.cuda_features import overlap_model_input_cuda
+    from mmla_audio_torch.ops.cuda_resblock import fused_resblock_cuda
+    from mmla_audio_torch.params import (speaker_state_dict_from_jax,
+                                         speaker_tree_shapes)
+
+    mcfg = cfg.speaker_model
+    counters = ((overlap_model_input_cuda, "launches"),
+                (overlap_model_input_cuda, "launches_grouped"),
+                (fused_resblock_cuda, "launches"),
+                (fused_resblock_cuda, "launches_mma"))
+    for fn, attr in counters:
+        setattr(fn, attr, 0)
+    rng = np.random.RandomState(7)
+    tree = seeded_tree(speaker_tree_shapes(mcfg), rng)
+    state_dict = speaker_state_dict_from_jax(tree, mcfg)
+    phase_speaker_predictor(device, state_dict, mcfg)
+    phase_speaker_session(device, state_dict, cfg, noise, tmp)
+    phase_speaker_post(device, seeded_tree(
+        speaker_tree_shapes(mcfg, len(SPEAKERS)), rng), cfg, noise, tmp,
+        clips)
+    launched = {f"{fn.__name__}.{attr}": getattr(fn, attr)
+                for fn, attr in counters}
+    if any(launched.values()):
+        raise AssertionError(f"the speaker path launched a kernel: "
+                             f"{launched}")
+    log(f"[speaker] kernel launches on the speaker path: {launched}")
 
 
 def main() -> int:
@@ -624,7 +911,10 @@ def main() -> int:
         log("[cli] " + " | ".join(ln for ln in proc.stdout.splitlines()
                                   if ln.startswith(("[RESULT]", "[TIME]"))))
 
-        post = phase_post(device, tree, state_dict, cfg, noise, Path(tmp))
+        clips = post_clips(cfg)
+        post = phase_post(device, tree, state_dict, cfg, noise, Path(tmp),
+                          clips)
+        phase_speaker(device, cfg, noise, Path(tmp), clips)
 
     def entry(name, source, replaces, n, measured):
         return {"name": name, "route": "cuda",

@@ -2,15 +2,23 @@
 
     python -m mmla_audio_torch.cli setup        --root experiment
     python -m mmla_audio_torch.cli overlap-live --fake [--windows N] [--vad energy|webrtc]
+    python -m mmla_audio_torch.cli speaker-live --fake [--windows N] [--vad energy|webrtc]
     python -m mmla_audio_torch.cli overlap-run  -f clip.wav | --dir DIR
-    python -m mmla_audio_torch.cli overlap-post --root experiment
+    python -m mmla_audio_torch.cli overlap-post --root experiment [--vad energy|webrtc]
+    python -m mmla_audio_torch.cli speaker-post --root experiment [--vad energy|webrtc]
     python -m mmla_audio_torch.cli charts       --root experiment [--kind overlap|speaker]
 
 ``--weights PATH.npz`` loads the model from the flat ``.npz`` that
 ``params.py`` documents; without it the weights are random-init from
-``--seed`` (Keras initializers, as the JAX CLI without ``--ckpt``).
-``--device`` defaults to ``cuda``; a run without a card fails unless it
-asks for ``--device cpu``.
+``--seed`` (Keras initializers, as the JAX CLI without ``--ckpt``).  A
+speaker model's head is as wide as the file's; ``speaker-post`` checks it
+against the enrollment corpus (one ``.wav`` per speaker) and takes a
+sigmoid head when there is one, as the JAX CLI does.  ``--precision``:
+``default`` (alias ``auto``) is each model's own default, ``highest`` IEEE
+fp32 everywhere, ``fast`` TF32 in the models.  ``--device`` defaults to
+``cuda``; a run without a card fails unless it asks for ``--device cpu``.
+Not ported yet, and refused: a microphone (pass ``--fake``) and speaker
+registration (``--register``, which needs the transfer fine-tune).
 """
 
 from __future__ import annotations
@@ -39,7 +47,15 @@ def _cfg(args) -> PipelineConfig:
     return cfg
 
 
-def _predictor(args, cfg):
+def _matmul_precision(args):
+    """``--precision`` -> the predictors' ``matmul_precision``: default ->
+    "auto" (overlap TF32, speaker IEEE fp32), highest -> IEEE fp32, fast ->
+    TF32 allowed."""
+    return {"default": "auto", "auto": "auto", "highest": "highest",
+            "fast": None}[args.precision]
+
+
+def _overlap_predictor(args, cfg):
     from mmla_audio_torch.inference import OverlapPredictor
     from mmla_audio_torch.models.overlap import OverlapResBLSTM, keras_init_
     from mmla_audio_torch.params import (load_overlap_npz,
@@ -58,7 +74,40 @@ def _predictor(args, cfg):
               f"(seed {args.seed})")
     return OverlapPredictor(state_dict, cfg.overlap_model,
                             cfg.overlap_feature, device=_device(args),
-                            matmul_precision=args.precision)
+                            matmul_precision=_matmul_precision(args))
+
+
+def _speaker_predictor(args, cfg, n_speakers: int | None = None):
+    """The speaker model from ``--weights`` (its head as wide as the file's,
+    which must equal ``n_speakers`` when a corpus gives one) or random init
+    with a head of ``n_speakers`` (None: the 630 of the base model); a
+    sigmoid head exactly when ``n_speakers`` is given."""
+    from mmla_audio_torch.inference import SpeakerPredictor
+    from mmla_audio_torch.models.layers import keras_init_
+    from mmla_audio_torch.models.speaker import SpeakerResBLSTM
+    from mmla_audio_torch.params import (load_speaker_npz,
+                                         speaker_state_dict_from_jax)
+
+    mcfg = cfg.speaker_model
+    if args.weights:
+        tree, head = load_speaker_npz(args.weights, mcfg)
+        if n_speakers is not None and head != n_speakers:
+            raise SystemExit(f"{args.weights}: the head has {head} units, "
+                             f"the enrollment corpus {n_speakers} speakers")
+        state_dict = speaker_state_dict_from_jax(tree, mcfg, head)
+        print(f"[INFO] weights: {args.weights}")
+    else:
+        head = n_speakers
+        state_dict = keras_init_(SpeakerResBLSTM(mcfg, head),
+                                 torch.Generator().manual_seed(args.seed)
+                                 ).state_dict()
+        print("[WARN] no --weights: using random-init weights "
+              f"(seed {args.seed})")
+    return SpeakerPredictor(state_dict, mcfg, cfg.speaker_feature,
+                            head_units=head,
+                            sigmoid_head=n_speakers is not None,
+                            device=_device(args),
+                            matmul_precision=_matmul_precision(args))
 
 
 def cmd_setup(args):
@@ -68,33 +117,65 @@ def cmd_setup(args):
     print(f"[INFO] experiment tree ready under {dirs.root}")
 
 
-def cmd_overlap_live(args):
+def _run_live(args, cfg, make_session, show) -> None:
+    """Calibrate, then run a live session on the fake source."""
     from mmla_audio_torch.streaming.capture import CaptureThread, FakePCMSource
-    from mmla_audio_torch.streaming.session import OverlapSession
 
-    if not args.fake:
-        raise SystemExit("overlap-live: microphone capture is not ported "
-                         "yet; pass --fake")
-    cfg = _cfg(args)
-    pred = _predictor(args, cfg)
     cap = CaptureThread(FakePCMSource(cfg.audio, seed=args.seed,
                                       realtime=args.realtime),
                         cfg.audio).start()
     try:
-        sess = OverlapSession(pred, cap, args.root, cfg=cfg,
-                              save_recordings=args.save_recordings)
+        sess = make_session(cap)
         cal_s = args.calibrate_seconds or cfg.audio.noise_profile_seconds
         print(f"[INFO] calibrating ambient noise ({cal_s:.0f}s)...")
         sess.calibrate(args.calibrate_seconds)
         print("[INFO] model loaded: start predicting...")
-
-        def show(idx, label, prob):
-            print(f"[INFO] window {idx}: {label}  (probs {np.round(prob, 3)})")
-
         sess.run(max_windows=args.windows, on_result=show)
     finally:
         cap.stop()
     print(f"[INFO] log: {sess.log.path}")
+
+
+def _refuse_microphone(args):
+    if not args.fake:
+        raise SystemExit(f"{args.cmd}: microphone capture is not ported "
+                         f"yet; pass --fake")
+
+
+def cmd_overlap_live(args):
+    from mmla_audio_torch.streaming.session import OverlapSession
+
+    _refuse_microphone(args)
+    cfg = _cfg(args)
+    pred = _overlap_predictor(args, cfg)
+
+    def show(idx, label, prob):
+        print(f"[INFO] window {idx}: {label}  (probs {np.round(prob, 3)})")
+
+    _run_live(args, cfg, lambda cap: OverlapSession(
+        pred, cap, args.root, cfg=cfg, save_recordings=args.save_recordings),
+        show)
+
+
+def cmd_speaker_live(args):
+    """Identify speakers on the fake source with the base (630-way) model
+    or ``--weights``.  Registration is refused: it needs the transfer
+    fine-tune, whose training is not ported yet."""
+    from mmla_audio_torch.streaming.session import SpeakerSession
+
+    if args.register:
+        raise SystemExit("speaker-live: --register needs the transfer "
+                         "fine-tune, and training is not ported yet")
+    _refuse_microphone(args)
+    cfg = _cfg(args)
+    pred = _speaker_predictor(args, cfg)
+
+    def show(idx, label, prob):
+        print(f"[INFO] window {idx}: {label}")
+
+    _run_live(args, cfg, lambda cap: SpeakerSession(
+        pred, cap, args.root, cfg=cfg, save_recordings=args.save_recordings),
+        show)
 
 
 def cmd_overlap_run(args):
@@ -112,7 +193,7 @@ def cmd_overlap_run(args):
         raise SystemExit(f"overlap-run: no .wav files under {args.dir}")
     times = {}
     t0 = time.perf_counter()
-    pred = _predictor(args, cfg)
+    pred = _overlap_predictor(args, cfg)
     times["model_load"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -147,10 +228,29 @@ def cmd_overlap_post(args):
     cfg = _cfg(args)
     dirs = bootstrap(args.root)
     noise = read_wav(dirs.noise_path)[0] if dirs.noise_path.exists() else None
-    pred = _predictor(args, cfg)
+    pred = _overlap_predictor(args, cfg)
     t0 = time.perf_counter()
     logs = overlap_post_analyze(dirs, pred, cfg=cfg, noise=noise)
     print(f"[TIME] overlap-post: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    for name, log in logs.items():
+        print(f"[INFO] {name}: {log}")
+
+
+def cmd_speaker_post(args):
+    """Every recording under ``post-time/whole`` -> a speaker TSV log and a
+    chart; the head's width is the enrollment corpus's size."""
+    from mmla_audio_torch.analyze.post_time import speaker_post_analyze
+    from mmla_audio_torch.data.wavio import read_wav
+    from mmla_audio_torch.utils.experiment import bootstrap
+
+    cfg = _cfg(args)
+    dirs = bootstrap(args.root)
+    noise = read_wav(dirs.noise_path)[0] if dirs.noise_path.exists() else None
+    n_speakers = len(list(dirs.corpus.glob("*.wav"))) or None
+    pred = _speaker_predictor(args, cfg, n_speakers)
+    t0 = time.perf_counter()
+    logs = speaker_post_analyze(dirs, pred, cfg=cfg, noise=noise)
+    print(f"[TIME] speaker-post: {(time.perf_counter() - t0) * 1e3:.1f} ms")
     for name, log in logs.items():
         print(f"[INFO] {name}: {log}")
 
@@ -175,10 +275,13 @@ def main(argv=None):
         p.add_argument("--device", default=None,
                        help="torch device (default cuda; pass cpu to run "
                             "without a card)")
-        p.add_argument("--precision", choices=["auto", "highest"],
-                       default="auto",
-                       help="model convs/LSTM/GEMMs: 'auto' allows TF32 on "
-                            "the card, 'highest' keeps IEEE fp32")
+        p.add_argument("--precision",
+                       choices=["default", "highest", "fast", "auto"],
+                       default="default",
+                       help="model convs/LSTM/GEMMs on the card: 'default' "
+                            "(alias 'auto') each model's own (overlap TF32, "
+                            "speaker IEEE fp32), 'highest' IEEE fp32, "
+                            "'fast' TF32")
         p.add_argument("--weights", default=None, metavar="PATH.npz",
                        help="model weights as the flat .npz of params.py "
                             "(default: random init from --seed)")
@@ -187,30 +290,49 @@ def main(argv=None):
     p.add_argument("--root", default="experiment")
     p.set_defaults(fn=cmd_setup)
 
+    def vad(p):
+        p.add_argument("--vad", choices=["energy", "webrtc"], default=None,
+                       help="per-frame VAD decision (default webrtc, the "
+                            "bit-exact native engine)")
+
+    def live(p):
+        common(p)
+        vad(p)
+        p.add_argument("--root", default="experiment")
+        p.add_argument("--fake", action="store_true",
+                       help="deterministic PCM source instead of a "
+                            "microphone")
+        p.add_argument("--realtime", action="store_true")
+        p.add_argument("--windows", type=int, default=None)
+        p.add_argument("--calibrate-seconds", type=float, default=None)
+        p.add_argument("--save-recordings", action="store_true")
+
     p = sub.add_parser("overlap-live")
-    common(p)
-    p.add_argument("--root", default="experiment")
-    p.add_argument("--fake", action="store_true",
-                   help="deterministic PCM source instead of a microphone")
-    p.add_argument("--realtime", action="store_true")
-    p.add_argument("--windows", type=int, default=None)
-    p.add_argument("--calibrate-seconds", type=float, default=None)
-    p.add_argument("--save-recordings", action="store_true")
-    p.add_argument("--vad", choices=["energy", "webrtc"], default=None,
-                   help="per-frame VAD decision (default webrtc, the "
-                        "bit-exact native engine)")
+    live(p)
     p.set_defaults(fn=cmd_overlap_live)
+
+    p = sub.add_parser("speaker-live")
+    live(p)
+    p.add_argument("--register", nargs="*", default=None,
+                   help="refused: registration needs the transfer "
+                        "fine-tune, not ported yet")
+    p.set_defaults(fn=cmd_speaker_live)
 
     p = sub.add_parser("overlap-run")
     common(p)
+    p.add_argument("--root", default="experiment",
+                   help="accepted as the JAX CLI does; unused")
     p.add_argument("-f", "--file", default=None)
     p.add_argument("-dir", "--dir", default=None)
     p.set_defaults(fn=cmd_overlap_run)
 
-    p = sub.add_parser("overlap-post")
-    common(p)
-    p.add_argument("--root", default="experiment")
-    p.set_defaults(fn=cmd_overlap_post)
+    for name, fn in (("overlap-post", cmd_overlap_post),
+                     ("speaker-post", cmd_speaker_post)):
+        p = sub.add_parser(name)
+        common(p)
+        vad(p)
+        p.add_argument("--root", default="experiment")
+        p.set_defaults(fn=fn)
 
     p = sub.add_parser("charts")
     p.add_argument("--root", default="experiment")

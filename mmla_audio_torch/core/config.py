@@ -4,7 +4,8 @@
 The port runs where the JAX package cannot be imported, so it carries its own
 copy of the configuration it uses.  Every class here has the same fields and
 defaults as its JAX counterpart (pinned by ``tests/test_torch_inference.py``);
-``PipelineConfig`` holds only the parts the overlap path reads.
+``PipelineConfig`` holds only the parts the overlap and speaker serving
+paths read.
 """
 
 from __future__ import annotations
@@ -12,8 +13,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-__all__ = ["AudioConfig", "OverlapFeatureConfig", "VadConfig",
-           "DenoiseConfig", "OverlapModelConfig", "PipelineConfig"]
+__all__ = ["AudioConfig", "OverlapFeatureConfig", "SpeakerFeatureConfig",
+           "VadConfig", "DenoiseConfig", "OverlapModelConfig",
+           "SpeakerModelConfig", "PipelineConfig"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +72,43 @@ class OverlapFeatureConfig:
     @property
     def image_shape(self) -> Tuple[int, int, int]:
         return (self.n_mels, self.n_frames, 3)               # (128, 151, 3)
+
+
+@dataclasses.dataclass(frozen=True)
+class SpeakerFeatureConfig:
+    """MFCC-13 + delta + delta-delta over 256 frames, python_speech_features
+    semantics: 25 ms / 10 ms frames, NFFT 512, 26 HTK mel filters, DCT-II
+    ortho, ceplifter 22, log-energy in c0, preemphasis 0.97, rectangular
+    window, on raw int16 sample values."""
+
+    sample_rate: int = 16_000
+    win_ms: float = 25.0
+    hop_ms: float = 10.0
+    n_fft: int = 512
+    n_filt: int = 26
+    n_cep: int = 13
+    ceplifter: int = 22
+    preemph: float = 0.97
+    append_energy: bool = True
+    delta_n: int = 2
+    max_frames: int = 256              # pad/truncate target (~2.56 s)
+    silent_samples: int = 4_000        # < 0.25 s post-VAD -> 'silent'
+
+    @property
+    def win_length(self) -> int:
+        return int(round(self.win_ms / 1000 * self.sample_rate))   # 400
+
+    @property
+    def hop_length(self) -> int:
+        return int(round(self.hop_ms / 1000 * self.sample_rate))   # 160
+
+    @property
+    def feat_dim(self) -> int:
+        return self.n_cep * 3                                       # 39
+
+    @property
+    def feature_shape(self) -> Tuple[int, int]:
+        return (self.max_frames, self.feat_dim)                     # (256, 39)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,11 +169,32 @@ class OverlapModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SpeakerModelConfig:
+    """SpeakerResBLSTM.  ``stage_l2`` is the Keras l2 of the inner convs,
+    a training-time penalty the serving path does not read."""
+
+    stem_filters: int = 32
+    stem_kernel: int = 4
+    stage_filters: Tuple[int, ...] = (32, 64, 128)
+    stage_l2: Tuple[float, ...] = (0.0, 0.1, 0.2)
+    blocks_per_stage: int = 3
+    lstm_units: int = 256
+    dropout_trunk: float = 0.25
+    dropout_head: float = 0.2
+    avg_pool: int = 4
+    num_speakers: int = 630            # TIMIT
+    bn_momentum: float = 0.99
+    bn_eps: float = 1e-3
+
+
+@dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """What an overlap session needs."""
+    """What an overlap or speaker session needs."""
 
     audio: AudioConfig = AudioConfig()
     overlap_feature: OverlapFeatureConfig = OverlapFeatureConfig()
+    speaker_feature: SpeakerFeatureConfig = SpeakerFeatureConfig()
     vad: VadConfig = VadConfig()
     denoise: DenoiseConfig = DenoiseConfig()
     overlap_model: OverlapModelConfig = OverlapModelConfig()
+    speaker_model: SpeakerModelConfig = SpeakerModelConfig()

@@ -25,7 +25,9 @@
 // global memory (L1/L2: neighbouring frames overlap; a frame inside the
 // signal reads each sample pair once, as 8 bytes), windows and packs them
 // into a per-warp buffer, runs Stockham stages ping-pong between two
-// per-warp buffers in shared memory (only __syncwarp between stages), forms
+// per-warp buffers in shared memory (only __syncwarp between stages; radix
+// 2, 3, 4, 5 and 8 written out, any other prime factor of win/2 up to 17 by
+// `stage_generic` from the twiddle table), forms
 // the 201 powers, and each lane sums four mel rows side by side over their
 // bands.  ZCR is a ballot over the loaded samples' signs.  Each mel value
 // goes into the window's (M, T) tile as 10 log10(max(mel, amin)); the warp
@@ -161,6 +163,34 @@ __device__ inline void stage(const float2* x, float2* y, int n2, int p, int tste
     const int j = (i - k) * R + k;
 #pragma unroll
     for (int r = 0; r < R; ++r) y[j + r * p] = a[r];
+  }
+}
+
+// The same stage for an odd prime R that has no written-out DFT (7 up to
+// MAX_RADIX of ops/cuda_features.py), read and written as `stage` does.
+// Output r of butterfly i is sum_q x[i + q S] W^(q (k + r p)): the input
+// twiddle W^(k q) and the R-point DFT's root exp(-2 pi i q r / R) are one
+// entry of the twiddle table, index q (k + r p) tstep mod win (k + r p < p R,
+// so the step is below win).  R^2 complex multiply-adds a butterfly, R a
+// point, against 2 to 4 for the written-out radices; only windows whose half
+// has such a factor run it.
+__device__ inline void stage_generic(const float2* x, float2* y, int n2, int R, int p,
+                                     int tstep, int win, const float2* tw, int lane) {
+  const int S = n2 / R;
+  for (int i = lane; i < S; i += 32) {
+    const int k = i % p;
+    const int j = (i - k) * R + k;
+    for (int r = 0; r < R; ++r) {
+      const int step = (k + r * p) * tstep;
+      float2 acc = x[i];
+      int t = 0;
+      for (int q = 1; q < R; ++q) {
+        t += step;
+        if (t >= win) t -= win;
+        acc = acc + cmul(x[i + q * S], tw[t]);
+      }
+      y[j + r * p] = acc;
+    }
   }
 }
 
@@ -307,7 +337,8 @@ overlap_features_kernel(const float* __restrict__ y, long long row_stride, int B
         case 3: stage<3>(src, dst, n2, p, tstep, tw, lane); break;
         case 4: stage<4>(src, dst, n2, p, tstep, tw, lane); break;
         case 5: stage<5>(src, dst, n2, p, tstep, tw, lane); break;
-        default: stage<8>(src, dst, n2, p, tstep, tw, lane); break;
+        case 8: stage<8>(src, dst, n2, p, tstep, tw, lane); break;
+        default: stage_generic(src, dst, n2, R, p, tstep, win, tw, lane); break;
       }
       __syncwarp();
       float2* tmp = src;

@@ -1,11 +1,22 @@
 """Window-to-label inference (counterpart of ``mmla_audio_tpu.inference``).
 
+Overlap detection:
+
     (B, >=24000) int16-scale samples + (B,) valid counts
         -> masked prefix / 32768 -> featurize -> model -> softmax, argmax
         -> silent gate -> (labels (B,), probs (B, C))
 
 The featurizer is ``overlap_model_input_cuda``: on the card it is the
 hand-written kernel; for CPU tensors its plain version.
+
+Speaker identification:
+
+    (B, 40960) int16-scale samples + (B,) valid counts
+        -> MFCC-39 (256, 39) -> SpeakerResBLSTM -> softmax (or sigmoid for a
+        transfer-learned head), argmax of the logits -> silent gate
+
+All of it is torch ops (cuBLAS GEMMs, cuDNN convolutions and LSTM on the
+card), as the JAX package runs it outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -16,16 +27,20 @@ from typing import Mapping
 import torch
 
 from mmla_audio_torch.core.config import (OverlapFeatureConfig,
-                                          OverlapModelConfig)
+                                          OverlapModelConfig,
+                                          SpeakerFeatureConfig,
+                                          SpeakerModelConfig)
 from mmla_audio_torch.models.overlap import OverlapResBLSTM
+from mmla_audio_torch.models.speaker import SpeakerResBLSTM
 from mmla_audio_torch.ops.cuda_features import (
     check_feature_config,
     overlap_model_input_cuda,
 )
 from mmla_audio_torch.ops.cuda_resblock import check_block_width
+from mmla_audio_torch.ops.features import speaker_feature_batch
 from mmla_audio_torch.precision import fp32_policy
 
-__all__ = ["SILENT", "OverlapPredictor"]
+__all__ = ["SILENT", "OverlapPredictor", "SpeakerPredictor"]
 
 SILENT = -1  # label index for the silent gate (the log writes "silent")
 
@@ -45,6 +60,26 @@ def _as_pcm(buf, device: torch.device) -> torch.Tensor:
     if buf.dtype not in (torch.int16, torch.float32):
         buf = buf.to(torch.float32)
     return buf.to(device)
+
+
+def _resolve_precision(matmul_precision, auto):
+    """``"auto"`` -> the model's default ``auto``; then None or "highest"."""
+    if matmul_precision == "auto":
+        matmul_precision = auto
+    if matmul_precision not in (None, "highest"):
+        raise ValueError(f"matmul_precision must be 'auto', 'highest' or "
+                         f"None: {matmul_precision!r}")
+    return matmul_precision
+
+
+def _apply(model, x, device, compute_dtype, matmul_precision):
+    """Model forward under a predictor's numerics policy: bf16 autocast if
+    ``compute_dtype``; TF32 only where ``matmul_precision`` is None; float32
+    out."""
+    autocast = torch.autocast(device.type, dtype=compute_dtype) \
+        if compute_dtype is not None else contextlib.nullcontext()
+    with fp32_policy(matmul_precision is None), autocast:
+        return model(x).float()
 
 
 class OverlapPredictor:
@@ -71,11 +106,7 @@ class OverlapPredictor:
         post-VAD sample count below which the window is SILENT
         (`record_on_pc.py:142`); pass ``cfg.vad.silent_samples`` to mirror
         a tuned session gate."""
-        if matmul_precision == "auto":
-            matmul_precision = None
-        if matmul_precision not in (None, "highest"):
-            raise ValueError(f"matmul_precision must be 'auto', 'highest' "
-                             f"or None: {matmul_precision!r}")
+        matmul_precision = _resolve_precision(matmul_precision, None)
         self.device = torch.device(device)
         check_feature_config(feat_cfg, on_card=self.device.type == "cuda")
         if self.device.type == "cuda":
@@ -92,10 +123,8 @@ class OverlapPredictor:
     def apply_model(self, x: torch.Tensor) -> torch.Tensor:
         """Model forward under this predictor's numerics policy; float32
         logits."""
-        autocast = torch.autocast(self.device.type, dtype=self.compute_dtype) \
-            if self.compute_dtype is not None else contextlib.nullcontext()
-        with fp32_policy(self.matmul_precision is None), autocast:
-            return self.model(x).float()
+        return _apply(self.model, x, self.device, self.compute_dtype,
+                      self.matmul_precision)
 
     @torch.no_grad()
     def predict(self, buf, n):
@@ -110,5 +139,81 @@ class OverlapPredictor:
         probs = torch.softmax(self.apply_model(img), dim=-1)
         labels = torch.argmax(probs, dim=-1).to(torch.int32)
         labels = torch.where(n < self.silent_threshold,
+                             torch.full_like(labels, SILENT), labels)
+        return labels, probs
+
+
+class SpeakerPredictor:
+    """Speaker identification over (denoised, VAD-trimmed) windows.
+
+    ``predict(buf, n)``: ``buf (B, 40960)`` or ``(40960,)`` raw PCM, int16
+    or float32 at int16 scale, with valid counts ``n`` -> ``(labels,
+    probs)`` on ``device``; label ``SILENT`` where ``n <
+    feat_cfg.silent_samples``.  A label indexes the enrollment
+    ``speaker_id_dict``.
+    """
+
+    def __init__(self, state_dict: Mapping[str, torch.Tensor],
+                 model_cfg: SpeakerModelConfig = SpeakerModelConfig(),
+                 feat_cfg: SpeakerFeatureConfig = SpeakerFeatureConfig(),
+                 head_units: int | None = None, sigmoid_head: bool = False,
+                 device: torch.device | str = "cuda",
+                 compute_dtype: torch.dtype | None = None,
+                 matmul_precision: str | None = "auto"):
+        """``head_units``: the head's width (None: ``num_speakers``, the
+        base model); ``sigmoid_head``: a transfer-learned head's sigmoid
+        probabilities instead of the softmax.  ``matmul_precision``:
+        ``"auto"`` is ``"highest"`` for this model, as in the JAX
+        predictor: the convolutions, LSTM and GEMMs in IEEE fp32 (TF32 off;
+        cuDNN would take TF32 by default on the card); ``None`` allows
+        TF32.  The MFCC is IEEE fp32 either way."""
+        self.matmul_precision = _resolve_precision(matmul_precision,
+                                                   "highest")
+        self.device = torch.device(device)
+        self.model = SpeakerResBLSTM(model_cfg, head_units,
+                                     feat_dim=feat_cfg.feat_dim)
+        self.model.load_state_dict(state_dict)
+        self.model.to(self.device).eval()
+        self.feat_cfg = feat_cfg
+        self.sigmoid_head = sigmoid_head
+        self.compute_dtype = compute_dtype
+
+    def apply_model(self, x: torch.Tensor) -> torch.Tensor:
+        """Model forward on MFCC-39 rows ``(B, 256, 39)`` under this
+        predictor's numerics policy; float32 logits."""
+        return _apply(self.model, x, self.device, self.compute_dtype,
+                      self.matmul_precision)
+
+    @torch.no_grad()
+    def logits_from_features(self, feats) -> torch.Tensor:
+        """Logits of precomputed ``(B, 256, 39)`` features (the post-time
+        path featurizes whole conversations in one pass and slices)."""
+        return self.apply_model(torch.as_tensor(feats).to(self.device,
+                                                          torch.float32))
+
+    @torch.no_grad()
+    def score(self, buf, n) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(logits, probs)`` of ``(B, max_samples)`` windows, no gate:
+        a transfer-learned head's probabilities are sigmoids
+        (`speaker_identification.py:409`), the base model's a softmax."""
+        buf = _as_pcm(buf, self.device)
+        n = torch.as_tensor(n).to(self.device, torch.int32)
+        feats, _ = speaker_feature_batch(buf.to(torch.float32), n,
+                                         self.feat_cfg)
+        logits = self.apply_model(feats)
+        probs = torch.sigmoid(logits) if self.sigmoid_head else \
+            torch.softmax(logits, dim=-1)
+        return logits, probs
+
+    @torch.no_grad()
+    def predict(self, buf, n):
+        buf = _as_pcm(buf, self.device)
+        n = torch.as_tensor(n).to(self.device, torch.int32)
+        if buf.ndim == 1:
+            labels, probs = self.predict(buf[None], n.reshape(1))
+            return labels[0], probs[0]
+        logits, probs = self.score(buf, n)
+        labels = torch.argmax(logits, dim=-1).to(torch.int32)
+        labels = torch.where(n < self.feat_cfg.silent_samples,
                              torch.full_like(labels, SILENT), labels)
         return labels, probs

@@ -20,14 +20,13 @@ hand-written fused kernel (``ops/cuda_resblock.py``; the rule is in
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from mmla_audio_torch.core.config import OverlapModelConfig
-from mmla_audio_torch.models.layers import BiLSTM, KerasBatchNorm, leaky_relu
+from mmla_audio_torch.models.layers import (BiLSTM, KerasBatchNorm,
+                                            keras_init_, leaky_relu)
 from mmla_audio_torch.ops.cuda_resblock import fold_bn, fused_resblock_cuda
 
 __all__ = ["ResBlock2D", "OverlapResBLSTM", "keras_init_"]
@@ -123,41 +122,3 @@ class OverlapResBLSTM(nn.Module):
         net = net.mean(dim=2).transpose(1, 2)        # mel-axis mean -> (B, T, C)
         net = leaky_relu(self.dropout(self.bilstm(net)))
         return self.head(net)
-
-
-def _glorot_uniform_(w: torch.Tensor, fan_in: int, fan_out: int,
-                     generator: torch.Generator) -> None:
-    limit = math.sqrt(6.0 / (fan_in + fan_out))
-    nn.init.uniform_(w, -limit, limit, generator=generator)
-
-
-@torch.no_grad()
-def keras_init_(model: OverlapResBLSTM, generator: torch.Generator
-                ) -> OverlapResBLSTM:
-    """Re-initialize in place with the JAX model's initializers: glorot
-    uniform conv/dense/LSTM-input kernels, orthogonal recurrent kernels,
-    zero biases except the LSTM forget slice (1), BatchNorm at identity."""
-    for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
-            rf = m.weight[0, 0].numel() if m.weight.ndim > 2 else 1
-            _glorot_uniform_(m.weight, m.weight.shape[1] * rf,
-                             m.weight.shape[0] * rf, generator)
-            nn.init.zeros_(m.bias)
-        elif isinstance(m, KerasBatchNorm):
-            m.reset_parameters()
-        elif isinstance(m, nn.LSTM):
-            H = m.hidden_size
-            for sfx in ("", "_reverse"):
-                w_ih = getattr(m, f"weight_ih_l0{sfx}")       # (4H, C)
-                _glorot_uniform_(w_ih, w_ih.shape[1], 4 * H, generator)
-                # Keras orthogonalizes the (H, 4H) kernel; torch holds its
-                # transpose
-                w_hh = getattr(m, f"weight_hh_l0{sfx}")
-                q = torch.empty(H, 4 * H, dtype=w_hh.dtype)
-                nn.init.orthogonal_(q, generator=generator)
-                w_hh.copy_(q.T)
-                b_ih = getattr(m, f"bias_ih_l0{sfx}")
-                b_ih.zero_()
-                b_ih[H: 2 * H] = 1.0
-                getattr(m, f"bias_hh_l0{sfx}").zero_()
-    return model

@@ -29,19 +29,32 @@ from mmla_audio_torch.core.config import OverlapFeatureConfig
 from mmla_audio_torch.ops.features import fit_length, overlap_model_input
 from mmla_audio_torch.ops.spectral import hann_periodic, mel_filterbank
 
-__all__ = ["GROUPS", "FeatureTables", "check_feature_config",
-           "feature_tables", "fft_radices", "launch_overlap_features",
-           "overlap_model_input_cuda"]
+__all__ = ["GROUPS", "MAX_RADIX", "SMEM_LIMIT", "FeatureTables",
+           "check_feature_config", "feature_tables", "fft_radices",
+           "launch_overlap_features", "overlap_model_input_cuda"]
 
 GROUPS = (1, 2, 4)          # windows per CTA the kernel is built for
+# the largest prime factor of win/2 the kernel's FFT takes: a factor without
+# a written-out butterfly (7 and up) runs the generic stage, R complex
+# multiply-adds a point, so a large one would make the FFT the frame's cost
+MAX_RADIX = 17
+# shared memory one CTA may opt into on the H100 (227 KB), and the smallest
+# block the launcher falls back to
+SMEM_LIMIT, MIN_THREADS = 232_448, 256
+
+
+def _primes(lo: int, hi: int):
+    return [p for p in range(lo, hi + 1)
+            if all(p % d for d in range(2, int(p ** 0.5) + 1))]
 
 
 def fft_radices(n: int) -> tuple:
     """The kernel's radix plan for an ``n``-point complex FFT: the factors 3
-    and 5 first, then 4 and 2, radix 8 last (its stage writes contiguous
-    runs).  ``None`` where ``n`` has a prime factor above 5."""
+    and 5 first, then any other prime factor up to ``MAX_RADIX`` (the
+    generic stage), then 4 and 2, radix 8 last (its stage writes contiguous
+    runs).  ``None`` where ``n`` has a prime factor above ``MAX_RADIX``."""
     radices, m = [], n
-    for r in (3, 5):
+    for r in [3, 5] + _primes(7, MAX_RADIX):
         while m % r == 0:
             radices.append(r)
             m //= r
@@ -56,12 +69,25 @@ def fft_radices(n: int) -> tuple:
     return tuple(radices + tail) if m == 1 else None
 
 
+def _smem_bytes(cfg: OverlapFeatureConfig, K: int, threads: int) -> int:
+    """The kernel's shared memory at one window a CTA (``smem_floats`` of
+    ``csrc/overlap_features.cu``); ``K``: the widest mel band."""
+    def round4(x):
+        return (x + 3) & ~3
+
+    win, T, M, nwarps = cfg.win_length, cfg.n_frames, cfg.n_mels, threads // 32
+    return 4 * (2 * win + nwarps * 2 * win + round4(K * M) + round4(2 * M)
+                + round4(T) + round4(nwarps * 3) + round4(M * T))
+
+
 def check_feature_config(cfg: OverlapFeatureConfig,
                          on_card: bool = True) -> None:
     """The kernel hardcodes the PNG quantize and the mel-axis flip; a config
-    that disables either would make the two paths disagree.  Its FFT takes a
-    window of ``2 n`` samples with ``n`` a product of 2, 3 and 5; the plain
-    version (``on_card=False``) takes any window."""
+    that disables either would make the two paths disagree.  On the card it
+    takes an even window whose half has no prime factor above
+    ``MAX_RADIX``, and whose tables fit the shared memory of a CTA of
+    ``MIN_THREADS``; the plain version (``on_card=False``) takes any
+    window."""
     if not cfg.png_quantize or not cfg.flip_mel_axis:
         raise ValueError(
             "the overlap feature kernel requires png_quantize=True and "
@@ -69,11 +95,21 @@ def check_feature_config(cfg: OverlapFeatureConfig,
     if not on_card:
         return
     win = cfg.win_length
-    if win < 2 or win % 2 or fft_radices(win // 2) is None:
+    geometry = (f"win_length {win} (sample_rate {cfg.sample_rate}, win_ms "
+                f"{cfg.win_ms})")
+    if win < 2 or win % 2:
+        raise ValueError(f"the overlap feature kernel's FFT needs an even "
+                         f"window; {geometry} is odd")
+    if fft_radices(win // 2) is None:
         raise ValueError(
-            f"the overlap feature kernel's FFT needs an even window whose "
-            f"half factors into 2, 3 and 5; win_length {win} "
-            f"(sample_rate {cfg.sample_rate}, win_ms {cfg.win_ms}) does not")
+            f"the overlap feature kernel's FFT takes no prime factor of "
+            f"win/2 above {MAX_RADIX}; {geometry} has one")
+    smem = _smem_bytes(cfg, _mel_bands(cfg)[2].shape[0], MIN_THREADS)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"the overlap feature kernel needs {smem} bytes of shared memory "
+            f"at {MIN_THREADS} threads for {geometry}, {cfg.n_frames} frames "
+            f"and {cfg.n_mels} mels; a CTA has {SMEM_LIMIT}")
 
 
 class FeatureTables(NamedTuple):
@@ -87,18 +123,12 @@ class FeatureTables(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def feature_tables(cfg: OverlapFeatureConfig,
-                   dtype=np.float32) -> FeatureTables:
-    """The kernel's tables for ``cfg``.  Twiddles are computed in float64
-    and rounded to ``dtype``; the window is ``hann_periodic``'s float32.
-    Mel rows come in image order (reversed: the flip), each as the
-    contiguous band of bins between its first and last nonzero weight."""
-    check_feature_config(cfg)
-    win = cfg.win_length
-    ang = 2.0 * np.pi * np.arange(win) / win
-    twiddle = np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(dtype)
-    fb = mel_filterbank(cfg.sample_rate, win, cfg.n_mels, cfg.fmin,
-                        cfg.fmax)[::-1]                    # (M, bins)
+def _mel_bands(cfg: OverlapFeatureConfig) -> tuple:
+    """Mel rows in image order (reversed: the flip), each as the contiguous
+    band of bins between its first and last nonzero weight: ``(first (M,),
+    count (M,), weight (K, M))``, K the widest band."""
+    fb = mel_filterbank(cfg.sample_rate, cfg.win_length, cfg.n_mels,
+                        cfg.fmin, cfg.fmax)[::-1]          # (M, bins)
     nz = fb != 0
     first = np.where(nz.any(1), nz.argmax(1), 0)
     last = np.where(nz.any(1), fb.shape[1] - 1 - nz[:, ::-1].argmax(1), -1)
@@ -106,9 +136,23 @@ def feature_tables(cfg: OverlapFeatureConfig,
     weight = np.zeros((max(int(count.max()), 1), fb.shape[0]), np.float32)
     for m, (f, c) in enumerate(zip(first, count)):
         weight[:c, m] = fb[m, f:f + c]
+    return first.astype(np.int32), count.astype(np.int32), weight
+
+
+@functools.lru_cache(maxsize=None)
+def feature_tables(cfg: OverlapFeatureConfig,
+                   dtype=np.float32) -> FeatureTables:
+    """The kernel's tables for ``cfg``.  Twiddles are computed in float64
+    and rounded to ``dtype``; the window is ``hann_periodic``'s float32;
+    the mel bands are ``_mel_bands``."""
+    check_feature_config(cfg)
+    win = cfg.win_length
+    ang = 2.0 * np.pi * np.arange(win) / win
+    twiddle = np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(dtype)
+    first, count, weight = _mel_bands(cfg)
     return FeatureTables(hann_periodic(win).astype(dtype), twiddle,
-                         fft_radices(win // 2), first.astype(np.int32),
-                         count.astype(np.int32), weight.astype(dtype))
+                         fft_radices(win // 2), first, count,
+                         weight.astype(dtype))
 
 
 @functools.lru_cache(maxsize=None)

@@ -9,13 +9,19 @@ does, returned as float32 0..255.
 This is the plain version of the hand-written kernel in
 ``ops/cuda_features.py``: it serves CPU tensors, and the kernel is held
 against it on the card.
+
+Speaker ID: a 2.56 s (VAD-trimmed) window -> (256, 39) MFCC + delta +
+delta-delta, rows past the valid frames zero (``ops/mfcc.py``; torch ops on
+the window's device, no kernel of their own).
 """
 
 from __future__ import annotations
 
 import torch
 
-from mmla_audio_torch.core.config import OverlapFeatureConfig
+from mmla_audio_torch.core.config import (OverlapFeatureConfig,
+                                          SpeakerFeatureConfig)
+from mmla_audio_torch.ops.mfcc import mfcc39_windowed_batch
 from mmla_audio_torch.ops.spectral import (
     melspectrogram_power,
     minmax_normalize,
@@ -24,7 +30,7 @@ from mmla_audio_torch.ops.spectral import (
 )
 
 __all__ = ["fit_length", "quantize_png_u8", "overlap_image",
-           "overlap_model_input"]
+           "overlap_model_input", "speaker_feature", "speaker_feature_batch"]
 
 
 def fit_length(y: torch.Tensor, n: int) -> torch.Tensor:
@@ -69,3 +75,26 @@ def overlap_model_input(y: torch.Tensor,
     if cfg.png_quantize:
         img = quantize_png_u8(img)
     return img
+
+
+def speaker_feature_batch(bufs: torch.Tensor, n_samples,
+                          cfg: SpeakerFeatureConfig = SpeakerFeatureConfig()
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Speaker-ID windows: ``bufs (B, max_samples)`` int16-scale values and
+    valid counts ``(B,)`` -> ``((B, 256, 39), valid frames (B,))``."""
+    return mfcc39_windowed_batch(
+        bufs, n_samples, max_frames=cfg.max_frames, delta_n=cfg.delta_n,
+        win_length=cfg.win_length, hop_length=cfg.hop_length,
+        sample_rate=cfg.sample_rate, n_fft=cfg.n_fft, n_filt=cfg.n_filt,
+        n_cep=cfg.n_cep, preemph=cfg.preemph, ceplifter=cfg.ceplifter,
+        append_energy=cfg.append_energy)
+
+
+def speaker_feature(buf: torch.Tensor, n_samples,
+                    cfg: SpeakerFeatureConfig = SpeakerFeatureConfig()
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One speaker-ID window: ``(max_samples,)`` + valid count ->
+    ``((256, 39), valid frames)``."""
+    feat, valid = speaker_feature_batch(
+        buf[None], torch.as_tensor(n_samples).reshape(1), cfg)
+    return feat[0], valid[0]

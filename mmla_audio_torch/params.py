@@ -1,37 +1,48 @@
 """Flax parameter trees -> PyTorch ``state_dict``s.
 
-The JAX package keeps an ``OverlapResBLSTM``'s weights as a nested dict
-``{"params": ..., "batch_stats": ...}`` (Flax module names as keys).  The
-converter takes that tree as nested dicts of numpy arrays, so neither Flax
-nor JAX is needed to call it.
+The JAX package keeps an ``OverlapResBLSTM``'s or a ``SpeakerResBLSTM``'s
+weights as a nested dict ``{"params": ..., "batch_stats": ...}`` (Flax
+module names as keys).  The converters take that tree as nested dicts of
+numpy arrays, so neither Flax nor JAX is needed to call them.
 
-Weights travel as a flat ``.npz`` (``load_overlap_npz``/``save_overlap_npz``):
-one array per leaf, keyed by the ``/``-joined path of the tree, e.g.
-``params/stage0_block1/Conv_0/kernel`` or
-``batch_stats/stage0_block0/KerasBatchNorm_0/BatchNorm_0/var``; a JAX host
-writes it from its variables with ``np.savez``.
+Weights travel as a flat ``.npz`` (``save_npz``; ``load_overlap_npz``,
+``load_speaker_npz``): one array per leaf, keyed by the ``/``-joined path of
+the tree, e.g. ``params/stage0_block1/Conv_0/kernel``,
+``batch_stats/stage0_block0/KerasBatchNorm_0/BatchNorm_0/var`` or
+``params/trunk/stage1_unit0/shortcut/kernel``; a JAX host writes it from
+its variables with ``np.savez``.
 
-Layout changes: conv kernels HWIO -> OIHW; Dense and LSTM kernels are
-transposed ((in, out) -> (out, in)); the Keras LSTM's single ``bias`` goes to
-``bias_ih`` with ``bias_hh = 0``; BatchNorm ``scale``/``bias``/``mean``/``var``
-become ``weight``/``bias``/``running_mean``/``running_var``.
+Layout changes: 2-D conv kernels HWIO -> OIHW, 1-D ones (K, Cin, Cout) ->
+(Cout, Cin, K); Dense and LSTM kernels are transposed ((in, out) -> (out,
+in)); the Keras LSTM's single ``bias`` goes to ``bias_ih`` with ``bias_hh =
+0``; BatchNorm ``scale``/``bias``/``mean``/``var`` become
+``weight``/``bias``/``running_mean``/``running_var``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
-from mmla_audio_torch.core.config import OverlapModelConfig
+from mmla_audio_torch.core.config import OverlapModelConfig, SpeakerModelConfig
 
 __all__ = ["overlap_tree_shapes", "overlap_state_dict_from_jax",
-           "load_overlap_npz", "save_overlap_npz"]
+           "load_overlap_npz", "save_npz",
+           "speaker_tree_shapes", "speaker_state_dict_from_jax",
+           "load_speaker_npz"]
 
 
 def _conv(kh, kw, cin, cout):
     return {"kernel": (kh, kw, cin, cout), "bias": (cout,)}
+
+
+def _bn_shapes(c):
+    """A KerasBatchNorm's (params, batch_stats) shapes."""
+    return ({"BatchNorm_0": {"scale": (c,), "bias": (c,)}},
+            {"BatchNorm_0": {"mean": (c,), "var": (c,)}})
 
 
 def _blocks(cfg: OverlapModelConfig):
@@ -53,10 +64,8 @@ def overlap_tree_shapes(cfg: OverlapModelConfig = OverlapModelConfig()
         blk = {"Conv_0": _conv(3, 3, ch, f), "Conv_1": _conv(4, 1, f, f)}
         st = {}
         for j, c in enumerate((ch, f)):
-            blk[f"KerasBatchNorm_{j}"] = {
-                "BatchNorm_0": {"scale": (c,), "bias": (c,)}}
-            st[f"KerasBatchNorm_{j}"] = {
-                "BatchNorm_0": {"mean": (c,), "var": (c,)}}
+            blk[f"KerasBatchNorm_{j}"], st[f"KerasBatchNorm_{j}"] = \
+                _bn_shapes(c)
         if pool:
             blk["shortcut"] = _conv(1, 1, ch, f)
         params[name], stats[name] = blk, st
@@ -82,6 +91,31 @@ def _check(tree: Mapping, shapes: Mapping, path: str = "") -> None:
                              f"{np.shape(tree[k])}, expected {want}")
 
 
+def _put(sd, key, a) -> None:
+    sd[key] = torch.from_numpy(
+        np.ascontiguousarray(np.asarray(a, dtype=np.float32)))
+
+
+def _bn(sd, prefix, pnode, snode) -> None:
+    pnode, snode = pnode["BatchNorm_0"], snode["BatchNorm_0"]
+    _put(sd, f"{prefix}.weight", pnode["scale"])
+    _put(sd, f"{prefix}.bias", pnode["bias"])
+    _put(sd, f"{prefix}.running_mean", snode["mean"])
+    _put(sd, f"{prefix}.running_var", snode["var"])
+    sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+
+
+def _lstm(sd, prefix, node) -> None:
+    """A Keras BiLSTM's two directions into ``nn.LSTM(bidirectional)``."""
+    for d, sfx in (("forward", ""), ("backward", "_reverse")):
+        _put(sd, f"{prefix}.weight_ih_l0{sfx}",
+             np.asarray(node[d]["kernel"]).T)
+        _put(sd, f"{prefix}.weight_hh_l0{sfx}",
+             np.asarray(node[d]["recurrent_kernel"]).T)
+        _put(sd, f"{prefix}.bias_ih_l0{sfx}", node[d]["bias"])
+        _put(sd, f"{prefix}.bias_hh_l0{sfx}", np.zeros_like(node[d]["bias"]))
+
+
 def overlap_state_dict_from_jax(tree: Mapping[str, Any],
                                 cfg: OverlapModelConfig = OverlapModelConfig()
                                 ) -> Dict[str, torch.Tensor]:
@@ -89,22 +123,11 @@ def overlap_state_dict_from_jax(tree: Mapping[str, Any],
     _check(tree, overlap_tree_shapes(cfg))
     p, s = tree["params"], tree["batch_stats"]
     sd: Dict[str, torch.Tensor] = {}
-
-    def put(key, a):
-        sd[key] = torch.from_numpy(
-            np.ascontiguousarray(np.asarray(a, dtype=np.float32)))
+    put = functools.partial(_put, sd)
 
     def conv(prefix, node):
         put(f"{prefix}.weight", np.transpose(node["kernel"], (3, 2, 0, 1)))
         put(f"{prefix}.bias", node["bias"])
-
-    def bn(prefix, pnode, snode):
-        pnode, snode = pnode["BatchNorm_0"], snode["BatchNorm_0"]
-        put(f"{prefix}.weight", pnode["scale"])
-        put(f"{prefix}.bias", pnode["bias"])
-        put(f"{prefix}.running_mean", snode["mean"])
-        put(f"{prefix}.running_var", snode["var"])
-        sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
 
     conv("stem", p["stem"])
     for name, i, _, _, pool in _blocks(cfg):
@@ -112,22 +135,89 @@ def overlap_state_dict_from_jax(tree: Mapping[str, Any],
         if pool:
             conv(f"{pre}.shortcut", p[name]["shortcut"])
         for j in (0, 1):
-            bn(f"{pre}.bn{j}", p[name][f"KerasBatchNorm_{j}"],
-               s[name][f"KerasBatchNorm_{j}"])
+            _bn(sd, f"{pre}.bn{j}", p[name][f"KerasBatchNorm_{j}"],
+                s[name][f"KerasBatchNorm_{j}"])
             conv(f"{pre}.conv{j}", p[name][f"Conv_{j}"])
-    for d, sfx in (("forward", ""), ("backward", "_reverse")):
-        node = p["BiLSTM_0"][d]
-        put(f"bilstm.lstm.weight_ih_l0{sfx}", np.asarray(node["kernel"]).T)
-        put(f"bilstm.lstm.weight_hh_l0{sfx}",
-            np.asarray(node["recurrent_kernel"]).T)
-        put(f"bilstm.lstm.bias_ih_l0{sfx}", node["bias"])
-        put(f"bilstm.lstm.bias_hh_l0{sfx}", np.zeros_like(node["bias"]))
+    _lstm(sd, "bilstm.lstm", p["BiLSTM_0"])
     put("head.weight", np.asarray(p["head"]["kernel"]).T)
     put("head.bias", p["head"]["bias"])
     return sd
 
 
-def save_overlap_npz(tree: Mapping[str, Any], path) -> None:
+def _conv1d(k, cin, cout):
+    return {"kernel": (k, cin, cout), "bias": (cout,)}
+
+
+def _units(cfg: SpeakerModelConfig):
+    """(Flax unit name, torch unit index, in channels, filters, pool)."""
+    ch, i = cfg.stem_filters, 0
+    for s, f in enumerate(cfg.stage_filters):
+        for b in range(cfg.blocks_per_stage):
+            yield f"stage{s}_unit{b}", i, ch, f, b == 0
+            ch, i = f, i + 1
+
+
+def speaker_tree_shapes(cfg: SpeakerModelConfig = SpeakerModelConfig(),
+                        head_units: int | None = None) -> Dict[str, Any]:
+    """The Flax variable tree of ``SpeakerResBLSTM(cfg, head_units)`` on
+    MFCC-39 input ``(B, T, 39)``, with a shape tuple at every leaf."""
+    trunk: Dict[str, Any] = {"stem": _conv1d(cfg.stem_kernel, 39,
+                                             cfg.stem_filters)}
+    stats: Dict[str, Any] = {}
+    for name, _, cin, f, pool in _units(cfg):
+        unit = {"conv_a": _conv1d(3, cin, f), "conv_b": _conv1d(3, f, f)}
+        st = {}
+        for j, c in enumerate((cin, f)):
+            unit[f"KerasBatchNorm_{j}"], st[f"KerasBatchNorm_{j}"] = \
+                _bn_shapes(c)
+        if pool:
+            unit["shortcut"] = _conv1d(1, cin, f)
+        trunk[name], stats[name] = unit, st
+    ch, H = cfg.stage_filters[-1], cfg.lstm_units
+    trunk["KerasBatchNorm_0"], stats["KerasBatchNorm_0"] = _bn_shapes(ch)
+    trunk["BiLSTM_0"] = {
+        d: {"kernel": (ch, 4 * H), "recurrent_kernel": (H, 4 * H),
+            "bias": (4 * H,)}
+        for d in ("forward", "backward")}
+    units = head_units or cfg.num_speakers
+    return {"params": {"trunk": trunk,
+                       "head": {"kernel": (2 * H, units), "bias": (units,)}},
+            "batch_stats": {"trunk": stats}}
+
+
+def speaker_state_dict_from_jax(tree: Mapping[str, Any],
+                                cfg: SpeakerModelConfig = SpeakerModelConfig(),
+                                head_units: int | None = None
+                                ) -> Dict[str, torch.Tensor]:
+    """Flax tree of numpy arrays -> ``SpeakerResBLSTM(cfg, head_units)``
+    state_dict, MFCC-39 input.  Conv1D kernels ``(K, Cin, Cout)`` ->
+    ``(Cout, Cin, K)``; the LSTM and Dense as in the overlap converter."""
+    _check(tree, speaker_tree_shapes(cfg, head_units))
+    p, s = tree["params"]["trunk"], tree["batch_stats"]["trunk"]
+    sd: Dict[str, torch.Tensor] = {}
+    put = functools.partial(_put, sd)
+
+    def conv(prefix, node):
+        put(f"{prefix}.weight", np.transpose(node["kernel"], (2, 1, 0)))
+        put(f"{prefix}.bias", node["bias"])
+
+    conv("trunk.stem", p["stem"])
+    for name, i, _, _, pool in _units(cfg):
+        pre = f"trunk.units.{i}"
+        if pool:
+            conv(f"{pre}.shortcut", p[name]["shortcut"])
+        for j, conv_name in enumerate(("conv_a", "conv_b")):
+            _bn(sd, f"{pre}.bn{j}", p[name][f"KerasBatchNorm_{j}"],
+                s[name][f"KerasBatchNorm_{j}"])
+            conv(f"{pre}.{conv_name}", p[name][conv_name])
+    _bn(sd, "trunk.bn", p["KerasBatchNorm_0"], s["KerasBatchNorm_0"])
+    _lstm(sd, "trunk.bilstm.lstm", p["BiLSTM_0"])
+    put("head.weight", np.asarray(tree["params"]["head"]["kernel"]).T)
+    put("head.bias", tree["params"]["head"]["bias"])
+    return sd
+
+
+def save_npz(tree: Mapping[str, Any], path) -> None:
     """Write a tree of arrays as the flat ``.npz`` (keys ``a/b/c``)."""
     flat: Dict[str, np.ndarray] = {}
 
@@ -142,11 +232,8 @@ def save_overlap_npz(tree: Mapping[str, Any], path) -> None:
     np.savez(path, **flat)
 
 
-def load_overlap_npz(path, cfg: OverlapModelConfig = OverlapModelConfig()
-                     ) -> Dict[str, Any]:
-    """Read the flat ``.npz`` into the nested tree that
-    ``overlap_state_dict_from_jax`` takes, checked against
-    ``overlap_tree_shapes(cfg)``."""
+def _read_npz(path) -> Dict[str, Any]:
+    """The flat ``.npz`` as a nested tree of arrays."""
     tree: Dict[str, Any] = {}
     with np.load(path) as data:
         for key in data.files:
@@ -155,5 +242,30 @@ def load_overlap_npz(path, cfg: OverlapModelConfig = OverlapModelConfig()
             for part in parents:
                 node = node.setdefault(part, {})
             node[leaf] = data[key]
+    return tree
+
+
+def load_overlap_npz(path, cfg: OverlapModelConfig = OverlapModelConfig()
+                     ) -> Dict[str, Any]:
+    """Read the flat ``.npz`` into the nested tree that
+    ``overlap_state_dict_from_jax`` takes, checked against
+    ``overlap_tree_shapes(cfg)``."""
+    tree = _read_npz(path)
     _check(tree, overlap_tree_shapes(cfg))
     return tree
+
+
+def load_speaker_npz(path, cfg: SpeakerModelConfig = SpeakerModelConfig()
+                     ) -> tuple[Dict[str, Any], int]:
+    """Read a speaker model's flat ``.npz`` -> ``(tree, head_units)``: the
+    head's width is the file's (630 for the base model, the enrollment
+    corpus's size for a transfer-learned one); the rest is checked against
+    ``speaker_tree_shapes(cfg, head_units)``."""
+    tree = _read_npz(path)
+    try:
+        head_units = int(np.shape(tree["params"]["head"]["bias"])[0])
+    except (KeyError, TypeError, IndexError):
+        raise ValueError(f"{path}: no params/head/bias leaf; not a speaker "
+                         f"model's weights") from None
+    _check(tree, speaker_tree_shapes(cfg, head_units))
+    return tree, head_units

@@ -1,5 +1,6 @@
-"""Live overlap-detection session (counterpart of
-``mmla_audio_tpu.streaming.session`` and ``streaming.hostpre``).
+"""Live sessions, overlap detection and speaker identification
+(counterpart of ``mmla_audio_tpu.streaming.session`` and
+``streaming.hostpre``).
 
 Per 2.56 s window, at B=1:
 
@@ -9,8 +10,9 @@ Per 2.56 s window, at B=1:
 2. int16 -> host: per-frame webrtcvad decisions from the native engine,
    whose state lives across windows like the reference's ``Vad(3)``; or,
    with ``decision="energy"``, the calibrated energy detector on the device;
-3. hysteresis trim (``vad_trim``) -> ``OverlapPredictor.predict`` on the
-   device, then the session's silent gate -> one TSV log row.
+3. hysteresis trim (``vad_trim``) -> the predictor on the device (the
+   overlap featurizer and model, or the MFCC and speaker model), then the
+   session's silent gate -> one TSV log row.
 
 Calibration (10 s of ambient noise) gives the denoise profile, the energy
 VAD threshold and the ``Ambient_Noise.wav`` artifact.  Logs land under
@@ -21,7 +23,7 @@ VAD threshold and the ``Ambient_Noise.wav`` artifact.  Logs land under
 from __future__ import annotations
 
 from datetime import datetime
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -36,7 +38,8 @@ from mmla_audio_torch.vad.collector import (calibrate_threshold, energy_vad,
                                             frame_count, vad_trim)
 from mmla_audio_torch.vad.native import NativeWebRtcVad
 
-__all__ = ["session_stamp", "StreamingSession", "OverlapSession"]
+__all__ = ["session_stamp", "StreamingSession", "OverlapSession",
+           "SpeakerSession"]
 
 
 def session_stamp(now: Optional[datetime] = None) -> str:
@@ -51,6 +54,8 @@ def session_stamp(now: Optional[datetime] = None) -> str:
 class StreamingSession:
     """Calibration, the per-window pre-decision chain, the run loop, logs."""
 
+    kind = "overlap"
+
     def __init__(self, capture, dirs: ExperimentDirs | str,
                  cfg: PipelineConfig = PipelineConfig(),
                  device: torch.device | str = "cuda",
@@ -61,7 +66,7 @@ class StreamingSession:
         self.device = torch.device(device)
         self.save_recordings = save_recordings
         stamp = session_stamp()
-        self.log = SessionLog(self.dirs.logs / f"{stamp}.txt")
+        self.log = SessionLog(self.dirs.logs / f"{stamp}.txt", kind=self.kind)
         self.rec_dir = self.dirs.real_time / stamp / "wav"
         if save_recordings:
             self.rec_dir.mkdir(parents=True, exist_ok=True)
@@ -172,4 +177,31 @@ class OverlapSession(StreamingSession):
         label = -1 if n_out < self.cfg.vad.silent_samples \
             else int(np.argmax(probs))
         name = "silent" if label < 0 else OVERLAP_LABELS[str(label)]
+        return name, probs
+
+
+class SpeakerSession(StreamingSession):
+    """Live speaker identification (identify only; registration needs the
+    transfer fine-tune).  The same pre-decision chain as the overlap
+    session, the native webrtc engine's state carried across windows; the
+    silent gate is ``cfg.speaker_feature.silent_samples``."""
+
+    kind = "speaker"
+
+    def __init__(self, predictor, capture, dirs,
+                 speaker_id_dict: Optional[Dict[str, str]] = None, **kw):
+        super().__init__(capture, dirs, device=predictor.device, **kw)
+        self.predictor = predictor
+        self.speaker_id_dict = speaker_id_dict or {}
+
+    def process_window(self, window_i16: np.ndarray):
+        """One window -> (speaker name, probs as numpy)."""
+        trimmed, n_out = self.preprocess(window_i16)
+        logits, probs = self.predictor.score(
+            trimmed[None], torch.tensor([n_out], dtype=torch.int32))
+        probs = probs[0].cpu().numpy()
+        label = -1 if n_out < self.cfg.speaker_feature.silent_samples \
+            else int(torch.argmax(logits[0]))
+        name = "silent" if label < 0 else \
+            self.speaker_id_dict.get(str(label), str(label))
         return name, probs

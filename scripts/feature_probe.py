@@ -175,11 +175,10 @@ def cmd_ablate(device, batches, baseline) -> None:
             raise AssertionError(f"B={batch}: the probe's build differs "
                                  f"from the wrapper's")
         if baseline:
-            err, share = check_budget(
-                f"baseline B={batch}",
-                launch_overlap_features(y, cfg, 1, launches["baseline"]),
-                base)
-            log(f"  baseline vs base B={batch}: max |diff| {err} on "
+            old = launch_overlap_features(y, cfg, 1, launches["baseline"])
+            err, share = check_budget(f"baseline B={batch}", old, base)
+            log(f"  baseline vs base B={batch}: bit-identical "
+                f"{torch.equal(old, base)}; max |diff| {err} on "
                 f"{share:.4%} of pixels")
         reps = 20 if batch <= 64 else 5
         times = {n: [] for n in launches}

@@ -110,12 +110,35 @@ def test_kernel_other_window_lengths(device, sample_rate):
     assert float((diff > 0).float().mean()) < 0.02
 
 
+@pytest.mark.parametrize("kw", [dict(sample_rate=14000),   # (5, 5, 7)
+                                dict(win_ms=25.5),         # (3, 17, 4)
+                                dict(sample_rate=22000)])  # (5, 5, 11)
+def test_kernel_generic_radix_windows(device, kw):
+    """The generic butterfly stage: windows whose half has a prime factor
+    of 7, 11 or 17, at the budget of the other sample rates."""
+    cfg = OverlapFeatureConfig(**kw)
+    y = torch.from_numpy(_audio(3, cfg.n_samples, seed=4)).to(device)
+    before = overlap_model_input_cuda.launches
+    got = overlap_model_input_cuda(y, cfg)
+    torch.cuda.synchronize()
+    assert overlap_model_input_cuda.launches == before + 1
+    diff = (got - overlap_model_input(y, cfg)).abs()
+    assert float(diff.max()) <= 1.0
+    assert float((diff > 0).float().mean()) < 0.02
+
+
 def test_kernel_refuses_non_kernel_window(device):
-    """A window whose half has a prime factor above 5 (350 = 2 * 5^2 * 7)
-    raises on the card; it does not fall back to the plain version."""
+    """A window whose half has a prime factor of 7 (350 = 2 * 5^2 * 7) now
+    runs on the card; one above the limit (460 = 2^2 * 5 * 23) raises
+    there; neither falls back to the plain version."""
     cfg = OverlapFeatureConfig(sample_rate=14000)
     y = torch.zeros(2, cfg.n_samples, device=device)
-    with pytest.raises(ValueError, match="half factors into 2, 3 and 5"):
+    before = overlap_model_input_cuda.launches
+    assert overlap_model_input_cuda(y, cfg).shape == (2, 128, 151, 3)
+    assert overlap_model_input_cuda.launches == before + 1
+    cfg = OverlapFeatureConfig(sample_rate=18400)
+    y = torch.zeros(2, cfg.n_samples, device=device)
+    with pytest.raises(ValueError, match="above 17"):
         overlap_model_input_cuda(y, cfg)
 
 

@@ -20,7 +20,7 @@ from mmla_audio_tpu.ops.features import overlap_model_input as jax_features
 from mmla_audio_torch import cli
 from mmla_audio_torch.core.config import OverlapFeatureConfig
 from mmla_audio_torch.data.standardize import standardize_audio
-from mmla_audio_torch.inference import OverlapPredictor
+from mmla_audio_torch.inference import OverlapPredictor, SpeakerPredictor
 from mmla_audio_torch.ops import cuda_features
 from mmla_audio_torch.ops.spectral import _dft_basis, mel_filterbank
 from mmla_audio_torch.streaming.session import StreamingSession
@@ -29,6 +29,11 @@ from tests.conftest import synth_speech
 # sample rates whose 25 ms window halves into each radix the kernel has
 GEOMETRIES = {16000: (5, 5, 8), 8000: (5, 5, 4), 24000: (3, 5, 5, 4),
               12800: (5, 4, 8), 4000: (5, 5, 2)}
+WRITTEN_OUT = (2, 3, 4, 5, 8)   # radices with a hand-written butterfly
+# windows whose half has a prime factor without one: the generic stage
+GENERIC_WINDOWS = {"sr14000": (dict(sample_rate=14000), (5, 5, 7)),  # 350
+                   "win25.5": (dict(win_ms=25.5), (3, 17, 4)),       # 408
+                   "sr22000": (dict(sample_rate=22000), (5, 5, 11))}  # 550
 
 
 def _frames(y, cfg):
@@ -43,8 +48,10 @@ def _frames(y, cfg):
 def fft_model(frames, tab, dtype):
     """The kernel's spectrum in numpy: window, pack z = x[2p] + i x[2p+1],
     Stockham stages of ``tab.radices`` with the table's twiddles, split into
-    bins 0..n2, power.  Each stage's R-point DFT is a dense product here;
-    the kernel writes it out by hand."""
+    bins 0..n2, power.  A written-out radix's R-point DFT is a dense product
+    here (the kernel writes it out by hand); any other radix takes each
+    output's combined twiddle from the table, as the kernel's generic stage
+    does."""
     ctype = np.complex128 if dtype == np.float64 else np.complex64
     win = frames.shape[-1]
     n2 = win // 2
@@ -54,14 +61,18 @@ def fft_model(frames, tab, dtype):
     p = 1
     for R in tab.radices:
         S, tstep = n2 // R, win // (p * R)
-        dft = np.exp(-2j * np.pi * np.outer(np.arange(R), np.arange(R)) / R
-                     ).astype(ctype)
         out = np.empty_like(z)
         i = np.arange(S)
         k = i % p
-        a = np.stack([z[..., i + r * S] * tw[k * r * tstep]
-                      for r in range(R)], axis=-1)
-        A = a @ dft.T
+        a = np.stack([z[..., i + r * S] for r in range(R)], axis=-1)
+        if R in WRITTEN_OUT:
+            dft = np.exp(-2j * np.pi * np.outer(np.arange(R), np.arange(R))
+                         / R).astype(ctype)
+            A = (a * tw[np.outer(k, np.arange(R)) * tstep]) @ dft.T
+        else:
+            q = np.arange(R)
+            A = np.stack([(a * tw[(q * (k[:, None] + s * p) * tstep) % win]
+                           ).sum(-1) for s in range(R)], axis=-1)
         j = (i - k) * R + k
         for r in range(R):
             out[..., j + r * p] = A[..., r]
@@ -145,8 +156,24 @@ def test_fft_model_matches_dense_dft(sr, dtype):
     """The radix plan gives the dense windowed DFT's power: to 1e-9
     relative in float64 (same window values, float64 twiddles), within
     1e-5 of each frame's peak in float32 (the kernel's tables)."""
-    cfg = OverlapFeatureConfig(sample_rate=sr)
-    win = cfg.win_length
+    _check_fft_model(OverlapFeatureConfig(sample_rate=sr), dtype)
+
+
+@pytest.mark.parametrize("name", sorted(GENERIC_WINDOWS))
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_generic_radix_model_matches_dense_dft(name, dtype):
+    """The generic stage (prime radix 7, 11, 17 with combined table
+    twiddles) in the plans of three windows the kernel now serves, held to
+    the same budgets as the written-out radices."""
+    kw, plan = GENERIC_WINDOWS[name]
+    cfg = OverlapFeatureConfig(**kw)
+    assert cuda_features.fft_radices(cfg.win_length // 2) == plan
+    assert any(r not in WRITTEN_OUT for r in plan)
+    _check_fft_model(cfg, dtype)
+
+
+def _check_fft_model(cfg, dtype):
+    sr, win = cfg.sample_rate, cfg.win_length
     y = synth_speech(cfg.n_samples, sr=sr, seed=3)[None]
     frames = _frames(y, cfg)[0]
     if dtype == np.float64:
@@ -185,27 +212,40 @@ def test_kernel_model_matches_jax():
     assert (got[3, ..., 1:] == 255).all() and (got[3, ..., 0] == 0).all()
 
 
-# even windows the kernel's FFT does not take
-NON_KERNEL_WINDOWS = [dict(sample_rate=14000),   # win 350: 175 = 5^2 * 7
-                      dict(win_ms=25.5),         # win 408: 204 = 2^2 * 3 * 17
-                      dict(sample_rate=22000)]   # win 550: 275 = 5^2 * 11
+# even windows whose half has a prime factor without a written-out
+# butterfly; the kernel's generic stage serves them
+NON_KERNEL_WINDOWS = [kw for kw, _ in GENERIC_WINDOWS.values()]
+# a prime factor above the limit: 18.4 kHz at 25 ms, win 460, 230 = 2 * 5 * 23
+ABOVE_LIMIT = dict(sample_rate=18400)
 
 
-@pytest.mark.parametrize("kw,ok", [(kw, False) for kw in NON_KERNEL_WINDOWS]
-                         + [(dict(win_ms=24.9375), False),   # win 399: odd
-                            (dict(time_dim=151), True),
-                            (dict(sample_rate=24000), True)])
-def test_check_feature_config_window(kw, ok):
-    """The kernel refuses a window its FFT does not take; the plain version
-    (``on_card=False``) takes any."""
+@pytest.mark.parametrize("kw,refusal", [
+    # the first six cases keep the ids they had when the kernel refused
+    # the first three windows
+    *[pytest.param(kw, None, id=f"kw{i}-False")
+      for i, kw in enumerate(NON_KERNEL_WINDOWS)],
+    pytest.param(dict(win_ms=24.9375), "is odd", id="kw3-False"),   # win 399
+    pytest.param(dict(time_dim=151), None, id="kw4-True"),
+    pytest.param(dict(sample_rate=24000), None, id="kw5-True"),
+    pytest.param(ABOVE_LIMIT, "no prime factor of win/2 above 17",
+                 id="above-limit"),
+    # 461 frames: the (M, T) tile alone is 236 KB
+    pytest.param(dict(time_dim=460), "bytes of shared memory",
+                 id="shared-memory")])
+def test_check_feature_config_window(kw, refusal):
+    """The kernel takes any even window whose half has no prime factor
+    above ``MAX_RADIX`` and whose shared memory fits; it refuses the rest
+    with the reason.  The plain version (``on_card=False``) takes any."""
     cfg = OverlapFeatureConfig(**kw)
     cuda_features.check_feature_config(cfg, on_card=False)
-    if ok:
+    if refusal is None:
         cuda_features.check_feature_config(cfg)
+        assert cuda_features.feature_tables(cfg).radices == \
+            cuda_features.fft_radices(cfg.win_length // 2)
         return
-    with pytest.raises(ValueError, match="half factors into 2, 3 and 5"):
+    with pytest.raises(ValueError, match=refusal):
         cuda_features.check_feature_config(cfg)
-    with pytest.raises(ValueError, match="half factors into 2, 3 and 5"):
+    with pytest.raises(ValueError, match=refusal):
         cuda_features.feature_tables(cfg)
 
 
@@ -226,18 +266,26 @@ def test_plain_path_serves_any_window(kw):
     assert diff.max() <= 1.0 and (diff > 0).mean() < 0.02
 
 
-@pytest.mark.parametrize("kw", NON_KERNEL_WINDOWS)
+@pytest.mark.parametrize("kw", NON_KERNEL_WINDOWS + [ABOVE_LIMIT])
 def test_predictor_refuses_non_kernel_window_on_card(kw):
-    """A card predictor refuses the window at construction (before it
-    builds the model), with the kernel's reason."""
-    with pytest.raises(ValueError, match="half factors into 2, 3 and 5"):
+    """A card predictor takes the generic-stage windows: its construction
+    gets past the kernel's window rule and stops only at the empty state
+    dict.  A window with a prime factor above the limit is refused at
+    construction, before the model is built, with the kernel's reason."""
+    if kw is ABOVE_LIMIT:
+        with pytest.raises(ValueError, match="above 17"):
+            OverlapPredictor({}, feat_cfg=OverlapFeatureConfig(**kw),
+                             device="cuda")
+        return
+    with pytest.raises(RuntimeError, match="Missing key"):
         OverlapPredictor({}, feat_cfg=OverlapFeatureConfig(**kw),
                          device="cuda")
 
 
 @pytest.mark.parametrize("fn,name", [(OverlapPredictor.__init__, "device"),
                                      (StreamingSession.__init__, "device"),
-                                     (standardize_audio, "device")])
+                                     (standardize_audio, "device"),
+                                     (SpeakerPredictor.__init__, "device")])
 def test_entry_points_default_to_the_card(fn, name):
     assert inspect.signature(fn).parameters[name].default == "cuda"
 

@@ -1,6 +1,7 @@
 """The port's main path end to end vs the JAX package: OverlapPredictor,
-OverlapSession (JAX's B=1 host-preprocess arrangement), the CLI, and the
-rule that the port never imports JAX."""
+OverlapSession (against JAX's on-device arrangement, whose webrtc engine is
+bit-identical to the port's native one), the CLI, and the rule that the
+port never imports JAX."""
 
 import dataclasses
 import re
@@ -92,9 +93,11 @@ def test_session_matches_jax_session(predictors, tmp_path):
                               synth_speech_i16(40960, seed=2)])
     noise = (np.random.RandomState(3).randn(160000) * 20).astype(np.int16)
     cap = jax_capture.CaptureThread(jax_capture.ArraySource(samples)).start()
+    # the JAX session's pure-JAX webrtc engine: its "auto" and True
+    # arrangements would load the JAX package's native library
     ref = JaxSession(predictors[0], cap, tmp_path / "jax",
                      cfg=jax_config.PipelineConfig(overlap_model=CFG),
-                     host_preprocess=True)
+                     host_preprocess=False)
     ref.set_noise_profile(noise)
     ref_rows = ref.run(max_windows=3)
     cap.stop()
@@ -158,12 +161,18 @@ def test_cli_overlap_live_fake(tmp_path, capsys):
 
 @pytest.mark.parametrize("name", ["AudioConfig", "OverlapFeatureConfig",
                                   "VadConfig", "DenoiseConfig",
-                                  "OverlapModelConfig"])
+                                  "OverlapModelConfig",
+                                  "SpeakerFeatureConfig",
+                                  "SpeakerModelConfig"])
 def test_config_copy_matches_jax_package(name):
     ours, theirs = getattr(port_config, name), getattr(jax_config, name)
     assert [f.name for f in dataclasses.fields(ours)] == \
         [f.name for f in dataclasses.fields(theirs)]
     assert dataclasses.asdict(ours()) == dataclasses.asdict(theirs())
+    for prop in ("win_length", "hop_length", "feat_dim", "feature_shape",
+                 "n_samples", "n_frames", "image_shape", "window_samples"):
+        if hasattr(theirs, prop):
+            assert getattr(ours(), prop) == getattr(theirs(), prop)
 
 
 def test_pipeline_config_copy_is_a_subset_of_jax_package():

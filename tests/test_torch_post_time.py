@@ -27,8 +27,7 @@ from mmla_audio_torch.data import standardize
 from mmla_audio_torch.data.wavio import read_wav, write_wav
 from mmla_audio_torch.inference import OverlapPredictor
 from mmla_audio_torch.params import (load_overlap_npz,
-                                     overlap_state_dict_from_jax,
-                                     save_overlap_npz)
+                                     overlap_state_dict_from_jax, save_npz)
 from mmla_audio_torch.utils.experiment import bootstrap
 from tests.conftest import synth_speech_i16
 from tests.test_torch_inference import CFG
@@ -71,7 +70,7 @@ def test_npz_weights_round_trip(weights, tmp_path):
     sd = overlap_state_dict_from_jax(loaded, as_port(CFG))
     ref = overlap_state_dict_from_jax(tree, as_port(CFG))
     assert all(torch.equal(sd[k], ref[k]) for k in ref)
-    save_overlap_npz(loaded, tmp_path / "again.npz")
+    save_npz(loaded, tmp_path / "again.npz")
     with np.load(tmp_path / "again.npz") as a, np.load(path) as b:
         assert sorted(a.files) == sorted(b.files)
         assert all(np.array_equal(a[k], b[k]) for k in a.files)
@@ -261,8 +260,8 @@ def test_cli_overlap_post_and_charts(tmp_path, capsys):
                 rng.uniform(0.5, 1.0, v).astype(np.float32)
                 for k, v in node.items()}
 
-    save_overlap_npz(fill(overlap_tree_shapes(OverlapModelConfig())),
-                     tmp_path / "full.npz")
+    save_npz(fill(overlap_tree_shapes(OverlapModelConfig())),
+             tmp_path / "full.npz")
     cli.main(["overlap-post", "--root", str(root), "--device", "cpu",
               "--weights", str(tmp_path / "full.npz")])
     out = capsys.readouterr().out
