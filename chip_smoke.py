@@ -51,7 +51,25 @@ per source, all at once), then:
    recordings of phase 5 with a 3-speaker corpus (118 and 282 windows),
    card twice (cold, warm) then CPU, rows equal under the margin rule,
    windows per second and the whole-file MFCC's CUDA-event time; then the
-   CLI's ``speaker-post --weights`` in a fresh process.
+   CLI's ``speaker-post --weights`` in a fresh process;
+8. speaker training at the same width from phase 7's seeded base tree
+   (630-way head), a path that must launch none of the kernels: three
+   seeded synthetic voices of 60 s enrolled through
+   ``SpeakerSession.register_speaker``; ``TransferLearner.fit_once`` at the
+   default ``TransferConfig`` (500 + 20 epochs, b16 / b8) on the card (cold,
+   then warm) and on the CPU, the same split, head init and permutations
+   (val accuracy equal, labels equal where the CPU's top-2 logit margin is
+   above 1e-3, logits within ``TRANSFER_DRIFT`` of their largest
+   magnitude), and at 500 + 1 epochs on both (logits within 1e-3); phase
+   wall times on the host clock and the phase-2 step time from CUDA
+   events; ``train_on_registered`` on the card and 5 identified windows;
+   pretrain: 3 ``Trainer`` steps at b32 on 256 synthetic clips card vs CPU
+   with dropout 0 (losses within 1e-4 relative, parameters within 1e-3 of
+   each leaf's largest magnitude, trunk conv biases, whose exact gradient
+   is zero, within RMSprop's noise bound), then two epochs timed on the
+   card with dropout on; the CLI's ``speaker-pretrain`` -> ``speaker-live
+   --fake --register a b`` -> ``speaker-post --weights
+   experiment/model/variables.npz``, each in a fresh process.
 
 The line before the last is a JSON object describing each kernel, with its
 bound: the larger of its bytes (each input read once, each output written
@@ -94,6 +112,18 @@ BLOCK_SHAPES = ((32, 64, 76), (64, 32, 38), (128, 16, 19))
 # post-time recordings: name -> (seconds, windows); each is one batch
 RECORDINGS = {"audio_conv0": (300, 200), "zoom_conv1": (720, 480)}
 POST_BATCHES = tuple(n for _, n in RECORDINGS.values())
+# phase 8: registration (voices of SPEAKERS, then identify windows of these
+# voices) and pretrain (b32 steps card vs CPU)
+ENROLL_SECONDS = 60.0
+IDENTIFY_VOICES = (0, 1, 2, 0, 1)
+PRETRAIN_CLIPS, PRETRAIN_SPEAKERS, PRETRAIN_STEPS = 256, 64, 3
+# registration card vs CPU after the default 500 + 20 epochs, of max
+# |logit|: phase 2's RMSprop steps amplify rounding differences (on the CPU
+# alone a 1e-7 input perturbation grows to ~3e-4: scripts/
+# transfer_sensitivity.py); after 500 + 1 epochs LOGIT_RTOL holds
+TRANSFER_DRIFT = 5e-2
+TRAIN_LOSS_RTOL = 1e-4                     # pretrain losses card vs CPU
+PARAM_RTOL = 1e-3                          # of each leaf's max |value|
 # H100 SXM peaks: device memory, TF32 on the tensor cores; an fp32 product
 # at fp32 accuracy is three TF32 ones (3xTF32)
 HBM_BYTES_S, TF32_FLOP_S, TF32_PER_FP32 = 3.35e12, 495e12, 3
@@ -798,18 +828,11 @@ def phase_speaker(device, cfg, noise, tmp: Path, clips) -> None:
     """The speaker path at full width; it must launch none of the port's
     kernels (its convolutions, LSTM and GEMMs are cuDNN and cuBLAS, as the
     JAX package leaves them to XLA)."""
-    from mmla_audio_torch.ops.cuda_features import overlap_model_input_cuda
-    from mmla_audio_torch.ops.cuda_resblock import fused_resblock_cuda
     from mmla_audio_torch.params import (speaker_state_dict_from_jax,
                                          speaker_tree_shapes)
 
     mcfg = cfg.speaker_model
-    counters = ((overlap_model_input_cuda, "launches"),
-                (overlap_model_input_cuda, "launches_grouped"),
-                (fused_resblock_cuda, "launches"),
-                (fused_resblock_cuda, "launches_mma"))
-    for fn, attr in counters:
-        setattr(fn, attr, 0)
+    zero_launch_counters()
     rng = np.random.RandomState(7)
     tree = seeded_tree(speaker_tree_shapes(mcfg), rng)
     state_dict = speaker_state_dict_from_jax(tree, mcfg)
@@ -818,12 +841,325 @@ def phase_speaker(device, cfg, noise, tmp: Path, clips) -> None:
     phase_speaker_post(device, seeded_tree(
         speaker_tree_shapes(mcfg, len(SPEAKERS)), rng), cfg, noise, tmp,
         clips)
+    log(f"[speaker] kernel launches on the speaker path: "
+        f"{no_launches('the speaker path')}")
+
+
+def launch_counters():
+    """(wrapper, counter attribute) of every kernel of the port."""
+    from mmla_audio_torch.ops.cuda_features import overlap_model_input_cuda
+    from mmla_audio_torch.ops.cuda_resblock import fused_resblock_cuda
+
+    return ((overlap_model_input_cuda, "launches"),
+            (overlap_model_input_cuda, "launches_grouped"),
+            (fused_resblock_cuda, "launches"),
+            (fused_resblock_cuda, "launches_mma"))
+
+
+def zero_launch_counters() -> None:
+    for fn, attr in launch_counters():
+        setattr(fn, attr, 0)
+
+
+def no_launches(path: str) -> dict:
+    """The counters since ``zero_launch_counters``; raises unless all 0."""
     launched = {f"{fn.__name__}.{attr}": getattr(fn, attr)
-                for fn, attr in counters}
+                for fn, attr in launch_counters()}
     if any(launched.values()):
-        raise AssertionError(f"the speaker path launched a kernel: "
-                             f"{launched}")
-    log(f"[speaker] kernel launches on the speaker path: {launched}")
+        raise AssertionError(f"{path} launched a kernel: {launched}")
+    return launched
+
+
+def voice(seconds: float, speaker: int, seed: int,
+          sr: int = 16000) -> np.ndarray:
+    """Seeded synthetic speech of one voice: syllables of six harmonics of a
+    gliding pitch between short pauses.  The pitch and the harmonics'
+    weights are the speaker's (drawn from ``speaker``), the syllables and
+    the noise from ``seed``."""
+    spk = np.random.RandomState(1000 + speaker)
+    f0, amps = spk.uniform(90.0, 300.0), spk.uniform(0.1, 1.0, 6)
+    rng = np.random.RandomState(seed)
+    n = int(seconds * sr)
+    out = np.zeros(n)
+    i = 0
+    while i < n:
+        k = int(rng.uniform(0.15, 0.45) * sr)
+        pitch = f0 * rng.uniform(0.9, 1.1) * (1 + 0.08 * np.linspace(-1, 1, k))
+        phase = 2 * np.pi * np.cumsum(pitch) / sr
+        syllable = np.hanning(k) * sum(a * np.sin((h + 1) * phase)
+                                       for h, a in enumerate(amps))
+        out[i:i + k] = syllable[: n - i]
+        i += k + int(rng.uniform(0.05, 0.25) * sr)
+    out += 0.01 * rng.randn(n)
+    return (out / np.abs(out).max() * 12000).astype(np.int16)
+
+
+def run_cli(argv, what: str) -> str:
+    """``python -m mmla_audio_torch.cli *argv`` in a fresh process; its
+    stdout, or a raise."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "mmla_audio_torch.cli", *map(str, argv)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"CLI {what} failed ({proc.returncode}):\n"
+                             f"{proc.stdout}\n{proc.stderr}")
+    return proc.stdout
+
+
+def phase_registration(device, base_sd, cfg, noise, tmp: Path) -> None:
+    """Enroll the speakers of ``SPEAKERS`` through ``SpeakerSession``;
+    ``fit_once`` at the default ``TransferConfig`` on the card (cold, then
+    warm) and on the CPU, and with one phase-2 epoch on both (the same split,
+    head init and permutations: all come from CPU generators); then
+    ``train_on_registered`` on the card and identify windows with the new
+    head."""
+    from mmla_audio_torch.data.corpus import featurize_corpus
+    from mmla_audio_torch.data.wavio import read_wav
+    from mmla_audio_torch.inference import SpeakerPredictor
+    from mmla_audio_torch.params import load_speaker_npz
+    from mmla_audio_torch.streaming.capture import PrefilledCapture
+    from mmla_audio_torch.streaming.session import SpeakerSession
+    from mmla_audio_torch.train.transfer import TransferLearner
+
+    sr, mcfg, n_win = (cfg.audio.sample_rate, cfg.speaker_model,
+                       cfg.audio.window_samples)
+    enroll = [voice(ENROLL_SECONDS, k, seed=70 + k)
+              for k in range(len(SPEAKERS))]
+    ident = [voice(n_win / sr, k, seed=80 + i)
+             for i, k in enumerate(IDENTIFY_VOICES)]
+    sess = SpeakerSession(SpeakerPredictor(base_sd, mcfg, device=device),
+                          PrefilledCapture(np.concatenate(enroll + ident)),
+                          tmp / "register", cfg=cfg)
+    sess.set_noise_profile(noise)
+    t0 = time.perf_counter()
+    kept = [len(read_wav(sess.register_speaker(name, ENROLL_SECONDS))[0])
+            for name in SPEAKERS]
+    t1 = time.perf_counter()
+    x, y, sid = featurize_corpus(sess.dirs.corpus, cfg.speaker_feature,
+                                 device=device)
+    log(f"[train] enrolled {len(SPEAKERS)} voices of {ENROLL_SECONDS:.0f} s "
+        f"in {t1 - t0:.3f} s (host clock; denoise, webrtc VAD, trim, WAV): "
+        f"kept {[round(k / sr, 2) for k in kept]} s; corpus featurized in "
+        f"{time.perf_counter() - t1:.3f} s: {len(x)} windows, {sid}")
+    runs = {}
+    full = (cfg.transfer.phase1_epochs, cfg.transfer.phase2_epochs)
+    short = (cfg.transfer.phase1_epochs, 1)
+    for key, dev, epochs in (("card, cold", device, full),
+                             ("card", device, full),
+                             ("cpu", torch.device("cpu"), full),
+                             ("card", device, short),
+                             ("cpu", torch.device("cpu"), short)):
+        learner = TransferLearner(base_sd, len(SPEAKERS), mcfg, cfg.transfer,
+                                  device=dev)
+        _, acc, losses = learner.fit_once(x, y, seed=0,
+                                          epochs_override=epochs)
+        r = learner.report
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"registration on {key}: losses {losses}")
+        step = (f", {r['phase2_step_ms']:.3f} ms a phase-2 step (CUDA "
+                f"events)" if r["phase2_step_ms"] is not None else "")
+        log(f"[train] registration fit_once {epochs[0]}+{epochs[1]} epochs "
+            f"on {key}: {r['n_train']} train / {r['n_val']} val windows "
+            f"(train padded to {r['n_padded']}); phase 1 "
+            f"{r['phase1_steps']} steps in {r['phase1_s']:.3f} s, phase 2 "
+            f"{r['phase2_steps']} steps in {r['phase2_s']:.3f} s (host clock, "
+            f"synchronized){step}; val acc {acc:.4f}, val loss "
+            f"{r['val_loss']:.5f}; epoch loss {losses[0]:.5f} first, "
+            f"{losses[-1]:.5f} last")
+        runs[key, epochs] = acc, r["val_logits"]
+    for epochs, drift in ((short, LOGIT_RTOL), (full, TRANSFER_DRIFT)):
+        (acc_c, zc), (acc_0, z0) = runs["card", epochs], runs["cpu", epochs]
+        err = float(np.abs(zc - z0).max())
+        limit = drift * float(np.abs(z0).max())
+        if acc_c != acc_0 or err > limit or not np.isfinite(zc).all():
+            raise AssertionError(
+                f"registration {epochs} card vs CPU: val acc {acc_c} vs "
+                f"{acc_0}, max |dlogit| {err} > {limit}")
+        clear, rows = compare_labels("registration val", zc.argmax(1),
+                                     z0.argmax(1), z0)
+        log(f"[train] registration {epochs[0]}+{epochs[1]} epochs, warm card "
+            f"vs CPU: val acc equal ({acc_c:.4f}); val labels equal where the "
+            f"top-2 logit margin > {TOP2_MARGIN} ({clear}/{rows}); max "
+            f"|dlogit| {err:.3g} = {err / float(np.abs(z0).max()):.3g} of max "
+            f"|logit| (limit {drift})")
+
+    t0 = time.perf_counter()
+    acc = sess.train_on_registered(base_sd)
+    seconds = time.perf_counter() - t0
+    labels = [r[1] for r in sess.run(max_windows=len(IDENTIFY_VOICES))]
+    _, head = load_speaker_npz(sess.dirs.model / "variables.npz", mcfg)
+    if len(labels) != len(IDENTIFY_VOICES) or head != len(SPEAKERS) or \
+            not set(labels) <= set(SPEAKERS) | {"silent"}:
+        raise AssertionError(f"train_on_registered: head {head}, labels "
+                             f"{labels}")
+    log(f"[train] train_on_registered on the card (featurize, fit until the "
+        f"gate, save, new predictor): val acc {acc:.4f} in {seconds:.3f} s "
+        f"(host clock); identified {labels} for the voices of "
+        f"{[SPEAKERS[k] for k in IDENTIFY_VOICES]}")
+
+
+def dead_bias(key: str) -> bool:
+    """A trunk convolution's bias: it feeds a train-mode BatchNorm
+    (directly, or through the residual stream and a linear shortcut), so
+    its exact gradient is zero and RMSprop scales rounding noise to a step
+    of up to lr * sqrt(1 / (1 - rho)); two runs of n steps may differ by
+    2 n lr sqrt(10) there (tests/test_torch_train.py holds the same rule
+    against JAX)."""
+    return key.startswith("trunk.") and key.endswith(
+        ("stem.bias", "conv_a.bias", "conv_b.bias", "shortcut.bias"))
+
+
+def phase_pretrain(device, base_sd, cfg) -> None:
+    """``Trainer`` at b32 with the 630-way head on ``PRETRAIN_CLIPS``
+    synthetic clips: ``PRETRAIN_STEPS`` steps card vs CPU with dropout 0,
+    then two epochs timed on the card at the default config."""
+    import dataclasses
+
+    from mmla_audio_torch.data.corpus import featurize_clips
+    from mmla_audio_torch.models.speaker import SpeakerResBLSTM, l2_penalty
+    from mmla_audio_torch.train.losses import keras_categorical_crossentropy
+    from mmla_audio_torch.train.optimizers import rmsprop
+    from mmla_audio_torch.train.trainer import Trainer
+
+    mcfg, tcfg = cfg.speaker_model, cfg.speaker_train
+    clips = [voice(2.6, i % PRETRAIN_SPEAKERS, seed=100 + i)
+             for i in range(PRETRAIN_CLIPS)]
+    labels = [f"spk{i % PRETRAIN_SPEAKERS}" for i in range(PRETRAIN_CLIPS)]
+    t0 = time.perf_counter()
+    x, y, _ = featurize_clips(clips, labels, dim=mcfg.num_speakers,
+                              cfg=cfg.speaker_feature, device=device)
+    log(f"[train] pretrain: {len(clips)} clips of {PRETRAIN_SPEAKERS} voices "
+        f"featurized on the card in {time.perf_counter() - t0:.3f} s")
+
+    def trainer(model_cfg, dev):
+        model = SpeakerResBLSTM(model_cfg)
+        model.load_state_dict(base_sd)
+        return Trainer(model, rmsprop(tcfg.lr), keras_categorical_crossentropy,
+                       extra_penalty_fn=lambda m: l2_penalty(m, model_cfg),
+                       device=dev)
+
+    no_drop = dataclasses.replace(mcfg, dropout_trunk=0.0, dropout_head=0.0)
+    b = tcfg.batch_size
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        tr = trainer(no_drop, dev)
+        losses = [float(tr.train_step(*(torch.from_numpy(a[i * b:(i + 1) * b])
+                                        .to(dev) for a in (x, y)),
+                                      torch.ones(b, device=dev))[0])
+                  for i in range(PRETRAIN_STEPS)]
+        runs.append((losses, tr.variables_of()))
+    (lc, sc), (l0, s0) = runs
+    rel = max(abs(a - c) / abs(c) for a, c in zip(lc, l0))
+    worst, worst_key, noise = 0.0, None, 0.0
+    noise_limit = 2 * PRETRAIN_STEPS * tcfg.lr * np.sqrt(10.0)
+    for k, ref in s0.items():
+        if not ref.is_floating_point():
+            continue
+        diff = float((sc[k] - ref).abs().max())
+        if dead_bias(k):
+            noise = max(noise, diff)
+            continue
+        scale = float(ref.abs().max())
+        # a running mean takes 1 % a step of its batch mean, dead bias
+        # included
+        extra = 0.01 * PRETRAIN_STEPS * noise_limit \
+            if k.endswith("running_mean") else 0.0
+        if diff > PARAM_RTOL * scale + extra:
+            raise AssertionError(f"pretrain card vs CPU: {k} max |diff| "
+                                 f"{diff} > {PARAM_RTOL} x {scale} + {extra}")
+        if scale and diff / scale > worst:
+            worst, worst_key = diff / scale, k
+    if rel > TRAIN_LOSS_RTOL or noise > noise_limit:
+        raise AssertionError(f"pretrain card vs CPU: losses {lc} vs {l0}, "
+                             f"dead-bias |diff| {noise} > {noise_limit}")
+    log(f"[train] pretrain {PRETRAIN_STEPS} steps b{b} card vs CPU (dropout "
+        f"0): losses {[round(v, 6) for v in lc]}, worst relative difference "
+        f"{rel:.3g} (limit {TRAIN_LOSS_RTOL}); parameters and batch "
+        f"statistics within {worst:.3g} of each leaf's max |value| (limit "
+        f"{PARAM_RTOL}; worst {worst_key}), trunk conv biases within "
+        f"{noise:.3g} (limit {noise_limit:.3g}: their exact gradient is "
+        f"zero)")
+
+    tr = trainer(mcfg, device)
+    xt, yt = torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+    for epoch in range(2):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        hist = tr.fit(xt, yt, epochs=1, batch_size=b)
+        end.record()
+        torch.cuda.synchronize()
+        steps = -(-len(x) // b)
+        log(f"[train] pretrain epoch {epoch + 1} at the default config "
+            f"(dropout on): {steps} steps b{b} in "
+            f"{time.perf_counter() - t0:.3f} s (host clock), "
+            f"{start.elapsed_time(end) / steps:.3f} ms a step (CUDA events); "
+            f"loss {hist['loss'][0]:.4f}")
+
+
+def phase_train_cli(tmp: Path, cfg) -> None:
+    """``speaker-pretrain`` -> ``speaker-live --register`` ->
+    ``speaker-post --weights``, each in a fresh process."""
+    from mmla_audio_torch.analyze.logs import parse_log
+    from mmla_audio_torch.data.wavio import write_wav
+
+    sr = cfg.audio.sample_rate
+    wavs, base = tmp / "pretrain_wavs", tmp / "pretrain_out"
+    for i in range(12):
+        write_wav(wavs / f"spk{i % 4}_{i // 4}.wav",
+                  voice(2.6, i % 4, seed=200 + i), sr)
+    out = run_cli(["speaker-pretrain", "--wav-dir", wavs, "--out", base,
+                   "--epochs", "1"], "speaker-pretrain")
+    if not (base / "variables.npz").exists():
+        raise AssertionError(f"speaker-pretrain wrote nothing:\n{out}")
+    log("[train] cli: " + " | ".join(ln for ln in out.splitlines()
+                                     if ln.startswith(("[INFO]", "[TIME]"))))
+    root = tmp / "register_cli"
+    out = run_cli(["speaker-live", "--fake", "--register", "a", "b",
+                   "--enroll-seconds", "10", "--phase1-epochs", "5",
+                   "--phase2-epochs", "1", "--weights",
+                   base / "variables.npz", "--root", root, "--windows", "2"],
+                  "speaker-live --register")
+    weights = root / "model" / "variables.npz"
+    made = [(root / rel).exists() for rel in (
+        "corpus/a.wav", "corpus/b.wav", "experiment_feature.npz",
+        "speaker_id_dict.json", "model/variables.npz")]
+    if not all(made) or out.count("[INFO] window ") != 2:
+        raise AssertionError(f"speaker-live --register: files {made}\n{out}")
+    log("[train] cli: " + " | ".join(
+        ln for ln in out.splitlines()
+        if ln.startswith(("[TIME]", "[INFO] registration", "[INFO] window"))))
+    write_wav(root / "recordings" / "post-time" / "whole" / "zoom_reg.wav",
+              np.concatenate([voice(15, k, seed=300 + k) for k in range(2)]),
+              sr)
+    out = run_cli(["speaker-post", "--root", root, "--weights", weights],
+                  "speaker-post")
+    rows = parse_log(root / "logs" / "zoom_reg.txt")
+    if len(rows) != speaker_windows(30) or \
+            not {r[1] for r in rows} <= {"a", "b", "silent"}:
+        raise AssertionError(f"speaker-post of the registered model: {rows}")
+    log("[train] cli: " + " | ".join(ln for ln in out.splitlines()
+                                     if ln.startswith(("[INFO]", "[TIME]"))))
+
+
+def phase_training(device, cfg, noise, tmp: Path) -> None:
+    """Registration and pretrain at the full width of
+    ``SpeakerModelConfig()``, from phase 7's seeded base tree (630-way
+    head); like phase 7, it must launch none of the port's kernels."""
+    from mmla_audio_torch.params import (speaker_state_dict_from_jax,
+                                         speaker_tree_shapes)
+
+    zero_launch_counters()
+    mcfg = cfg.speaker_model
+    base_sd = speaker_state_dict_from_jax(seeded_tree(
+        speaker_tree_shapes(mcfg), np.random.RandomState(7)), mcfg)
+    phase_registration(device, base_sd, cfg, noise, tmp)
+    phase_pretrain(device, base_sd, cfg)
+    phase_train_cli(tmp, cfg)
+    log(f"[train] kernel launches on the training path: "
+        f"{no_launches('the training path')}")
 
 
 def main() -> int:
@@ -915,6 +1251,7 @@ def main() -> int:
         post = phase_post(device, tree, state_dict, cfg, noise, Path(tmp),
                           clips)
         phase_speaker(device, cfg, noise, Path(tmp), clips)
+        phase_training(device, cfg, noise, Path(tmp))
 
     def entry(name, source, replaces, n, measured):
         return {"name": name, "route": "cuda",

@@ -9,8 +9,13 @@ builds the webrtcvad engine from its own copies of the JAX package's C++
 sources (``csrc/host``).  Hand-written Hopper kernels live under ``csrc/`` and
 are built at first use into the git-ignored ``_build/``.
 
-Ported so far: the overlap-detection main path — denoise, webrtc VAD and
-hysteresis trim, the log-mel/ZCR featurizer (CUDA kernel on the card),
-``OverlapResBLSTM``, ``OverlapPredictor``, ``OverlapSession`` and the CLI's
-``setup``, ``overlap-live --fake`` and ``overlap-run``.
+Ported so far: overlap detection, live and post-time — denoise, webrtc VAD
+and hysteresis trim, the log-mel/ZCR featurizer and the fused residual
+block (CUDA kernels on the card), ``OverlapResBLSTM``, ``OverlapPredictor``,
+``OverlapSession``; speaker identification, live and post-time — MFCC-39,
+``SpeakerResBLSTM``, ``SpeakerPredictor``, ``SpeakerSession``; speaker
+training — registration (the two-phase transfer fine-tune) and the
+base-model pretrain (``train/``); and the CLI's ``setup``,
+``overlap-live``/``speaker-live --fake`` (``--register``), ``overlap-run``,
+``overlap-post``, ``speaker-post``, ``speaker-pretrain`` and ``charts``.
 """

@@ -35,9 +35,9 @@ import torch
 from mmla_audio_torch.analyze.charts import visualize_log
 from mmla_audio_torch.analyze.logs import OVERLAP_LABELS, SessionLog
 from mmla_audio_torch.core.config import PipelineConfig
+from mmla_audio_torch.data.corpus import clip_mfcc39
 from mmla_audio_torch.data.standardize import segment_signal, standardize_audio
 from mmla_audio_torch.data.wavio import read_wav, write_wav
-from mmla_audio_torch.ops.mfcc import mfcc39
 from mmla_audio_torch.utils.experiment import ExperimentDirs
 from mmla_audio_torch.vad.collector import (calibrate_threshold, collect_mask,
                                             energy_vad, frame_count)
@@ -127,13 +127,7 @@ def _kept_frames(segs: np.ndarray, cfg: PipelineConfig, frame_len: int,
 def whole_file_mfcc39(sig, cfg: PipelineConfig, device) -> torch.Tensor:
     """MFCC-39 of a whole int16 recording (numpy or tensor) on ``device``:
     ``(T, 39)``, the deltas' edges at its last frame."""
-    fc = cfg.speaker_feature
-    return mfcc39(torch.as_tensor(sig).to(device, torch.float32),
-                  sample_rate=fc.sample_rate, n_fft=fc.n_fft,
-                  n_filt=fc.n_filt, n_cep=fc.n_cep, preemph=fc.preemph,
-                  ceplifter=fc.ceplifter, append_energy=fc.append_energy,
-                  win_length=fc.win_length, hop_length=fc.hop_length,
-                  delta_n=fc.delta_n)
+    return clip_mfcc39(sig, cfg.speaker_feature, device)
 
 
 def speaker_post_analyze(dirs: ExperimentDirs, predictor, *,

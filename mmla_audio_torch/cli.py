@@ -2,10 +2,11 @@
 
     python -m mmla_audio_torch.cli setup        --root experiment
     python -m mmla_audio_torch.cli overlap-live --fake [--windows N] [--vad energy|webrtc]
-    python -m mmla_audio_torch.cli speaker-live --fake [--windows N] [--vad energy|webrtc]
+    python -m mmla_audio_torch.cli speaker-live --fake [--windows N] [--register NAME ...]
     python -m mmla_audio_torch.cli overlap-run  -f clip.wav | --dir DIR
     python -m mmla_audio_torch.cli overlap-post --root experiment [--vad energy|webrtc]
     python -m mmla_audio_torch.cli speaker-post --root experiment [--vad energy|webrtc]
+    python -m mmla_audio_torch.cli speaker-pretrain --wav-dir DIR --out OUT [--epochs N]
     python -m mmla_audio_torch.cli charts       --root experiment [--kind overlap|speaker]
 
 ``--weights PATH.npz`` loads the model from the flat ``.npz`` that
@@ -13,12 +14,17 @@
 ``--seed`` (Keras initializers, as the JAX CLI without ``--ckpt``).  A
 speaker model's head is as wide as the file's; ``speaker-post`` checks it
 against the enrollment corpus (one ``.wav`` per speaker) and takes a
-sigmoid head when there is one, as the JAX CLI does.  ``--precision``:
-``default`` (alias ``auto``) is each model's own default, ``highest`` IEEE
-fp32 everywhere, ``fast`` TF32 in the models.  ``--device`` defaults to
-``cuda``; a run without a card fails unless it asks for ``--device cpu``.
-Not ported yet, and refused: a microphone (pass ``--fake``) and speaker
-registration (``--register``, which needs the transfer fine-tune).
+sigmoid head when there is one, as the JAX CLI does.  ``speaker-live
+--register NAME ...`` enrolls each name from the source, fine-tunes the
+``--weights`` (or random-init) base on the corpus and writes
+``experiment/model/variables.npz``, which ``speaker-post --weights`` reads;
+``speaker-pretrain`` trains a base model from a directory of
+``<speaker>_<clip>.wav`` files into ``OUT/variables.npz``.
+``--precision``: ``default`` (alias ``auto``) is each model's own default,
+``highest`` IEEE fp32 everywhere, ``fast`` TF32 in the models (for
+registration, in training too).  ``--device`` defaults to ``cuda``; a run
+without a card fails unless it asks for ``--device cpu``.  Not ported yet,
+and refused: a microphone (pass ``--fake``).
 """
 
 from __future__ import annotations
@@ -117,8 +123,9 @@ def cmd_setup(args):
     print(f"[INFO] experiment tree ready under {dirs.root}")
 
 
-def _run_live(args, cfg, make_session, show) -> None:
-    """Calibrate, then run a live session on the fake source."""
+def _run_live(args, cfg, make_session, show, prepare=None) -> None:
+    """Calibrate, ``prepare(session)`` if given, then run a live session on
+    the fake source."""
     from mmla_audio_torch.streaming.capture import CaptureThread, FakePCMSource
 
     cap = CaptureThread(FakePCMSource(cfg.audio, seed=args.seed,
@@ -129,6 +136,8 @@ def _run_live(args, cfg, make_session, show) -> None:
         cal_s = args.calibrate_seconds or cfg.audio.noise_profile_seconds
         print(f"[INFO] calibrating ambient noise ({cal_s:.0f}s)...")
         sess.calibrate(args.calibrate_seconds)
+        if prepare is not None:
+            prepare(sess)
         print("[INFO] model loaded: start predicting...")
         sess.run(max_windows=args.windows, on_result=show)
     finally:
@@ -159,23 +168,41 @@ def cmd_overlap_live(args):
 
 def cmd_speaker_live(args):
     """Identify speakers on the fake source with the base (630-way) model
-    or ``--weights``.  Registration is refused: it needs the transfer
-    fine-tune, whose training is not ported yet."""
+    or ``--weights``; with ``--register NAME ...``, first enroll each name
+    and fine-tune that model on the corpus (`record_on_pc.py` main)."""
     from mmla_audio_torch.streaming.session import SpeakerSession
 
-    if args.register:
-        raise SystemExit("speaker-live: --register needs the transfer "
-                         "fine-tune, and training is not ported yet")
     _refuse_microphone(args)
     cfg = _cfg(args)
     pred = _speaker_predictor(args, cfg)
+
+    def register(sess):
+        for name in args.register:
+            print(f"[INFO] registering '{name}' "
+                  f"({args.enroll_seconds or cfg.audio.enroll_seconds:.0f}s)"
+                  f"...")
+            sess.register_speaker(name, seconds=args.enroll_seconds)
+        override = None
+        if args.phase1_epochs is not None or args.phase2_epochs is not None:
+            override = (args.phase1_epochs or cfg.transfer.phase1_epochs,
+                        args.phase2_epochs if args.phase2_epochs is not None
+                        else cfg.transfer.phase2_epochs)
+        print(f"[INFO] transfer-learning on the registered corpus "
+              f"({sess.device})...")
+        t0 = time.perf_counter()
+        acc = sess.train_on_registered(pred.model.state_dict(),
+                                       epochs_override=override)
+        print(f"[TIME] registration training: "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+        print(f"[INFO] registration accuracy: {acc:.3f}")
+        print(f"[INFO] model: {sess.dirs.model / 'variables.npz'}")
 
     def show(idx, label, prob):
         print(f"[INFO] window {idx}: {label}")
 
     _run_live(args, cfg, lambda cap: SpeakerSession(
         pred, cap, args.root, cfg=cfg, save_recordings=args.save_recordings),
-        show)
+        show, prepare=register if args.register else None)
 
 
 def cmd_overlap_run(args):
@@ -255,6 +282,50 @@ def cmd_speaker_post(args):
         print(f"[INFO] {name}: {log}")
 
 
+def cmd_speaker_pretrain(args):
+    """Base speaker model pretrain (TIMIT layout or a flat directory):
+    RMSprop 1e-4, batch 32, early stopping on the loss of the training set
+    itself (``x_val = x``, as the JAX CLI), Keras init from ``--seed``;
+    writes ``--out/variables.npz`` and ``metadata.json``."""
+    from mmla_audio_torch.data.corpus import featurize_clips
+    from mmla_audio_torch.data.timit import TimitCatalog
+    from mmla_audio_torch.models.layers import keras_init_
+    from mmla_audio_torch.models.speaker import SpeakerResBLSTM, l2_penalty
+    from mmla_audio_torch.train.checkpoints import save_variables
+    from mmla_audio_torch.train.losses import keras_categorical_crossentropy
+    from mmla_audio_torch.train.optimizers import rmsprop
+    from mmla_audio_torch.train.trainer import Trainer
+
+    cfg = PipelineConfig()
+    mcfg, tcfg = cfg.speaker_model, cfg.speaker_train
+    device = _device(args)
+    catalog = TimitCatalog.from_flat_dir(args.wav_dir) if not args.labels_csv \
+        else TimitCatalog.from_labels_csv(args.labels_csv, args.wav_dir)
+    clips, labels = [], []
+    for sid, sig, _ in catalog.iter_clips():
+        clips.append(sig)
+        labels.append(sid)
+    if not clips:
+        raise SystemExit(f"speaker-pretrain: no clips under {args.wav_dir}")
+    x, y, sid_dict = featurize_clips(clips, labels, dim=mcfg.num_speakers,
+                                     cfg=cfg.speaker_feature, device=device)
+    model = keras_init_(SpeakerResBLSTM(mcfg),
+                        torch.Generator().manual_seed(args.seed))
+    trainer = Trainer(model, rmsprop(tcfg.lr), keras_categorical_crossentropy,
+                      extra_penalty_fn=lambda m: l2_penalty(m, mcfg),
+                      device=device, seed=args.seed)
+    t0 = time.perf_counter()
+    trainer.fit(x, y, epochs=args.epochs or tcfg.epochs,
+                batch_size=tcfg.batch_size,
+                early_stop_patience=tcfg.early_stop_patience,
+                x_val=x, y_val=y, verbose=True)
+    print(f"[TIME] speaker-pretrain: {(time.perf_counter() - t0) * 1e3:.1f} "
+          f"ms ({len(clips)} clips, {len(sid_dict)} speakers)")
+    save_variables(args.out, trainer.variables_of(), mcfg, None,
+                   {"speakers": sid_dict})
+    print(f"[INFO] saved base model to {Path(args.out) / 'variables.npz'}")
+
+
 def cmd_charts(args):
     from mmla_audio_torch.analyze.charts import visualize_all
     from mmla_audio_torch.utils.experiment import ExperimentDirs
@@ -313,9 +384,12 @@ def main(argv=None):
 
     p = sub.add_parser("speaker-live")
     live(p)
-    p.add_argument("--register", nargs="*", default=None,
-                   help="refused: registration needs the transfer "
-                        "fine-tune, not ported yet")
+    p.add_argument("--register", nargs="*", default=None, metavar="NAME",
+                   help="enroll each name from the source, then fine-tune "
+                        "the model on the corpus before identifying")
+    p.add_argument("--enroll-seconds", type=float, default=None)
+    p.add_argument("--phase1-epochs", type=int, default=None)
+    p.add_argument("--phase2-epochs", type=int, default=None)
     p.set_defaults(fn=cmd_speaker_live)
 
     p = sub.add_parser("overlap-run")
@@ -333,6 +407,17 @@ def main(argv=None):
         vad(p)
         p.add_argument("--root", default="experiment")
         p.set_defaults(fn=fn)
+
+    p = sub.add_parser("speaker-pretrain")
+    p.add_argument("--wav-dir", required=True)
+    p.add_argument("--labels-csv", default=None)
+    p.add_argument("--out", required=True)
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda; pass cpu to run "
+                        "without a card)")
+    p.set_defaults(fn=cmd_speaker_pretrain)
 
     p = sub.add_parser("charts")
     p.add_argument("--root", default="experiment")

@@ -5,7 +5,7 @@ The port runs where the JAX package cannot be imported, so it carries its own
 copy of the configuration it uses.  Every class here has the same fields and
 defaults as its JAX counterpart (pinned by ``tests/test_torch_inference.py``);
 ``PipelineConfig`` holds only the parts the overlap and speaker serving
-paths read.
+paths and speaker training read.
 """
 
 from __future__ import annotations
@@ -15,7 +15,8 @@ from typing import Optional, Tuple
 
 __all__ = ["AudioConfig", "OverlapFeatureConfig", "SpeakerFeatureConfig",
            "VadConfig", "DenoiseConfig", "OverlapModelConfig",
-           "SpeakerModelConfig", "PipelineConfig"]
+           "SpeakerModelConfig", "SpeakerTrainConfig", "TransferConfig",
+           "PipelineConfig"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,8 +189,35 @@ class SpeakerModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SpeakerTrainConfig:
+    """Base-model pretrain: RMSprop 1e-4, batch 32, early stopping on the
+    validation loss."""
+
+    lr: float = 1e-4
+    batch_size: int = 32
+    epochs: int = 200
+    early_stop_patience: int = 10
+
+
+@dataclasses.dataclass(frozen=True)
+class TransferConfig:
+    """Two-phase registration fine-tune: the head alone on the frozen trunk,
+    then everything; retrained until the validation accuracy reaches the
+    gate."""
+
+    phase1_epochs: int = 500
+    phase1_batch: int = 16
+    phase1_lr: float = 1e-4
+    phase2_epochs: int = 20
+    phase2_batch: int = 8
+    phase2_lr: float = 1e-6
+    accuracy_gate: float = 0.80
+    max_retrain_rounds: int = 5
+
+
+@dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """What an overlap or speaker session needs."""
+    """What an overlap or speaker session, and speaker training, need."""
 
     audio: AudioConfig = AudioConfig()
     overlap_feature: OverlapFeatureConfig = OverlapFeatureConfig()
@@ -198,3 +226,5 @@ class PipelineConfig:
     denoise: DenoiseConfig = DenoiseConfig()
     overlap_model: OverlapModelConfig = OverlapModelConfig()
     speaker_model: SpeakerModelConfig = SpeakerModelConfig()
+    speaker_train: SpeakerTrainConfig = SpeakerTrainConfig()
+    transfer: TransferConfig = TransferConfig()

@@ -5,6 +5,17 @@ Keras momentum 0.99 (torch's ``momentum`` is its complement, 0.01); LSTM gate
 order i, f, c, o, which is torch's i, f, g, o, with sigmoid recurrent
 activation and tanh activation.  Keras' single LSTM ``bias`` maps to
 ``bias_ih`` with ``bias_hh`` zero (``params.py``).
+
+Training keeps the JAX package's numerics where torch's differ:
+
+* a train-mode BatchNorm normalizes with the batch's biased variance
+  ``E[x^2] - E[x]^2`` and moves its running variance toward that same
+  biased value (torch's own BatchNorm moves it toward the unbiased one,
+  n/(n-1) larger);
+* ``bias_hh`` stays zero and out of every optimizer: if both torch biases
+  trained, each would get the full gradient and their sum, the Keras bias,
+  would move twice per step;
+* ``SeededDropout`` draws its mask from an explicit generator.
 """
 
 from __future__ import annotations
@@ -15,7 +26,7 @@ import torch
 from torch import nn
 
 __all__ = ["leaky_relu", "KerasBatchNorm", "KerasBatchNorm1d", "BiLSTM",
-           "keras_init_"]
+           "SeededDropout", "transfer_mode_", "keras_init_"]
 
 
 def leaky_relu(x: torch.Tensor, alpha: float = 0.3) -> torch.Tensor:
@@ -23,21 +34,54 @@ def leaky_relu(x: torch.Tensor, alpha: float = 0.3) -> torch.Tensor:
     return torch.where(x >= 0, x, alpha * x)
 
 
+def _train_batch_norm(bn: nn.modules.batchnorm._BatchNorm,
+                      x: torch.Tensor) -> torch.Tensor:
+    """The JAX package's train-mode BatchNorm over the channel axis 1 of
+    ``x``: mean and variance ``E[x^2] - E[x]^2`` (clipped at 0) over every
+    other axis, ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, and
+    ``running = m * running + (1 - m) * batch`` for both statistics."""
+    dims = [0] + list(range(2, x.ndim))
+    shape = [1, -1] + [1] * (x.ndim - 2)
+    mean = x.mean(dims)
+    var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+    with torch.no_grad():
+        m = bn.keras_momentum
+        bn.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+        bn.running_var.mul_(m).add_(var, alpha=1.0 - m)
+        bn.num_batches_tracked.add_(1)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return (x - mean.reshape(shape)) * mul.reshape(shape) + \
+        bn.bias.reshape(shape)
+
+
 class KerasBatchNorm(nn.BatchNorm2d):
-    """BatchNorm over the channel axis of NCHW input, Keras defaults."""
+    """BatchNorm over the channel axis of NCHW input, Keras defaults; train
+    mode as the JAX package's (``_train_batch_norm``)."""
 
     def __init__(self, num_features: int, momentum: float = 0.99,
                  eps: float = 1e-3):
         super().__init__(num_features, eps=eps, momentum=1.0 - momentum)
+        self.keras_momentum = momentum
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return _train_batch_norm(self, x)
+        return super().forward(x)
 
 
 class KerasBatchNorm1d(nn.BatchNorm1d):
     """BatchNorm over the channel axis of ``(B, C, T)`` input, Keras
-    defaults."""
+    defaults; train mode as the JAX package's (``_train_batch_norm``)."""
 
     def __init__(self, num_features: int, momentum: float = 0.99,
                  eps: float = 1e-3):
         super().__init__(num_features, eps=eps, momentum=1.0 - momentum)
+        self.keras_momentum = momentum
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return _train_batch_norm(self, x)
+        return super().forward(x)
 
 
 class BiLSTM(nn.Module):
@@ -50,10 +94,42 @@ class BiLSTM(nn.Module):
         super().__init__()
         self.lstm = nn.LSTM(input_size, units, batch_first=True,
                             bidirectional=True)
+        for sfx in ("", "_reverse"):         # Keras has one bias: bias_ih
+            getattr(self.lstm, f"bias_hh_l0{sfx}").requires_grad_(False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         _, (h_n, _) = self.lstm(x)                  # h_n (2, B, H)
         return torch.cat([h_n[0], h_n[1]], dim=-1)
+
+
+class SeededDropout(nn.Dropout):
+    """Dropout whose train-mode keep mask is drawn from ``generator`` (a
+    ``torch.Generator`` on the input's device, set by the trainer), scaled
+    by 1 / keep as the JAX package's; without a generator it is
+    ``nn.Dropout``."""
+
+    generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0 or self.generator is None:
+            return super().forward(x)
+        keep = torch.empty_like(x).bernoulli_(1.0 - self.p,
+                                              generator=self.generator)
+        return x * keep / (1.0 - self.p)
+
+
+def transfer_mode_(model: nn.Module) -> nn.Module:
+    """In place: every module in inference mode (BatchNorm on its running
+    statistics, dropout off) except each ``nn.LSTM``, which stays in train
+    mode.  This is the JAX package's ``train=False`` forward with gradients
+    flowing through it: cuDNN computes an RNN's backward only in train mode,
+    and a one-layer LSTM without inter-layer dropout gives the same output
+    in either mode."""
+    model.eval()
+    for m in model.modules():
+        if isinstance(m, nn.LSTM):
+            m.train()
+    return model
 
 
 def _glorot_uniform_(w: torch.Tensor, fan_in: int, fan_out: int,

@@ -9,11 +9,12 @@ BiLSTM(256); Dropout 0.2; Dense(630), or the enrollment corpus's head
 internally ``(B, C, T)``.  Geometry: 256 -> 128 -> 64 -> 32 frames ->
 AvgPool(4) -> (B, 8, 128) -> BiLSTM -> (B, 512) -> logits.
 
-Padding as Flax ``SAME``: the k4 stem pads 1 before and 2 after; the
-2-wide stride-2 max-pool pads an odd length with -inf after; a strided 1x1
-needs none.  The Keras l2 of the inner convs is a training penalty and
-waits for training.  Convolutions and the LSTM are cuDNN on the card: the
-JAX model runs them outside any Pallas kernel, so there is no kernel here.
+Padding as the JAX model's ``SAME``: the k4 stem pads 1 before and 2
+after; the 2-wide stride-2 max-pool pads an odd length with -inf after; a
+strided 1x1 needs none.  The Keras l2 of the inner convs is part of the
+training loss, ``l2_penalty``, not weight decay.  Convolutions and the LSTM
+are cuDNN on the card: the JAX model runs them outside any Pallas kernel,
+so there is no kernel here.
 """
 
 from __future__ import annotations
@@ -23,9 +24,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from mmla_audio_torch.core.config import SpeakerModelConfig
-from mmla_audio_torch.models.layers import BiLSTM, KerasBatchNorm1d
+from mmla_audio_torch.models.layers import (BiLSTM, KerasBatchNorm1d,
+                                            SeededDropout)
 
-__all__ = ["ResUnit1D", "SpeakerTrunk", "SpeakerResBLSTM"]
+__all__ = ["ResUnit1D", "SpeakerTrunk", "SpeakerResBLSTM", "l2_penalty"]
 
 
 class ResUnit1D(nn.Module):
@@ -73,9 +75,9 @@ class SpeakerTrunk(nn.Module):
                 ch = f
         self.units = nn.Sequential(*units)
         self.bn = KerasBatchNorm1d(ch, cfg.bn_momentum, cfg.bn_eps)
-        self.dropout_trunk = nn.Dropout(cfg.dropout_trunk)
+        self.dropout_trunk = SeededDropout(cfg.dropout_trunk)
         self.bilstm = BiLSTM(ch, cfg.lstm_units)
-        self.dropout_head = nn.Dropout(cfg.dropout_head)
+        self.dropout_head = SeededDropout(cfg.dropout_head)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """``x (B, T, feat_dim)`` -> ``(B, 2 * lstm_units)``."""
@@ -101,3 +103,21 @@ class SpeakerResBLSTM(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """``x (B, T, feat_dim)`` MFCC-39 rows -> logits ``(B, units)``."""
         return self.head(self.trunk(x))
+
+
+def l2_penalty(model: SpeakerResBLSTM,
+               cfg: SpeakerModelConfig = SpeakerModelConfig()) -> torch.Tensor:
+    """The Keras kernel regularizers as a loss term: the sum of ``coeff *
+    sum(kernel ** 2)`` over ``conv_a`` and ``conv_b`` of the units of every
+    stage whose ``stage_l2`` coefficient is positive, the first (pooling)
+    unit of each stage excepted (speaker_identification.py:176-187)."""
+    units = model.trunk.units
+    total = torch.zeros((), device=model.head.weight.device)
+    for stage, coeff in enumerate(cfg.stage_l2):
+        if coeff <= 0:
+            continue
+        for block in range(1, cfg.blocks_per_stage):
+            unit = units[stage * cfg.blocks_per_stage + block]
+            for conv in (unit.conv_a, unit.conv_b):
+                total = total + coeff * torch.sum(torch.square(conv.weight))
+    return total

@@ -17,6 +17,8 @@ Layout changes: 2-D conv kernels HWIO -> OIHW, 1-D ones (K, Cin, Cout) ->
 in)); the Keras LSTM's single ``bias`` goes to ``bias_ih`` with ``bias_hh =
 0``; BatchNorm ``scale``/``bias``/``mean``/``var`` become
 ``weight``/``bias``/``running_mean``/``running_var``.
+``speaker_tree_from_state_dict`` is the inverse for a speaker model the port
+trained: it writes the LSTM's ``bias_ih + bias_hh`` as the Keras bias.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from mmla_audio_torch.core.config import OverlapModelConfig, SpeakerModelConfig
 __all__ = ["overlap_tree_shapes", "overlap_state_dict_from_jax",
            "load_overlap_npz", "save_npz",
            "speaker_tree_shapes", "speaker_state_dict_from_jax",
-           "load_speaker_npz"]
+           "speaker_tree_from_state_dict", "load_speaker_npz"]
 
 
 def _conv(kh, kw, cin, cout):
@@ -215,6 +217,59 @@ def speaker_state_dict_from_jax(tree: Mapping[str, Any],
     put("head.weight", np.asarray(tree["params"]["head"]["kernel"]).T)
     put("head.bias", tree["params"]["head"]["bias"])
     return sd
+
+
+def speaker_tree_from_state_dict(sd: Mapping[str, torch.Tensor],
+                                 cfg: SpeakerModelConfig = SpeakerModelConfig(),
+                                 head_units: int | None = None
+                                 ) -> Dict[str, Any]:
+    """``SpeakerResBLSTM(cfg, head_units)`` state_dict -> the JAX model's
+    variable tree of float32 numpy arrays, the inverse of
+    ``speaker_state_dict_from_jax`` (what ``save_npz`` writes and
+    ``load_speaker_npz`` reads).  Checked against ``speaker_tree_shapes``."""
+    def get(key):
+        return sd[key].detach().to("cpu", torch.float32).clone().numpy()
+
+    def conv(prefix):
+        return {"kernel": np.ascontiguousarray(
+                    np.transpose(get(f"{prefix}.weight"), (2, 1, 0))),
+                "bias": get(f"{prefix}.bias")}
+
+    def bn(prefix):
+        return ({"BatchNorm_0": {"scale": get(f"{prefix}.weight"),
+                                 "bias": get(f"{prefix}.bias")}},
+                {"BatchNorm_0": {"mean": get(f"{prefix}.running_mean"),
+                                 "var": get(f"{prefix}.running_var")}})
+
+    trunk: Dict[str, Any] = {"stem": conv("trunk.stem")}
+    stats: Dict[str, Any] = {}
+    for name, i, _, _, pool in _units(cfg):
+        pre = f"trunk.units.{i}"
+        unit: Dict[str, Any] = {"conv_a": conv(f"{pre}.conv_a"),
+                                "conv_b": conv(f"{pre}.conv_b")}
+        st: Dict[str, Any] = {}
+        for j in (0, 1):
+            unit[f"KerasBatchNorm_{j}"], st[f"KerasBatchNorm_{j}"] = \
+                bn(f"{pre}.bn{j}")
+        if pool:
+            unit["shortcut"] = conv(f"{pre}.shortcut")
+        trunk[name], stats[name] = unit, st
+    trunk["KerasBatchNorm_0"], stats["KerasBatchNorm_0"] = bn("trunk.bn")
+    lstm = "trunk.bilstm.lstm"
+    trunk["BiLSTM_0"] = {
+        d: {"kernel": np.ascontiguousarray(get(f"{lstm}.weight_ih_l0{sfx}").T),
+            "recurrent_kernel": np.ascontiguousarray(
+                get(f"{lstm}.weight_hh_l0{sfx}").T),
+            "bias": get(f"{lstm}.bias_ih_l0{sfx}")
+            + get(f"{lstm}.bias_hh_l0{sfx}")}
+        for d, sfx in (("forward", ""), ("backward", "_reverse"))}
+    tree = {"params": {"trunk": trunk,
+                       "head": {"kernel": np.ascontiguousarray(
+                                    get("head.weight").T),
+                                "bias": get("head.bias")}},
+            "batch_stats": {"trunk": stats}}
+    _check(tree, speaker_tree_shapes(cfg, head_units))
+    return tree
 
 
 def save_npz(tree: Mapping[str, Any], path) -> None:

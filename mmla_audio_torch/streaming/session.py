@@ -18,12 +18,21 @@ Calibration (10 s of ambient noise) gives the denoise profile, the energy
 VAD threshold and the ``Ambient_Noise.wav`` artifact.  Logs land under
 ``experiment/logs/<timestamp>.txt`` and optional window recordings under
 ``experiment/recordings/real-time/<timestamp>/wav``.
+
+Speaker registration (`record_on_pc.py:299-346`): each enrollment clip
+(~60 s) goes through the same denoise, VAD and trim chain, the detector's
+state carried on, and lands in ``experiment/corpus/<name>.wav``; then the
+corpus is featurized and the transfer fine-tune runs until its accuracy
+gate, on the session's device, and the session identifies with the new
+sigmoid head.
 """
 
 from __future__ import annotations
 
+import json
 from datetime import datetime
-from typing import Callable, Dict, Optional
+from pathlib import Path
+from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -181,10 +190,10 @@ class OverlapSession(StreamingSession):
 
 
 class SpeakerSession(StreamingSession):
-    """Live speaker identification (identify only; registration needs the
-    transfer fine-tune).  The same pre-decision chain as the overlap
-    session, the native webrtc engine's state carried across windows; the
-    silent gate is ``cfg.speaker_feature.silent_samples``."""
+    """Live speaker identification and registration.  The same
+    pre-decision chain as the overlap session, the native webrtc engine's
+    state carried across windows and enrollments; the silent gate is
+    ``cfg.speaker_feature.silent_samples``."""
 
     kind = "speaker"
 
@@ -205,3 +214,66 @@ class SpeakerSession(StreamingSession):
         name = "silent" if label < 0 else \
             self.speaker_id_dict.get(str(label), str(label))
         return name, probs
+
+    # -- registration ---------------------------------------------------------
+    def register_speaker(self, name: str,
+                         seconds: Optional[float] = None) -> Path:
+        """One enrollment: capture ``seconds`` (default
+        ``cfg.audio.enroll_seconds``), denoise, VAD-trim, write
+        ``experiment/corpus/<name>.wav`` (`record_on_pc.py:299-328`)."""
+        if self.noise_thresh is None:
+            raise RuntimeError("calibrate() or set_noise_profile() first")
+        sr = self.cfg.audio.sample_rate
+        n = int((seconds or self.cfg.audio.enroll_seconds) * sr)
+        chunks, got = [], 0
+        while got < n:
+            w = self.capture.read_window(min(n - got, sr), timeout=60.0)
+            if w is None:
+                break
+            chunks.append(w)
+            got += len(w)
+        raw = (np.concatenate(chunks) if chunks else np.zeros(n, np.int16))[:n]
+        trimmed, n_out = self.preprocess(raw)
+        path = self.dirs.corpus / f"{name}.wav"
+        write_wav(path, trimmed[:n_out].to("cpu", torch.int16).numpy(), sr)
+        return path
+
+    def train_on_registered(self, base_state_dict: Mapping[str, torch.Tensor],
+                            seed: int = 0, epochs_override=None) -> float:
+        """Featurize the corpus, fine-tune ``base_state_dict``'s trunk under
+        a new head until the accuracy gate, save the model, and identify
+        with it from now on (`transfer_learning_on_experiment` and the
+        retrain loop).  Writes ``experiment_feature.npz``/``.json`` and
+        ``speaker_id_dict.json`` at the experiment's root and
+        ``model/variables.npz`` + ``model/metadata.json``; returns the
+        validation accuracy.  Training and the new predictor take the
+        current predictor's device and precision."""
+        from mmla_audio_torch.data.corpus import featurize_corpus
+        from mmla_audio_torch.inference import SpeakerPredictor
+        from mmla_audio_torch.train.checkpoints import (save_feature_cache,
+                                                        save_variables)
+        from mmla_audio_torch.train.transfer import TransferLearner
+
+        cfg = self.cfg
+        precision = self.predictor.matmul_precision
+        x, y, sid = featurize_corpus(self.dirs.corpus, cfg.speaker_feature,
+                                     device=self.device)
+        save_feature_cache(self.dirs.root / "experiment_feature", x, y, sid)
+        n_speakers = int(y.shape[1])
+        learner = TransferLearner(base_state_dict, n_speakers,
+                                  cfg.speaker_model, cfg.transfer,
+                                  device=self.device,
+                                  matmul_precision=precision)
+        state_dict, acc, _ = learner.fit_until_gate(
+            x, y, seed=seed, epochs_override=epochs_override)
+        self.speaker_id_dict = sid
+        (self.dirs.root / "speaker_id_dict.json").write_text(json.dumps(sid))
+        save_variables(self.dirs.model, state_dict, cfg.speaker_model,
+                       n_speakers, {"n_speakers": n_speakers,
+                                    "accuracy": float(acc),
+                                    "speaker_id_dict": sid})
+        self.predictor = SpeakerPredictor(
+            state_dict, cfg.speaker_model, cfg.speaker_feature,
+            head_units=n_speakers, sigmoid_head=True, device=self.device,
+            matmul_precision=precision)
+        return acc

@@ -1,0 +1,102 @@
+"""Checkpoints of speaker models and the enrolled-corpus feature cache
+(counterpart of ``mmla_audio_tpu.train.checkpoints``).
+
+The JAX package saves Orbax checkpoints, which the card's machine cannot
+read.  The port saves the flat ``.npz`` of ``params.py`` instead, the file
+``--weights`` reads and a JAX host loads with ``np.load``:
+``path/variables.npz`` plus ``path/metadata.json``.  ``BestCheckpointer``
+mirrors Keras ``ModelCheckpoint(save_best_only=True)``.  The feature cache
+keeps the JAX package's ``experiment_feature.npz`` (keys ``x``, ``y``) and
+``.json`` (``speaker_id_dict``) pair and its suffix rule, so either package
+reads the other's (`speaker_identification.py:485-489`).
+"""
+
+from __future__ import annotations
+
+import json
+from pathlib import Path
+from typing import Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from mmla_audio_torch.core.config import SpeakerModelConfig
+from mmla_audio_torch.params import (load_speaker_npz, save_npz,
+                                     speaker_state_dict_from_jax,
+                                     speaker_tree_from_state_dict)
+
+__all__ = ["save_variables", "load_variables", "BestCheckpointer",
+           "save_feature_cache", "load_feature_cache"]
+
+
+def save_variables(path, state_dict: Mapping[str, torch.Tensor],
+                   cfg: SpeakerModelConfig = SpeakerModelConfig(),
+                   head_units: int | None = None,
+                   metadata: Optional[dict] = None) -> None:
+    """A ``SpeakerResBLSTM(cfg, head_units)`` state_dict ->
+    ``path/variables.npz`` (and ``path/metadata.json`` if given)."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    save_npz(speaker_tree_from_state_dict(state_dict, cfg, head_units),
+             path / "variables.npz")
+    if metadata is not None:
+        (path / "metadata.json").write_text(json.dumps(metadata))
+
+
+def load_variables(path, cfg: SpeakerModelConfig = SpeakerModelConfig()
+                   ) -> tuple[Dict[str, torch.Tensor], int]:
+    """``path/variables.npz`` -> ``(state_dict, head_units)``."""
+    tree, head_units = load_speaker_npz(Path(path) / "variables.npz", cfg)
+    return speaker_state_dict_from_jax(tree, cfg, head_units), head_units
+
+
+class BestCheckpointer:
+    """Keras ModelCheckpoint(save_best_only=True): saves when ``metric``
+    improves (``monitor_mode`` "max" or "min")."""
+
+    def __init__(self, path, cfg: SpeakerModelConfig = SpeakerModelConfig(),
+                 head_units: int | None = None, monitor_mode: str = "max"):
+        self.path = Path(path)
+        self.cfg = cfg
+        self.head_units = head_units
+        self.mode = monitor_mode
+        self.best: Optional[float] = None
+
+    def update(self, metric: float, state_dict: Mapping[str, torch.Tensor],
+               metadata: Optional[dict] = None) -> bool:
+        better = (self.best is None
+                  or (metric > self.best if self.mode == "max"
+                      else metric < self.best))
+        if better:
+            self.best = float(metric)
+            meta = dict(metadata or {})
+            meta["best_metric"] = self.best
+            save_variables(self.path, state_dict, self.cfg, self.head_units,
+                           meta)
+        return better
+
+
+def _cache_paths(path) -> tuple[Path, Path]:
+    """np.savez appends '.npz' while Path.with_suffix replaces an existing
+    suffix: one rule for both sides, so a dotted stem like 'cache.v1'
+    saves and loads 'cache.v1.npz'."""
+    s = str(path)
+    base = s[:-4] if s.endswith(".npz") else s
+    return Path(base + ".npz"), Path(base + ".json")
+
+
+def save_feature_cache(path, x: np.ndarray, y: np.ndarray,
+                       speaker_id_dict: Dict[str, str]) -> None:
+    """``experiment_feature.npz`` + its ``speaker_id_dict`` ``.json``."""
+    npz, js = _cache_paths(path)
+    npz.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(npz, x=x, y=y)
+    js.write_text(json.dumps(speaker_id_dict))
+
+
+def load_feature_cache(path):
+    """-> ``(x, y, speaker_id_dict)``."""
+    npz, js = _cache_paths(path)
+    with np.load(npz) as data:
+        x, y = data["x"], data["y"]
+    return x, y, json.loads(js.read_text())

@@ -185,9 +185,8 @@ def test_cli_speaker_live_fake(tmp_path, capsys):
     assert logs[0].read_text().startswith("segment\tspeaker\t")
 
 
+# speaker-live --register runs: tests/test_torch_register.py
 @pytest.mark.parametrize("argv,message", [
-    (["speaker-live", "--fake", "--register", "alice"],
-     "training is not ported"),
     (["speaker-live"], "microphone capture is not ported"),
     (["overlap-live"], "microphone capture is not ported")])
 def test_cli_refuses_what_is_not_ported(tmp_path, argv, message):
@@ -225,12 +224,11 @@ LIVE = {"--ckpt", "--host-preprocess", "--no-host-preprocess", "--edge"} \
 NOT_YET = {
     "setup": set(),
     "overlap-live": LIVE,
-    # --register is taken, only to be refused (training is not ported)
-    "speaker-live": LIVE | {"--enroll-seconds", "--phase1-epochs",
-                            "--phase2-epochs"},
+    "speaker-live": LIVE,
     "overlap-post": {"--ckpt"} | CACHE,
     "speaker-post": {"--ckpt"} | CACHE,
     "overlap-run": {"--ckpt", "--parity"} | CACHE,
+    "speaker-pretrain": CACHE,
     "charts": CACHE,
 }
 # the port's own: the device, the .npz weights, and the random-init seed
@@ -240,7 +238,8 @@ OWN = {"setup": set(), "charts": set(),
        "speaker-live": {"--device", "--weights"},
        "overlap-post": {"--device", "--weights", "--seed"},
        "speaker-post": {"--device", "--weights", "--seed"},
-       "overlap-run": {"--device", "--weights", "--seed"}}
+       "overlap-run": {"--device", "--weights", "--seed"},
+       "speaker-pretrain": {"--device"}}
 
 
 @pytest.mark.parametrize("cmd", sorted(NOT_YET))
