@@ -69,7 +69,27 @@ per source, all at once), then:
    is zero, within RMSprop's noise bound), then two epochs timed on the
    card with dropout on; the CLI's ``speaker-pretrain`` -> ``speaker-live
    --fake --register a b`` -> ``speaker-post --weights
-   experiment/model/variables.npz``, each in a fresh process.
+   experiment/model/variables.npz``, each in a fresh process;
+9. overlap training at the full width of ``OverlapModelConfig()`` on the
+   reference's corpus composition, the other main path whose launches are
+   counted: 630 seeded voices cut into 6,300 single 1.5 s clips and 6,300
+   ``synthesize_corpus`` mixtures of them, the featurizer kernel over all
+   12,600 windows in one call (held against the plain version on 256 of
+   them), ``OverlapTrainer.train`` for two epochs at b32 with the fused
+   block launched only by each epoch's validation (6 blocks x 5 chunks),
+   none by a train step; CUDA-event featurize and step times, epoch and
+   validation times, peak memory and a ``torch.profiler`` window of 10
+   steps (device busy, idle share, launches); 3 train steps card vs CPU
+   with dropout 0 on the card's features (losses within 1e-4 relative,
+   parameters within 1e-3 of each leaf's largest magnitude, the conv0
+   biases, whose exact gradient is zero, within Adadelta's noise bound),
+   an evaluation of 512 windows, fused on the card vs unfused on the CPU
+   (labels equal under the margin rule), ``augment_to_balance`` of a 2:1
+   subset card vs CPU; the CLI's ``synth-corpus`` (512 mixtures of 1,024
+   corpus clips) -> ``overlap-train --epochs 3 --augmented --out D`` ->
+   ``overlap-post --weights D/variables.npz`` of phase 5's 5-minute
+   recording, its labels equal to the CPU's of the same checkpoint under
+   the margin rule.
 
 The line before the last is a JSON object describing each kernel, with its
 bound: the larger of its bytes (each input read once, each output written
@@ -124,6 +144,12 @@ PRETRAIN_CLIPS, PRETRAIN_SPEAKERS, PRETRAIN_STEPS = 256, 64, 3
 TRANSFER_DRIFT = 5e-2
 TRAIN_LOSS_RTOL = 1e-4                     # pretrain losses card vs CPU
 PARAM_RTOL = 1e-3                          # of each leaf's max |value|
+# phase 9: overlap training on the reference's corpus composition (630
+# voices x 10 clips = 6,300 singles, and 6,300 mixtures of them), its
+# card-vs-CPU checks and its CLI
+OVERLAP_SPEAKERS, OVERLAP_CLIPS, OVERLAP_EPOCHS = 630, 10, 2
+OVERLAP_STEPS, EVAL_WINDOWS, FEATURE_CHECK, PROFILE_STEPS = 3, 512, 256, 10
+CLI_SINGLES, CLI_MIXTURES, CLI_EPOCHS = 1024, 512, 3
 # H100 SXM peaks: device memory, TF32 on the tensor cores; an fp32 product
 # at fp32 accuracy is three TF32 ones (3xTF32)
 HBM_BYTES_S, TF32_FLOP_S, TF32_PER_FP32 = 3.35e12, 495e12, 3
@@ -385,11 +411,14 @@ def block_error(got, ref) -> tuple:
 
 
 def phase_block(device):
+    from mmla_audio_torch.core.config import OverlapTrainConfig
     from mmla_audio_torch.ops.cuda_resblock import (block_route,
                                                     fused_resblock_cuda,
                                                     fused_resblock_plain)
     from mmla_audio_torch.precision import fp32_policy
 
+    # overlap training's validation runs the block at eval_batch_size rows
+    batches = (1, 64) + POST_BATCHES + (OverlapTrainConfig().eval_batch_size,)
     rng = np.random.RandomState(5)
     worst = worst_rel = 0.0
     sums = dict(ms=0.0, plain_ms=0.0, unfused_ms=0.0, flop=0, bytes=0)
@@ -397,7 +426,7 @@ def phase_block(device):
         block = seeded_block(C, device, rng)
         ops = block.fused_operands()
         route = block_route(C)
-        for batch in (8,) if route == "ffma" else (1, 64) + POST_BATCHES:
+        for batch in (8,) if route == "ffma" else batches:
             x = torch.from_numpy(rng.randn(batch, C, H, W).astype(np.float32)
                                  ).to(device)
             reps = 20 if batch <= 64 else 5
@@ -1162,6 +1191,450 @@ def phase_training(device, cfg, noise, tmp: Path) -> None:
         f"{no_launches('the training path')}")
 
 
+def profile_steps(run, steps: int) -> dict:
+    """Warm ``run`` (which does ``steps`` steps) up, time it on the host
+    clock (synchronized), then trace it with ``torch.profiler``: the
+    device's busy time a step (the union of its kernels' and copies'
+    intervals, user annotations left out), the idle share (1 - busy /
+    host time), the launches a step and the five kernels of most device
+    time.  ``busy_ms`` is None when the trace holds no device events."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    spans, names, kinds = [], Counter(), Counter()
+    for evt in prof.events():
+        # record_function ranges (Optimizer.step, ...) also appear on the
+        # device timeline; they are not work of the device
+        if evt.device_type == DeviceType.CUDA and not evt.is_user_annotation:
+            spans.append((evt.time_range.start, evt.time_range.end))
+            names[evt.name] += evt.time_range.elapsed_us()
+            kinds[kernel_kind(evt.name)] += evt.time_range.elapsed_us()
+    out = dict(host_ms=host_ms, busy_ms=None, idle=None,
+               launches=len(spans) / steps, top=[], kinds=[])
+    if spans:
+        busy, end = 0, -1
+        for a, b in sorted(spans):
+            busy += max(0, b - max(a, end))
+            end = max(end, b)
+        out["busy_ms"] = busy / 1e3 / steps
+        out["idle"] = 1 - out["busy_ms"] / host_ms
+        out["top"] = [(n, us / 1e3 / steps) for n, us in names.most_common(5)]
+        out["kinds"] = [(k, us / 1e3 / steps) for k, us in kinds.most_common()]
+    return out
+
+
+# substrings of device-event names -> a kind of work, first match wins
+KERNEL_KINDS = (("convolution", ("conv", "dgrad", "wgrad", "xmma",
+                                 "implicit")),
+                ("LSTM", ("lstm", "rnn", "LSTM", "RNN")),
+                ("GEMM", ("gemm", "cutlass", "cublas")),
+                ("reduction", ("reduce",)),
+                ("elementwise", ("elementwise", "unrolled", "vectorized")),
+                ("copy", ("Memcpy", "Memset", "copy", "Copy")))
+
+
+def kernel_kind(name: str) -> str:
+    for kind, keys in KERNEL_KINDS:
+        if any(k in name for k in keys):
+            return kind
+    return "other"
+
+
+def adadelta_noise_bound(lrs, rho: float = 0.95, eps: float = 1e-7) -> float:
+    """The most two runs of Keras Adadelta steps at the rates ``lrs`` can
+    move a parameter apart, whatever its gradients: a step is lr * g *
+    sqrt(acc_delta + eps) / sqrt(acc + eps) with acc >= (1 - rho) g^2, so
+    at most lr * sqrt((acc_delta + eps) / (1 - rho)), acc_delta growing
+    with the steps it bounds (tests/test_torch_overlap_trainer.py holds
+    JAX's training against the port by it)."""
+    acc_delta, total = 0.0, 0.0
+    for lr in lrs:
+        step = np.sqrt((acc_delta + eps) / (1.0 - rho))
+        total += lr * step
+        acc_delta = rho * acc_delta + (1.0 - rho) * step * step
+    return 2.0 * total
+
+
+def speaker_clips(speaker: int, n_clips: int) -> np.ndarray:
+    """``n_clips`` single-speaker 1.5 s clips of one seeded voice, a
+    ``voice`` cut in pieces: ``(n_clips, 24000)`` int16."""
+    return voice(1.5 * n_clips, speaker, seed=5000 + speaker).reshape(
+        n_clips, -1)
+
+
+def overlap_corpus(cfg) -> tuple:
+    """The reference's corpus composition from seeded voices: 6,300 single
+    clips (630 voices x 10 clips; made in a pool of processes, the host's
+    numpy being the slow part) and 6,300 ``synthesize_corpus`` mixtures of
+    them through the ``sink``.  -> ``(clips (630, 10, n) int16, mixtures
+    (6300, n) int16, plan)``."""
+    import concurrent.futures
+    import multiprocessing
+    import os
+
+    from mmla_audio_torch.data.synth import synthesize_corpus
+
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=min(8, os.cpu_count() or 1), mp_context=ctx) as pool:
+        clips = np.stack(list(pool.map(
+            speaker_clips, range(OVERLAP_SPEAKERS),
+            [OVERLAP_CLIPS] * OVERLAP_SPEAKERS, chunksize=16)))
+    n = cfg.overlap_feature.n_samples
+    mixtures = np.zeros((OVERLAP_SPEAKERS * OVERLAP_CLIPS, n), np.int16)
+
+    def sink(i, mix):
+        mixtures[i, :len(mix)] = mix
+
+    plan = synthesize_corpus(lambda sp, sm: (clips[sp, sm], f"spk{sp}"),
+                             n_mixtures=len(mixtures),
+                             n_speakers=OVERLAP_SPEAKERS,
+                             clips_per_speaker=OVERLAP_CLIPS, seed=0,
+                             sink=sink)
+    return clips, mixtures, plan
+
+
+def overlap_dead_bias(key: str) -> bool:
+    """A residual block's ``conv0`` bias: it feeds only the train-mode
+    ``bn1``, so its exact gradient is zero."""
+    return key.startswith("blocks.") and key.endswith("conv0.bias")
+
+
+def phase_overlap_steps(device, cfg, feats, y, trained) -> None:
+    """Card against CPU: ``OVERLAP_STEPS`` train steps at b32, full width,
+    dropout 0, the same Keras init and rows, the card's features copied to
+    the CPU; then one evaluation of ``EVAL_WINDOWS`` windows of the trained
+    model's variables ``trained``, the fused block on the card against the
+    CPU's unfused path."""
+    import dataclasses
+
+    from mmla_audio_torch.models.overlap import OverlapResBLSTM, keras_init_
+    from mmla_audio_torch.ops.cuda_resblock import fused_resblock_cuda
+    from mmla_audio_torch.precision import fp32_policy
+    from mmla_audio_torch.train.losses import (
+        cal_weighted_penalty, weighted_categorical_crossentropy)
+    from mmla_audio_torch.train.optimizers import adadelta
+    from mmla_audio_torch.train.schedules import cosine_annealing
+    from mmla_audio_torch.train.trainer import Trainer
+
+    tcfg, b = cfg.overlap_train, cfg.overlap_train.batch_size
+    no_drop = dataclasses.replace(cfg.overlap_model, dropout=0.0)
+    lr = cosine_annealing(tcfg.cosine_t_max, tcfg.cosine_eta_max,
+                          tcfg.cosine_eta_min)(0)
+    rows = np.random.RandomState(5).permutation(len(y))
+    idx = torch.from_numpy(rows[:OVERLAP_STEPS * b]).to(device)
+    x_card = feats[idx]
+    y_rows = y[rows[:OVERLAP_STEPS * b]]
+    weights = cal_weighted_penalty(y)
+    runs = []
+    for dev, x in ((device, x_card), (torch.device("cpu"), x_card.cpu())):
+        model = keras_init_(OverlapResBLSTM(no_drop),
+                            torch.Generator().manual_seed(0))
+        tr = Trainer(model, adadelta(lr), lambda lg, t:
+                     weighted_categorical_crossentropy(lg, t, weights),
+                     device=dev)
+        yt = torch.from_numpy(y_rows).to(dev)
+        losses = [float(tr.train_step(x[i * b:(i + 1) * b],
+                                      yt[i * b:(i + 1) * b],
+                                      torch.ones(b, device=dev))[0])
+                  for i in range(OVERLAP_STEPS)]
+        runs.append((losses, tr.variables_of()))
+    (lc, sc), (l0, s0) = runs
+    rel = max(abs(a - c) / abs(c) for a, c in zip(lc, l0))
+    noise_limit = adadelta_noise_bound([lr] * OVERLAP_STEPS)
+    worst, worst_key, noise = 0.0, None, 0.0
+    for k, ref in s0.items():
+        if not ref.is_floating_point():
+            continue
+        diff = float((sc[k] - ref).abs().max())
+        if overlap_dead_bias(k):
+            noise = max(noise, diff)
+            continue
+        scale = float(ref.abs().max())
+        # bn1's running mean takes 1 % a step of its batch mean, the dead
+        # conv0 bias included
+        extra = 0.01 * OVERLAP_STEPS * noise_limit \
+            if k.endswith("bn1.running_mean") else 0.0
+        if diff > PARAM_RTOL * scale + extra:
+            raise AssertionError(f"overlap train card vs CPU: {k} max |diff| "
+                                 f"{diff} > {PARAM_RTOL} x {scale} + {extra}")
+        if scale and diff / scale > worst:
+            worst, worst_key = diff / scale, k
+    if rel > TRAIN_LOSS_RTOL or noise > noise_limit:
+        raise AssertionError(f"overlap train card vs CPU: losses {lc} vs "
+                             f"{l0}, dead-bias |diff| {noise} > "
+                             f"{noise_limit}")
+    log(f"[overlap] {OVERLAP_STEPS} train steps b{b} card vs CPU (full "
+        f"width, dropout 0, lr {lr}): losses {[round(v, 6) for v in lc]}, "
+        f"worst relative difference {rel:.3g} (limit {TRAIN_LOSS_RTOL}); "
+        f"parameters and batch statistics within {worst:.3g} of each leaf's "
+        f"max |value| (limit {PARAM_RTOL}; worst {worst_key}), conv0 biases "
+        f"within {noise:.3g} (limit {noise_limit:.3g}: their exact gradient "
+        f"is zero)")
+
+    ev = torch.from_numpy(rows[-EVAL_WINDOWS:]).to(device)
+    x_eval = feats[ev]
+    probs, fused = [], []
+    for dev, x in ((device, x_eval), (torch.device("cpu"), x_eval.cpu())):
+        model = OverlapResBLSTM(cfg.overlap_model)
+        model.load_state_dict(trained)
+        model = model.to(dev).eval()
+        before = fused_resblock_cuda.launches_mma
+        with torch.no_grad(), fp32_policy(False):
+            probs.append(torch.softmax(model(x), -1).cpu().numpy())
+        fused.append(fused_resblock_cuda.launches_mma - before)
+    blocks = len(cfg.overlap_model.stage_filters) * (
+        cfg.overlap_model.blocks_per_stage - 1)
+    if fused != [blocks, 0]:
+        raise AssertionError(f"evaluation launched the fused block {fused} "
+                             f"times (card, CPU), want {[blocks, 0]}")
+    pc, p0 = probs
+    clear, n = compare_labels("overlap evaluation", pc.argmax(1),
+                              p0.argmax(1), p0)
+    perr = float(np.abs(pc - p0).max())
+    if not perr <= PROB_ATOL:
+        raise AssertionError(f"overlap evaluation card vs CPU: max |dprob| "
+                             f"{perr} > {PROB_ATOL}")
+    log(f"[overlap] evaluation of {EVAL_WINDOWS} windows by the trained "
+        f"model, fused block on the card vs unfused on the CPU: labels equal "
+        f"where the CPU's top-2 probability margin > {TOP2_MARGIN} "
+        f"({clear}/{n}); max |dprob| {perr:.3g} (atol {PROB_ATOL})")
+
+
+def phase_overlap_rebalance(device, feats, y) -> None:
+    """``augment_to_balance`` of a 2:1 subset on the card against the
+    CPU."""
+    from mmla_audio_torch.train.overlap_trainer import augment_to_balance
+
+    single = np.where(y[:, 0] == 1)[0][:128]
+    over = np.where(y[:, 1] == 1)[0][:64]
+    rows = np.concatenate([single, over])
+    x = feats[torch.from_numpy(rows).to(device)]
+    (xc, yc), (x0, y0) = (augment_to_balance(x, y[rows]),
+                          augment_to_balance(x.cpu(), y[rows]))
+    err = float((xc.cpu() - x0).abs().max())
+    if not (np.array_equal(yc, y0) and yc.sum(0).tolist() == [128, 128]
+            and xc.is_cuda and err <= 1e-4):
+        raise AssertionError(f"rebalancing card vs CPU: counts "
+                             f"{yc.sum(0)}, max |diff| {err}")
+    log(f"[overlap] rebalancing 128 + 64 windows on the card: 64 blurred "
+        f"copies, 128 + 128 rows; max |diff| vs the CPU {err:.3g} (limit "
+        f"1e-4)")
+
+
+def phase_overlap_cli(tmp: Path, cfg, clips: np.ndarray, noise,
+                      recording: np.ndarray) -> None:
+    """``synth-corpus`` over a flat WAV directory of ``CLI_SINGLES``
+    corpus clips, ``overlap-train --augmented --out D`` on them and the
+    mixtures, and ``overlap-post --weights D/variables.npz`` on a
+    recording: its labels equal the CPU's of the same checkpoint where the
+    CPU's top-2 margin is clear."""
+    from mmla_audio_torch.analyze.logs import parse_log
+    from mmla_audio_torch.analyze.post_time import overlap_post_analyze
+    from mmla_audio_torch.data.wavio import write_wav
+    from mmla_audio_torch.inference import OverlapPredictor
+    from mmla_audio_torch.params import (load_overlap_npz,
+                                         overlap_state_dict_from_jax)
+
+    sr = cfg.audio.sample_rate
+    singles, mixes, model = (tmp / d for d in ("overlap_singles",
+                                               "overlap_mixes",
+                                               "overlap_model"))
+    flat = clips.reshape(-1, clips.shape[-1])
+    for k in range(CLI_SINGLES):
+        write_wav(singles / f"spk{k // OVERLAP_CLIPS:03d}_"
+                  f"{k % OVERLAP_CLIPS}.wav", flat[k], sr)
+    t0 = time.perf_counter()
+    out = run_cli(["synth-corpus", "--wav-dir", singles, "--out-dir", mixes,
+                   "--n-mixtures", CLI_MIXTURES], "synth-corpus")
+    synth_s = time.perf_counter() - t0
+    if len(list(mixes.glob("Overlap*.wav"))) != CLI_MIXTURES:
+        raise AssertionError(f"synth-corpus wrote too few mixtures:\n{out}")
+    t0 = time.perf_counter()
+    out = run_cli(["overlap-train", "--single-dir", singles, "--overlap-dir",
+                   mixes, "--epochs", CLI_EPOCHS, "--augmented", "--out",
+                   model], "overlap-train")
+    train_s = time.perf_counter() - t0
+    if "[RESULT] test accuracy: " not in out or \
+            not (model / "variables.npz").exists():
+        raise AssertionError(f"overlap-train: no result or checkpoint:\n"
+                             f"{out}")
+    log(f"[overlap] cli: synth-corpus of {CLI_MIXTURES} mixtures in "
+        f"{synth_s:.1f} s, overlap-train of {CLI_SINGLES} + {CLI_MIXTURES} "
+        f"windows, {CLI_EPOCHS} epochs, --augmented in {train_s:.1f} s "
+        f"(fresh processes): " + " | ".join(
+            ln.replace("\n", " ") for ln in out.splitlines()
+            if ln.startswith(("[TIME]", "[RESULT]", "epoch", " [", "[["))))
+    weights = model / "variables.npz"
+    name = "audio_conv0"
+    cli_root, cpu_root = tmp / "overlap_post_cli", tmp / "overlap_post_cpu"
+    write_experiment(cli_root, {name: recording}, noise, sr)
+    dirs = write_experiment(cpu_root, {name: recording}, noise, sr)
+    out = run_cli(["overlap-post", "--root", cli_root, "--weights", weights,
+                   "--precision", "highest"], "overlap-post")
+    state_dict = overlap_state_dict_from_jax(
+        load_overlap_npz(weights, cfg.overlap_model), cfg.overlap_model)
+    pred = ProbsTap(OverlapPredictor(state_dict, cfg.overlap_model,
+                                     device="cpu",
+                                     matmul_precision="highest"))
+    overlap_post_analyze(dirs, pred, cfg=cfg, noise=noise)
+    got = [r[1] for r in parse_log(cli_root / "logs" / f"{name}.txt")]
+    ref = [r[1] for r in parse_log(cpu_root / "logs" / f"{name}.txt")]
+    clear = clear_rows(pred.probs[0])
+    if len(got) != len(ref) or not all(
+            a == b for a, b, c in zip(got, ref, clear) if c):
+        raise AssertionError(f"overlap-post of the trained checkpoint: card "
+                             f"{got} vs CPU {ref}")
+    log(f"[overlap] cli: overlap-post --weights {weights.name} of the "
+        f"trained checkpoint: {len(got)} windows, labels == the CPU's where "
+        f"the top-2 margin > {TOP2_MARGIN} ({int(clear.sum())}/{len(got)}); "
+        + " | ".join(ln for ln in out.splitlines()
+                     if ln.startswith("[TIME]")))
+
+
+def phase_overlap_training(device, cfg, noise, tmp: Path, clips) -> dict:
+    """Overlap-detector training at the full width of
+    ``OverlapModelConfig()`` on the reference's corpus composition: the
+    featurizer kernel builds the 12,600-window corpus in one call,
+    ``OverlapTrainer.train`` runs ``OVERLAP_EPOCHS`` epochs at b32, and the
+    fused block runs each epoch's validation, never a train step.  Returns
+    the launches of that run, counted from 0."""
+    import dataclasses
+
+    from mmla_audio_torch.ops.cuda_features import overlap_model_input_cuda
+    from mmla_audio_torch.ops.cuda_resblock import fused_resblock_cuda
+    from mmla_audio_torch.ops.features import overlap_model_input
+    from mmla_audio_torch.train.overlap_trainer import OverlapTrainer
+    from mmla_audio_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    corpus_clips, mixtures, plan = overlap_corpus(cfg)
+    singles = corpus_clips.reshape(-1, corpus_clips.shape[-1])
+    audio = np.concatenate([singles, mixtures]).astype(np.float32) / 32768.0
+    y = np.eye(2, dtype=np.float32)[[0] * len(singles) + [1] * len(mixtures)]
+    speakers = [len(e.speaker_ids) for e in plan]
+    log(f"[overlap] corpus: {len(singles)} single clips of "
+        f"{OVERLAP_SPEAKERS} seeded voices and {len(mixtures)} mixtures "
+        f"({speakers.count(2)}/{speakers.count(3)}/{speakers.count(4)}/"
+        f"{speakers.count(5)} of 2/3/4/5 speakers) in "
+        f"{time.perf_counter() - t0:.1f} s (host)")
+    tcfg = dataclasses.replace(cfg.overlap_train, epochs=OVERLAP_EPOCHS)
+    trainer = OverlapTrainer(cfg.overlap_model, tcfg, device=device)
+    steps = []
+    train_step = Trainer.train_step
+
+    def timed_step(self, *args):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        events[0].record()
+        out = train_step(self, *args)
+        events[1].record()
+        steps.append(events)
+        return out
+
+    zero_launch_counters()
+    y_dev = torch.from_numpy(audio).to(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    events[0].record()
+    feats = overlap_model_input_cuda(y_dev, cfg.overlap_feature)
+    events[1].record()
+    Trainer.train_step = timed_step
+    try:
+        _, hist, (x_test, _) = trainer.train(feats, y, weighted=True,
+                                             augmented=False, seed=0)
+    finally:
+        Trainer.train_step = train_step
+    launches = (overlap_model_input_cuda.launches,
+                fused_resblock_cuda.launches_mma)
+    trained = trainer.trainer.variables_of()
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    featurize_ms = events[0].elapsed_time(events[1])
+    # the path's call is the process's first launch at this batch; warm
+    featurize_warm = time_ms(overlap_model_input_cuda, y_dev,
+                             cfg.overlap_feature, reps=2, rounds=3)
+    chunks = -(-len(x_test) // tcfg.eval_batch_size)
+    blocks = len(cfg.overlap_model.stage_filters) * (
+        cfg.overlap_model.blocks_per_stage - 1)
+    want = (1, blocks * chunks * len(hist["loss"]))
+    if launches != want or fused_resblock_cuda.launches != want[1] or \
+            len(hist["loss"]) != OVERLAP_EPOCHS or \
+            not np.isfinite(hist["loss"] + hist["val_loss"]).all():
+        raise AssertionError(f"overlap training: launches (featurizer, fused "
+                             f"block) {launches}, want {want}; history "
+                             f"{hist}")
+    per_epoch = len(steps) // OVERLAP_EPOCHS
+    step_ms = statistics.median(a.elapsed_time(b)
+                                for a, b in steps[per_epoch:])
+    r = trainer.report
+    log(f"[overlap] featurizer kernel over all {len(audio)} windows in one "
+        f"call: {featurize_ms:.3f} ms (CUDA events; warm "
+        f"{featurize_warm:.3f} ms), bound "
+        f"{featurizer_bound(len(audio))['bound_ms']:.4f} ms; "
+        f"{OVERLAP_EPOCHS} epochs of {per_epoch} steps b{tcfg.batch_size} "
+        f"over {per_epoch * tcfg.batch_size} padded rows: step median "
+        f"{step_ms:.3f} ms (CUDA events, epoch 2), epochs "
+        f"{[round(v, 3) for v in r['epoch_s']]} s (host clock), validation "
+        f"of {len(x_test)} windows {[round(v * 1e3, 1) for v in r['val_s']]} "
+        f"ms in {chunks} chunks; launches: featurizer {launches[0]}, fused "
+        f"block {launches[1]} (= {blocks} x {chunks} chunks x "
+        f"{len(hist['loss'])} validations, none in the "
+        f"{len(steps)} train steps); peak memory {peak_gib:.2f} GiB; loss "
+        f"{[round(v, 5) for v in hist['loss']]}, val acc "
+        f"{[round(v, 4) for v in hist['val_acc']]}")
+    sub = torch.from_numpy(np.random.RandomState(3).choice(
+        len(audio), FEATURE_CHECK, replace=False)).to(device)
+    err, share = check_budget(f"featurizer on {FEATURE_CHECK} corpus windows",
+                              feats[sub],
+                              overlap_model_input(y_dev[sub],
+                                                  cfg.overlap_feature))
+    log(f"[overlap] featurizer vs plain on {FEATURE_CHECK} corpus windows: "
+        f"max |diff| {err} on {share:.4%} of pixels")
+    del y_dev
+
+    b = tcfg.batch_size
+    order = torch.from_numpy(np.random.RandomState(4).permutation(
+        len(y))[:PROFILE_STEPS * b]).to(device)
+    yt, ones = torch.from_numpy(y).to(device), torch.ones(b, device=device)
+    tr = trainer.trainer
+
+    def run():
+        for i in range(PROFILE_STEPS):
+            idx = order[i * b:(i + 1) * b]
+            tr.train_step(feats[idx], yt[idx], ones)
+    prof = profile_steps(run, PROFILE_STEPS)
+    busy = "not measured (no device events in the trace)" \
+        if prof["busy_ms"] is None else \
+        (f"device busy {prof['busy_ms']:.3f} ms (idle share "
+         f"{prof['idle']:.3f}); top kernels (ms a step): " + ", ".join(
+             f"{n[:50]} {ms:.3f}" for n, ms in prof["top"]))
+    log(f"[overlap] profile of {PROFILE_STEPS} train steps b{b}: host "
+        f"{prof['host_ms']:.3f} ms a step; {busy}; by kind (ms a step): "
+        + ", ".join(f"{k} {ms:.3f}" for k, ms in prof["kinds"])
+        + f"; {prof['launches']:.1f} launches a step")
+
+    phase_overlap_steps(device, cfg, feats, y, trained)
+    phase_overlap_rebalance(device, feats, y)
+    del feats, x_test, trainer, tr
+    torch.cuda.empty_cache()
+    phase_overlap_cli(tmp, cfg, corpus_clips, noise, clips["audio_conv0"])
+    log(f"[overlap] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return dict(featurizer=launches[0], block=launches[1])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1252,23 +1725,27 @@ def main() -> int:
                           clips)
         phase_speaker(device, cfg, noise, Path(tmp), clips)
         phase_training(device, cfg, noise, Path(tmp))
+        overlap = phase_overlap_training(device, cfg, noise, Path(tmp), clips)
 
     def entry(name, source, replaces, n, measured):
         return {"name": name, "route": "cuda",
                 "source": f"mmla_audio_torch/csrc/{source}",
                 "replaces": replaces, "launches": n, **measured}
 
-    # launches: the session's and the post-time pass's, each counted from 0
+    # launches: the session's, the post-time pass's and overlap training's,
+    # each counted from 0
     log(json.dumps({"kernels": [
         entry("overlap_features", "overlap_features.cu",
               "mmla_audio_tpu/ops/pallas_features.py:44",
-              launches + post["launches"][0], feat[1]),
+              launches + post["launches"][0] + overlap["featurizer"],
+              feat[1]),
         entry("overlap_features_grouped", "overlap_features.cu",
               "mmla_audio_tpu/ops/pallas_features.py:90",
               post["launches"][1], grouped),
         entry("fused_resblock", "fused_resblock.cu",
               "benchmarks/fused_block_probe.py:64",
-              block_launches + post["launches"][2], block),
+              block_launches + post["launches"][2] + overlap["block"],
+              block),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

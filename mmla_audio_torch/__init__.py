@@ -15,7 +15,10 @@ block (CUDA kernels on the card), ``OverlapResBLSTM``, ``OverlapPredictor``,
 ``OverlapSession``; speaker identification, live and post-time — MFCC-39,
 ``SpeakerResBLSTM``, ``SpeakerPredictor``, ``SpeakerSession``; speaker
 training — registration (the two-phase transfer fine-tune) and the
-base-model pretrain (``train/``); and the CLI's ``setup``,
-``overlap-live``/``speaker-live --fake`` (``--register``), ``overlap-run``,
-``overlap-post``, ``speaker-post``, ``speaker-pretrain`` and ``charts``.
+base-model pretrain (``train/``); overlap-detector training — corpus
+synthesis, the image dataset, pyramid rebalancing and ``OverlapTrainer``;
+the accuracy sweep; and the CLI's ``setup``, ``overlap-live``/
+``speaker-live --fake`` (``--register``), ``overlap-run``,
+``overlap-post``, ``speaker-post``, ``speaker-pretrain``,
+``synth-corpus``, ``overlap-train`` and ``charts``.
 """

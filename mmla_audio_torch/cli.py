@@ -7,6 +7,8 @@
     python -m mmla_audio_torch.cli overlap-post --root experiment [--vad energy|webrtc]
     python -m mmla_audio_torch.cli speaker-post --root experiment [--vad energy|webrtc]
     python -m mmla_audio_torch.cli speaker-pretrain --wav-dir DIR --out OUT [--epochs N]
+    python -m mmla_audio_torch.cli synth-corpus --wav-dir DIR --out-dir OUT [--n-mixtures N]
+    python -m mmla_audio_torch.cli overlap-train --single-dir S --overlap-dir O [--out D] [--epochs N] [--augmented]
     python -m mmla_audio_torch.cli charts       --root experiment [--kind overlap|speaker]
 
 ``--weights PATH.npz`` loads the model from the flat ``.npz`` that
@@ -20,6 +22,12 @@ sigmoid head when there is one, as the JAX CLI does.  ``speaker-live
 ``experiment/model/variables.npz``, which ``speaker-post --weights`` reads;
 ``speaker-pretrain`` trains a base model from a directory of
 ``<speaker>_<clip>.wav`` files into ``OUT/variables.npz``.
+``synth-corpus`` mixes such clips into ``Overlap<i>.wav`` files and their
+``augmented_labels.csv`` (numpy on the host); ``overlap-train`` featurizes
+single-speaker and overlapped WAVs in one call on the device and trains the
+overlap detector, its best checkpoint (by validation accuracy) in
+``D/variables.npz``, which ``overlap-run``/``overlap-post --weights``
+read.
 ``--precision``: ``default`` (alias ``auto``) is each model's own default,
 ``highest`` IEEE fp32 everywhere, ``fast`` TF32 in the models (for
 registration, in training too).  ``--device`` defaults to ``cuda``; a run
@@ -326,6 +334,81 @@ def cmd_speaker_pretrain(args):
     print(f"[INFO] saved base model to {Path(args.out) / 'variables.npz'}")
 
 
+def cmd_synth_corpus(args):
+    """Mix the clips of a TIMIT layout or a flat ``<speaker>_<clip>.wav``
+    directory into ``--n-mixtures`` overlapped windows and their labels
+    CSV."""
+    import csv
+
+    from mmla_audio_torch.data.synth import synthesize_corpus
+    from mmla_audio_torch.data.timit import TimitCatalog
+
+    catalog = TimitCatalog.from_flat_dir(args.wav_dir) if not args.labels_csv \
+        else TimitCatalog.from_labels_csv(args.labels_csv, args.wav_dir)
+    if not catalog.n_speakers:
+        raise SystemExit(f"synth-corpus: no clips under {args.wav_dir}")
+    t0 = time.perf_counter()
+    plan = synthesize_corpus(
+        catalog.clip_loader, n_mixtures=args.n_mixtures,
+        n_speakers=catalog.n_speakers, out_dir=args.out_dir, seed=args.seed)
+    with open(Path(args.out_dir) / "augmented_labels.csv", "w",
+              newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["index", "speaker_ids", "overlap_degree"])
+        for e in plan:
+            w.writerow([e.index, "_".join(e.speaker_ids), e.label])
+    print(f"[TIME] synth-corpus: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    print(f"[INFO] wrote {len(plan)} mixtures to {args.out_dir}")
+
+
+def cmd_overlap_train(args):
+    """Train the overlap detector from WAV directories (singles label 0,
+    mixtures label 1): the first 1.5 s of each file (``sig[:24000] /
+    32768``, zero-padded; no denoise, no VAD) featurized in one call on the
+    device, where the corpus stays; the stratified split, weighted CCE,
+    Adadelta under the cosine lr; prints the test split's accuracy and
+    confusion matrix."""
+    from mmla_audio_torch.data.wavio import read_wav
+    from mmla_audio_torch.ops.cuda_features import overlap_model_input_cuda
+    from mmla_audio_torch.train.overlap_trainer import OverlapTrainer
+
+    cfg = PipelineConfig()
+    device = _device(args)
+    n = cfg.overlap_feature.n_samples
+    sigs, labels = [], []
+    for label, d in ((0, args.single_dir), (1, args.overlap_dir)):
+        for p in sorted(Path(d).glob("*.wav")):
+            sigs.append(read_wav(p)[0][:n])
+            labels.append(label)
+    if not sigs:
+        raise SystemExit("overlap-train: no .wav files under "
+                         f"{args.single_dir} or {args.overlap_dir}")
+    buf = np.zeros((len(sigs), n), np.float32)
+    for i, sig in enumerate(sigs):
+        buf[i, :len(sig)] = sig.astype(np.float32) / 32768.0
+    t0 = time.perf_counter()
+    feats = overlap_model_input_cuda(torch.from_numpy(buf).to(device),
+                                     cfg.overlap_feature)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    print(f"[TIME] featurize: {(time.perf_counter() - t0) * 1e3:.1f} ms "
+          f"({len(sigs)} windows)")
+    y = np.eye(2, dtype=np.float32)[labels]
+    trainer = OverlapTrainer(cfg.overlap_model, dataclasses.replace(
+        cfg.overlap_train, epochs=args.epochs, batch_size=args.batch_size),
+        device=device)
+    t0 = time.perf_counter()
+    state, _, (x_test, y_test) = trainer.train(
+        feats, y, weighted=True, augmented=args.augmented,
+        checkpoint_dir=args.out, seed=args.seed, verbose=True)
+    print(f"[TIME] overlap-train: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    ev = trainer.evaluation(state, x_test, y_test)
+    print(f"[RESULT] test accuracy: {ev['accuracy']:.4f}")
+    print(f"[RESULT] confusion:\n{ev['confusion']}")
+    if args.out:
+        print(f"[INFO] best checkpoint at {args.out}")
+
+
 def cmd_charts(args):
     from mmla_audio_torch.analyze.charts import visualize_all
     from mmla_audio_torch.utils.experiment import ExperimentDirs
@@ -418,6 +501,29 @@ def main(argv=None):
                    help="torch device (default cuda; pass cpu to run "
                         "without a card)")
     p.set_defaults(fn=cmd_speaker_pretrain)
+
+    p = sub.add_parser("synth-corpus")
+    p.add_argument("--wav-dir", required=True)
+    p.add_argument("--labels-csv", default=None)
+    p.add_argument("--out-dir", required=True)
+    p.add_argument("--n-mixtures", type=int, default=6300)
+    p.add_argument("--seed", type=int, default=0)
+    p.set_defaults(fn=cmd_synth_corpus)
+
+    p = sub.add_parser("overlap-train")
+    p.add_argument("--single-dir", required=True)
+    p.add_argument("--overlap-dir", required=True)
+    p.add_argument("--out", default=None)
+    p.add_argument("--epochs", type=int, default=100)
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--augmented", action="store_true")
+    p.add_argument("--seed", type=int, default=0,
+                   help="seed of the Keras init, the permutations and the "
+                        "dropout masks")
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda; pass cpu to run "
+                        "without a card)")
+    p.set_defaults(fn=cmd_overlap_train)
 
     p = sub.add_parser("charts")
     p.add_argument("--root", default="experiment")

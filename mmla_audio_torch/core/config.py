@@ -5,7 +5,7 @@ The port runs where the JAX package cannot be imported, so it carries its own
 copy of the configuration it uses.  Every class here has the same fields and
 defaults as its JAX counterpart (pinned by ``tests/test_torch_inference.py``);
 ``PipelineConfig`` holds only the parts the overlap and speaker serving
-paths and speaker training read.
+paths and the two models' training read.
 """
 
 from __future__ import annotations
@@ -15,8 +15,8 @@ from typing import Optional, Tuple
 
 __all__ = ["AudioConfig", "OverlapFeatureConfig", "SpeakerFeatureConfig",
            "VadConfig", "DenoiseConfig", "OverlapModelConfig",
-           "SpeakerModelConfig", "SpeakerTrainConfig", "TransferConfig",
-           "PipelineConfig"]
+           "SpeakerModelConfig", "OverlapTrainConfig", "SpeakerTrainConfig",
+           "TransferConfig", "PipelineConfig"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,6 +189,24 @@ class SpeakerModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class OverlapTrainConfig:
+    """Overlap-detector training: Adadelta 1e-3 under an epoch-indexed
+    cosine annealing from 1e-2 to 1e-4, early stopping, weighted CCE;
+    ``eval_batch_size`` bounds the rows of one evaluation chunk."""
+
+    optimizer: str = "adadelta"
+    lr: float = 1e-3
+    cosine_t_max: int = 100
+    cosine_eta_max: float = 1e-2
+    cosine_eta_min: float = 1e-4
+    early_stop_patience: int = 10
+    epochs: int = 100
+    batch_size: int = 32
+    weighted_loss: bool = True
+    eval_batch_size: int = 512
+
+
+@dataclasses.dataclass(frozen=True)
 class SpeakerTrainConfig:
     """Base-model pretrain: RMSprop 1e-4, batch 32, early stopping on the
     validation loss."""
@@ -217,7 +235,8 @@ class TransferConfig:
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """What an overlap or speaker session, and speaker training, need."""
+    """What an overlap or speaker session, and the training of either
+    model, need."""
 
     audio: AudioConfig = AudioConfig()
     overlap_feature: OverlapFeatureConfig = OverlapFeatureConfig()
@@ -226,5 +245,6 @@ class PipelineConfig:
     denoise: DenoiseConfig = DenoiseConfig()
     overlap_model: OverlapModelConfig = OverlapModelConfig()
     speaker_model: SpeakerModelConfig = SpeakerModelConfig()
+    overlap_train: OverlapTrainConfig = OverlapTrainConfig()
     speaker_train: SpeakerTrainConfig = SpeakerTrainConfig()
     transfer: TransferConfig = TransferConfig()

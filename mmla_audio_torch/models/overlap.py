@@ -4,7 +4,8 @@
 Conv2D(16, k1) stem; 3 stages x 3 pre-activation residual blocks (32/64/128
 filters; each stage's first block downsamples by 2 with a strided 1x1
 shortcut and a 2x2 max-pool on the main path; inner convs k3 then k(4,1));
-mean over the mel axis; Bidirectional LSTM(256); Dropout 0.25; LeakyReLU;
+mean over the mel axis; Bidirectional LSTM(256); Dropout 0.25
+(``SeededDropout``: a trainer's generator draws its masks); LeakyReLU;
 Dense.  Input is the feature image ``(B, 128, 151, 3)`` in 0..255, as in
 JAX; internally NCHW.  Geometry: 128x151 -> 64x76 -> 32x38 -> 16x19 ->
 (B, 19, 128) -> BiLSTM -> (B, 512).
@@ -26,7 +27,8 @@ from torch import nn
 
 from mmla_audio_torch.core.config import OverlapModelConfig
 from mmla_audio_torch.models.layers import (BiLSTM, KerasBatchNorm,
-                                            keras_init_, leaky_relu)
+                                            SeededDropout, keras_init_,
+                                            leaky_relu)
 from mmla_audio_torch.ops.cuda_resblock import fold_bn, fused_resblock_cuda
 
 __all__ = ["ResBlock2D", "OverlapResBLSTM", "keras_init_"]
@@ -111,14 +113,18 @@ class OverlapResBLSTM(nn.Module):
                 ch = f
         self.blocks = nn.Sequential(*blocks)
         self.bilstm = BiLSTM(ch, cfg.lstm_units)
-        self.dropout = nn.Dropout(cfg.dropout)
+        self.dropout = SeededDropout(cfg.dropout)
         self.head = nn.Linear(2 * cfg.lstm_units, cfg.num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """``x (B, 128, 151, 3)`` -> logits ``(B, num_classes)``."""
+        """``x (B, 128, 151, 3)`` -> logits ``(B, num_classes)``.  The
+        channels-first image is made contiguous (a no-op for the featurizer
+        kernel's output, a permuted view of it): from a channels-last image
+        the convolutions would keep the channels-last layout, which the
+        fused block refuses."""
         if self.cfg.input_scale != 1.0:
             x = x * self.cfg.input_scale
-        net = self.blocks(self.stem(x.permute(0, 3, 1, 2)))
+        net = self.blocks(self.stem(x.permute(0, 3, 1, 2).contiguous()))
         net = net.mean(dim=2).transpose(1, 2)        # mel-axis mean -> (B, T, C)
         net = leaky_relu(self.dropout(self.bilstm(net)))
         return self.head(net)

@@ -17,8 +17,9 @@ Layout changes: 2-D conv kernels HWIO -> OIHW, 1-D ones (K, Cin, Cout) ->
 in)); the Keras LSTM's single ``bias`` goes to ``bias_ih`` with ``bias_hh =
 0``; BatchNorm ``scale``/``bias``/``mean``/``var`` become
 ``weight``/``bias``/``running_mean``/``running_var``.
-``speaker_tree_from_state_dict`` is the inverse for a speaker model the port
-trained: it writes the LSTM's ``bias_ih + bias_hh`` as the Keras bias.
+``overlap_tree_from_state_dict`` and ``speaker_tree_from_state_dict`` are
+the inverses, for a model the port trained: they write the LSTM's
+``bias_ih + bias_hh`` as the Keras bias.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ import torch
 from mmla_audio_torch.core.config import OverlapModelConfig, SpeakerModelConfig
 
 __all__ = ["overlap_tree_shapes", "overlap_state_dict_from_jax",
-           "load_overlap_npz", "save_npz",
+           "overlap_tree_from_state_dict", "load_overlap_npz", "save_npz",
            "speaker_tree_shapes", "speaker_state_dict_from_jax",
            "speaker_tree_from_state_dict", "load_speaker_npz"]
 
@@ -219,6 +220,71 @@ def speaker_state_dict_from_jax(tree: Mapping[str, Any],
     return sd
 
 
+def _array(sd: Mapping[str, torch.Tensor], key: str) -> np.ndarray:
+    return sd[key].detach().to("cpu", torch.float32).clone().numpy()
+
+
+def _conv_tree(sd, prefix: str, axes: tuple) -> Dict[str, np.ndarray]:
+    """A torch convolution -> its Flax ``kernel``/``bias`` leaves; ``axes``
+    moves torch's (Cout, Cin, *K) to the Flax layout."""
+    return {"kernel": np.ascontiguousarray(
+                np.transpose(_array(sd, f"{prefix}.weight"), axes)),
+            "bias": _array(sd, f"{prefix}.bias")}
+
+
+def _bn_tree(sd, prefix: str) -> tuple:
+    """A ``KerasBatchNorm*`` -> its (params, batch_stats) leaves."""
+    return ({"BatchNorm_0": {"scale": _array(sd, f"{prefix}.weight"),
+                             "bias": _array(sd, f"{prefix}.bias")}},
+            {"BatchNorm_0": {"mean": _array(sd, f"{prefix}.running_mean"),
+                             "var": _array(sd, f"{prefix}.running_var")}})
+
+
+def _lstm_tree(sd, prefix: str) -> Dict[str, Any]:
+    """``nn.LSTM(bidirectional)`` -> a Keras BiLSTM's two directions, the
+    Keras bias being ``bias_ih + bias_hh``."""
+    return {d: {"kernel": np.ascontiguousarray(
+                    _array(sd, f"{prefix}.weight_ih_l0{sfx}").T),
+                "recurrent_kernel": np.ascontiguousarray(
+                    _array(sd, f"{prefix}.weight_hh_l0{sfx}").T),
+                "bias": _array(sd, f"{prefix}.bias_ih_l0{sfx}")
+                + _array(sd, f"{prefix}.bias_hh_l0{sfx}")}
+            for d, sfx in (("forward", ""), ("backward", "_reverse"))}
+
+
+def _dense_tree(sd, prefix: str) -> Dict[str, np.ndarray]:
+    return {"kernel": np.ascontiguousarray(_array(sd, f"{prefix}.weight").T),
+            "bias": _array(sd, f"{prefix}.bias")}
+
+
+def overlap_tree_from_state_dict(sd: Mapping[str, torch.Tensor],
+                                 cfg: OverlapModelConfig = OverlapModelConfig()
+                                 ) -> Dict[str, Any]:
+    """``OverlapResBLSTM(cfg)`` state_dict -> the JAX model's variable tree
+    of float32 numpy arrays, the inverse of ``overlap_state_dict_from_jax``
+    (what ``save_npz`` writes and ``load_overlap_npz`` reads).  Checked
+    against ``overlap_tree_shapes``."""
+    params: Dict[str, Any] = {"stem": _conv_tree(sd, "stem", (2, 3, 1, 0))}
+    stats: Dict[str, Any] = {}
+    for name, i, _, _, pool in _blocks(cfg):
+        pre = f"blocks.{i}"
+        blk: Dict[str, Any] = {f"Conv_{j}": _conv_tree(sd, f"{pre}.conv{j}",
+                                                       (2, 3, 1, 0))
+                               for j in (0, 1)}
+        st: Dict[str, Any] = {}
+        for j in (0, 1):
+            blk[f"KerasBatchNorm_{j}"], st[f"KerasBatchNorm_{j}"] = \
+                _bn_tree(sd, f"{pre}.bn{j}")
+        if pool:
+            blk["shortcut"] = _conv_tree(sd, f"{pre}.shortcut", (2, 3, 1, 0))
+        params[name], stats[name] = blk, st
+    params["BiLSTM_0"] = _lstm_tree(sd, "bilstm.lstm")
+    params["head"] = _dense_tree(sd, "head")
+    tree = {"params": params, "batch_stats": stats}
+    _check(tree, overlap_tree_shapes(cfg))
+    return tree
+
+
 def speaker_tree_from_state_dict(sd: Mapping[str, torch.Tensor],
                                  cfg: SpeakerModelConfig = SpeakerModelConfig(),
                                  head_units: int | None = None
@@ -227,46 +293,23 @@ def speaker_tree_from_state_dict(sd: Mapping[str, torch.Tensor],
     variable tree of float32 numpy arrays, the inverse of
     ``speaker_state_dict_from_jax`` (what ``save_npz`` writes and
     ``load_speaker_npz`` reads).  Checked against ``speaker_tree_shapes``."""
-    def get(key):
-        return sd[key].detach().to("cpu", torch.float32).clone().numpy()
-
-    def conv(prefix):
-        return {"kernel": np.ascontiguousarray(
-                    np.transpose(get(f"{prefix}.weight"), (2, 1, 0))),
-                "bias": get(f"{prefix}.bias")}
-
-    def bn(prefix):
-        return ({"BatchNorm_0": {"scale": get(f"{prefix}.weight"),
-                                 "bias": get(f"{prefix}.bias")}},
-                {"BatchNorm_0": {"mean": get(f"{prefix}.running_mean"),
-                                 "var": get(f"{prefix}.running_var")}})
-
-    trunk: Dict[str, Any] = {"stem": conv("trunk.stem")}
+    trunk: Dict[str, Any] = {"stem": _conv_tree(sd, "trunk.stem", (2, 1, 0))}
     stats: Dict[str, Any] = {}
     for name, i, _, _, pool in _units(cfg):
         pre = f"trunk.units.{i}"
-        unit: Dict[str, Any] = {"conv_a": conv(f"{pre}.conv_a"),
-                                "conv_b": conv(f"{pre}.conv_b")}
+        unit: Dict[str, Any] = {c: _conv_tree(sd, f"{pre}.{c}", (2, 1, 0))
+                                for c in ("conv_a", "conv_b")}
         st: Dict[str, Any] = {}
         for j in (0, 1):
             unit[f"KerasBatchNorm_{j}"], st[f"KerasBatchNorm_{j}"] = \
-                bn(f"{pre}.bn{j}")
+                _bn_tree(sd, f"{pre}.bn{j}")
         if pool:
-            unit["shortcut"] = conv(f"{pre}.shortcut")
+            unit["shortcut"] = _conv_tree(sd, f"{pre}.shortcut", (2, 1, 0))
         trunk[name], stats[name] = unit, st
-    trunk["KerasBatchNorm_0"], stats["KerasBatchNorm_0"] = bn("trunk.bn")
-    lstm = "trunk.bilstm.lstm"
-    trunk["BiLSTM_0"] = {
-        d: {"kernel": np.ascontiguousarray(get(f"{lstm}.weight_ih_l0{sfx}").T),
-            "recurrent_kernel": np.ascontiguousarray(
-                get(f"{lstm}.weight_hh_l0{sfx}").T),
-            "bias": get(f"{lstm}.bias_ih_l0{sfx}")
-            + get(f"{lstm}.bias_hh_l0{sfx}")}
-        for d, sfx in (("forward", ""), ("backward", "_reverse"))}
-    tree = {"params": {"trunk": trunk,
-                       "head": {"kernel": np.ascontiguousarray(
-                                    get("head.weight").T),
-                                "bias": get("head.bias")}},
+    trunk["KerasBatchNorm_0"], stats["KerasBatchNorm_0"] = \
+        _bn_tree(sd, "trunk.bn")
+    trunk["BiLSTM_0"] = _lstm_tree(sd, "trunk.bilstm.lstm")
+    tree = {"params": {"trunk": trunk, "head": _dense_tree(sd, "head")},
             "batch_stats": {"trunk": stats}}
     _check(tree, speaker_tree_shapes(cfg, head_units))
     return tree

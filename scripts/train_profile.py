@@ -25,13 +25,9 @@ from __future__ import annotations
 import argparse
 import subprocess
 import sys
-import time
-from collections import Counter
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke as cs
 from mmla_audio_torch.core.config import PipelineConfig
@@ -47,41 +43,17 @@ from mmla_audio_torch.train.transfer import TransferLearner
 
 
 def trace(name: str, run, steps: int) -> None:
-    """Warm ``run`` up, then time and trace it; ``run()`` does ``steps``
-    steps."""
-    run()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run()
-    torch.cuda.synchronize()
-    host = (time.perf_counter() - t0) / steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    spans, names = [], Counter()
-    for evt in prof.events():
-        # record_function ranges (Optimizer.step, ...) also appear on the
-        # device timeline; they are not work of the device
-        if evt.device_type == DeviceType.CUDA and \
-                not evt.is_user_annotation:
-            spans.append((evt.time_range.start, evt.time_range.end))
-            names[evt.name] += evt.time_range.elapsed_us()
-    if not spans:
-        print(f"[{name}] host {host * 1e3:.3f} ms a step; the trace holds "
-              f"no device events: busy time not measured")
+    """Warm ``run`` up, then time and trace it (``chip_smoke.profile_steps``);
+    ``run()`` does ``steps`` steps."""
+    prof = cs.profile_steps(run, steps)
+    if prof["busy_ms"] is None:
+        print(f"[{name}] host {prof['host_ms']:.3f} ms a step; the trace "
+              f"holds no device events: busy time not measured")
         return
-    busy, end = 0, -1
-    for a, b in sorted(spans):
-        busy += max(0, b - max(a, end))
-        end = max(end, b)
-    busy_ms = busy / 1e3 / steps
-    top = ", ".join(f"{n[:60]} {us / 1e3 / steps:.3f}"
-                    for n, us in names.most_common(5))
-    idle = 1 - busy_ms / (host * 1e3)
-    print(f"[{name}] host {host * 1e3:.3f} ms a step; device busy "
-          f"{busy_ms:.3f} ms a step (idle share {idle:.3f}); "
-          f"{len(spans) / steps:.1f} launches a step; top kernels (ms a "
+    top = ", ".join(f"{n[:60]} {ms:.3f}" for n, ms in prof["top"])
+    print(f"[{name}] host {prof['host_ms']:.3f} ms a step; device busy "
+          f"{prof['busy_ms']:.3f} ms a step (idle share {prof['idle']:.3f}); "
+          f"{prof['launches']:.1f} launches a step; top kernels (ms a "
           f"step): {top}", flush=True)
 
 

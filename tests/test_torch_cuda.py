@@ -210,3 +210,37 @@ def test_resblock_dispatch_rule(device):
     assert fused_resblock_cuda.launches == before + 1
     assert float((fused - unfused).abs().max()) <= \
         1e-4 * float(unfused.abs().max())
+
+
+def test_training_launches_the_fused_block_only_in_evaluation(device):
+    """The dispatch rule in training: ``Trainer.train_step`` (train mode,
+    autograd) launches no fused block; ``Trainer.evaluate`` and
+    ``OverlapTrainer.evaluation`` launch one per non-pooling block (6) per
+    chunk of rows, on channels-last images (a gather's or a
+    concatenation's layout) too."""
+    from mmla_audio_torch.core.config import OverlapTrainConfig
+    from mmla_audio_torch.train.losses import keras_categorical_crossentropy
+    from mmla_audio_torch.train.optimizers import adadelta
+    from mmla_audio_torch.train.overlap_trainer import OverlapTrainer
+    from mmla_audio_torch.train.trainer import Trainer
+
+    cfg = OverlapModelConfig(stage_filters=(8, 16, 16), lstm_units=8)
+    model = keras_init_(OverlapResBLSTM(cfg), torch.Generator().manual_seed(0))
+    tr = Trainer(model, adadelta(1e-2), keras_categorical_crossentropy,
+                 device=device)
+    g = torch.Generator().manual_seed(1)
+    x = (torch.rand(10, 128, 151, 3, generator=g) * 255).to(device)
+    y = torch.eye(2)[torch.arange(10) % 2].to(device)
+    before = fused_resblock_cuda.launches_mma
+    tr.train_step(x[:8], y[:8], torch.ones(8, device=device))
+    torch.cuda.synchronize()
+    assert fused_resblock_cuda.launches_mma == before
+    loss, _ = tr.evaluate(x, y, batch_size=4)               # 4 + 4 + 2 rows
+    assert fused_resblock_cuda.launches_mma == before + 6 * 3
+    assert np.isfinite(loss)
+    ot = OverlapTrainer(cfg, OverlapTrainConfig(eval_batch_size=4),
+                        device=device)
+    x_last = x.cpu().contiguous()                   # channels-last storage
+    ev = ot.evaluation(tr.variables_of(), x_last, y.cpu().numpy())
+    assert fused_resblock_cuda.launches_mma == before + 6 * 6
+    assert ev["confusion"].sum() == 10

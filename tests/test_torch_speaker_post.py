@@ -229,17 +229,21 @@ NOT_YET = {
     "speaker-post": {"--ckpt"} | CACHE,
     "overlap-run": {"--ckpt", "--parity"} | CACHE,
     "speaker-pretrain": CACHE,
+    "synth-corpus": CACHE,
+    "overlap-train": CACHE,
     "charts": CACHE,
 }
-# the port's own: the device, the .npz weights, and the random-init seed
-# where the JAX command has none
+# the port's own: the device, the .npz weights, and the seed (random init,
+# and the order of training) where the JAX command has none
 OWN = {"setup": set(), "charts": set(),
        "overlap-live": {"--device", "--weights"},
        "speaker-live": {"--device", "--weights"},
        "overlap-post": {"--device", "--weights", "--seed"},
        "speaker-post": {"--device", "--weights", "--seed"},
        "overlap-run": {"--device", "--weights", "--seed"},
-       "speaker-pretrain": {"--device"}}
+       "speaker-pretrain": {"--device"},
+       "synth-corpus": set(),
+       "overlap-train": {"--device", "--seed"}}
 
 
 @pytest.mark.parametrize("cmd", sorted(NOT_YET))
