@@ -89,7 +89,30 @@ per source, all at once), then:
    corpus clips) -> ``overlap-train --epochs 3 --augmented --out D`` ->
    ``overlap-post --weights D/variables.npz`` of phase 5's 5-minute
    recording, its labels equal to the CPU's of the same checkpoint under
-   the margin rule.
+   the margin rule;
+10. the multiplexer (``streaming/multiplex.py``) at full width, on seeded
+   weights and synthetic speech with silences, ``decision="webrtc"``,
+   buckets (8, 64): W1 (``webrtc_vad_rows``) against the host engine on the
+   same denoised int16 windows and starting rows (64 rows carrying 3
+   windows of state, one fresh row, 3 padding rows), 4 windows in a row at
+   B=8 and 64, decisions and every state row bit for bit; W1 timed at B=1,
+   8, 64 and 512 (CUDA events) beside the host engine over the same rows
+   (host clock); W2 (``vad_collect_rows``) against ``collect_mask`` per row
+   on W1's and energy decisions, timed at B=64; 8 overlap streams x 4
+   windows against ``OverlapSession`` and 4 speaker streams (3-speaker
+   sigmoid head) against ``SpeakerSession``: labels equal where the
+   session's top-2 margin is above 1e-3, each detector row equal to the
+   host engine over the batched denoise's int16 windows (and to the
+   session's engine where the batched and single denoise agree; the
+   differing samples are printed); 64 threaded ``CaptureThread`` streams x
+   8 windows, then 512 ``PrefilledCapture`` streams x 4 windows: windows/s,
+   ms a window, realtime-stream equivalents, the phase times a window, the
+   kernels' launches, every window logged once and in order; one warm tick
+   at bucket 64 under ``torch.profiler`` (device busy, idle share,
+   launches); churn: 16 streams, 8 retired with ``archive=False`` and 8
+   added on recycled rows that start fresh and end equal to a fresh
+   multiplexer's.  The multiplexer's runs are the fourth main path whose
+   launches are counted (W1, W2, the featurizer and the fused block).
 
 The line before the last is a JSON object describing each kernel, with its
 bound: the larger of its bytes (each input read once, each output written
@@ -98,7 +121,9 @@ TF32 products for each fp32 one at 495 TFLOP/s, 165 TFLOP/s of fp32 work,
 faster than the CUDA cores' 67 TFLOP/s), H100 SXM peaks.  The featurizer's
 FLOPs are the least its function needs (a real FFT per frame, the banded
 mel product), not the dense GEMMs of the TPU kernel, whose bound the
-featurizer's log lines print beside it.  The last line is
+featurizer's log lines print beside it.  W1 and W2 are integer state
+machines: their bound is their bytes, far below the serial dependency
+chain that bounds them in fact.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises, so nothing after it
 is printed and the exit code is not 0.  Without a CUDA device the script
 stops before doing anything.
@@ -150,6 +175,18 @@ PARAM_RTOL = 1e-3                          # of each leaf's max |value|
 OVERLAP_SPEAKERS, OVERLAP_CLIPS, OVERLAP_EPOCHS = 630, 10, 2
 OVERLAP_STEPS, EVAL_WINDOWS, FEATURE_CHECK, PROFILE_STEPS = 3, 512, 256, 10
 CLI_SINGLES, CLI_MIXTURES, CLI_EPOCHS = 1024, 512, 3
+# phase 10: the multiplexer.  W1/W2 checks: rows carrying VAD_WARMUP windows
+# of state, VAD_WINDOWS windows in a row; W1 timed at W1_BATCHES; labels of
+# MUX_LABEL_STREAMS (overlap) and MUX_SPEAKER_STREAMS (speaker) streams
+# against single-stream sessions; serving MUX_THREADED threaded captures and
+# MUX_PREFILLED prefilled ones; churn of MUX_CHURN streams
+VAD_FRAME, VAD_T = 480, 85
+VAD_ROWS, VAD_WARMUP, VAD_WINDOWS = 64, 3, 4
+W1_BATCHES = (1, 8, 64, 512)
+MUX_LABEL_STREAMS, MUX_SPEAKER_STREAMS, MUX_LABEL_WINDOWS = 8, 4, 4
+MUX_THREADED, MUX_THREADED_WINDOWS = 64, 8
+MUX_PREFILLED, MUX_PREFILLED_WINDOWS = 512, 4
+MUX_CHURN = 16
 # H100 SXM peaks: device memory, TF32 on the tensor cores; an fp32 product
 # at fp32 accuracy is three TF32 ones (3xTF32)
 HBM_BYTES_S, TF32_FLOP_S, TF32_PER_FP32 = 3.35e12, 495e12, 3
@@ -878,11 +915,15 @@ def launch_counters():
     """(wrapper, counter attribute) of every kernel of the port."""
     from mmla_audio_torch.ops.cuda_features import overlap_model_input_cuda
     from mmla_audio_torch.ops.cuda_resblock import fused_resblock_cuda
+    from mmla_audio_torch.vad.collector import vad_collect_rows
+    from mmla_audio_torch.vad.webrtc import webrtc_vad_rows
 
     return ((overlap_model_input_cuda, "launches"),
             (overlap_model_input_cuda, "launches_grouped"),
             (fused_resblock_cuda, "launches"),
-            (fused_resblock_cuda, "launches_mma"))
+            (fused_resblock_cuda, "launches_mma"),
+            (webrtc_vad_rows, "launches"),
+            (vad_collect_rows, "launches"))
 
 
 def zero_launch_counters() -> None:
@@ -1635,6 +1676,453 @@ def phase_overlap_training(device, cfg, noise, tmp: Path, clips) -> dict:
     return dict(featurizer=launches[0], block=launches[1])
 
 
+# -- phase 10: the multiplexer ---------------------------------------------
+
+def vad_windows(count: int, seed: int, n: int = 40960) -> np.ndarray:
+    """``count`` int16 windows of synthetic speech with silent stretches."""
+    from mmla_audio_torch.streaming.capture import FakePCMSource
+
+    src = FakePCMSource(seed=seed, speech_ratio=0.6)
+    return np.stack([src.read(n) for _ in range(count)])
+
+
+def ambient(seed: int) -> np.ndarray:
+    """10 s of ambient noise, its level drawn from ``seed``."""
+    rng = np.random.RandomState(seed)
+    return (rng.randn(160000) * rng.uniform(10, 40)).astype(np.int16)
+
+
+def denoised_i16(device, cfg, raw: np.ndarray, noise) -> torch.Tensor:
+    """The live chain's denoised int16 windows ``(B, T * frame_len)`` on
+    ``device``: the input W1 sees in the multiplexer, in chunks of 64."""
+    from mmla_audio_torch.ops.denoise import (noise_threshold, quantize_i16,
+                                              reduce_noise)
+
+    nt = noise_threshold(torch.from_numpy(noise.astype(np.float32) / 32768.0)
+                         .to(device), cfg.denoise)
+    fl = VAD_FRAME
+    out = []
+    for chunk in np.array_split(raw, max(1, -(-len(raw) // 64))):
+        y = torch.from_numpy(chunk).to(device).float() / 32768.0
+        y = reduce_noise(y, nt, cfg.denoise, passes=cfg.denoise.passes_live)
+        out.append(quantize_i16(y)[:, : VAD_T * fl].to(torch.int16))
+    return torch.cat(out)
+
+
+def w1_bound(batch: int, rows: int) -> dict:
+    """W1's bytes: the windows' samples read once, each named state row
+    read and written, the index, the decisions written."""
+    return bound(0, batch * (VAD_T * VAD_FRAME * 2 + 4 + VAD_T)
+                 + 2 * rows * 265 * 4)
+
+
+def w2_bound(batch: int) -> dict:
+    """W2's bytes: decisions and counts in, keep masks and kept counts out."""
+    return bound(0, batch * 2 * (VAD_T + 4))
+
+
+def host_ms(fn, *args, reps: int = 3) -> float:
+    """Median host-clock time of ``fn(*args)`` (host work only)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn(*args)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def check_w1(device, pool, rows, batch: int, rng, launch=None) -> int:
+    """W1 against the host engine on the same windows and starting rows:
+    ``batch`` rows naming adapted rows, the fresh last row and 3 padding
+    rows, ``VAD_WINDOWS`` windows in a row; decisions and every state row
+    bit for bit after each, rows not named unchanged.  ``launch(x, states,
+    idx)``: another launch of W1 to hold (default the wrapper).  Returns the
+    largest |difference| (0, or a raise)."""
+    from mmla_audio_torch.vad.webrtc import (webrtc_vad_rows,
+                                             webrtc_vad_rows_plain)
+
+    n_states = len(rows)
+    named = np.concatenate([rng.permutation(n_states - 1)[: batch - 4],
+                            [n_states - 1]])
+    idx = rng.permutation(np.concatenate(
+        [named, [n_states, n_states + 1, n_states + 7]])).astype(np.int32)
+    plain, card = rows.clone(), rows.to(device)
+    picks = rng.choice(len(pool), (VAD_WINDOWS, batch), replace=False)
+    for w in range(VAD_WINDOWS):
+        x = pool[torch.from_numpy(picks[w]).to(pool.device)]
+        got = (launch or webrtc_vad_rows)(x, card, idx)
+        ref = webrtc_vad_rows_plain(x.cpu(), plain, idx)
+        torch.cuda.synchronize()
+        got_rows = card.cpu()
+        err = max(int((got.cpu().int() - ref.int()).abs().max()),
+                  int((got_rows - plain).abs().max()))
+        untouched = torch.from_numpy(~np.isin(np.arange(n_states), named))
+        if err or not torch.equal(got_rows[untouched], rows[untouched]):
+            raise AssertionError(f"W1 B={batch} window {w}: max |diff| "
+                                 f"{err} against the host engine, or a row "
+                                 f"not named changed")
+    return 0
+
+
+def check_w2(device, decisions: torch.Tensor, rng) -> int:
+    """W2 against ``collect_mask`` per row: keep masks and counts equal."""
+    from mmla_audio_torch.vad.collector import (vad_collect_rows,
+                                                vad_collect_rows_plain)
+
+    n_valid = torch.from_numpy(rng.randint(0, VAD_T + 1, len(decisions))
+                               .astype(np.int32))
+    n_valid[::3] = VAD_T
+    keep, kept = vad_collect_rows(decisions.to(device), n_valid.to(device))
+    ref_keep, ref_kept = vad_collect_rows_plain(decisions.cpu(), n_valid)
+    err = max(int((keep.cpu().int() - ref_keep.int()).abs().max()),
+              int((kept.cpu() - ref_kept).abs().max()))
+    if err:
+        raise AssertionError(f"W2 B={len(decisions)}: max |diff| {err}")
+    return err
+
+
+def phase_vad_kernels(device, cfg) -> tuple:
+    """W1 and W2 against their plain versions on the card, then timed.
+    Returns the kernels-line measurements of (W1, W2)."""
+    from mmla_audio_torch.vad.collector import (energy_vad, vad_collect_rows,
+                                                vad_collect_rows_plain)
+    from mmla_audio_torch.vad.webrtc import (webrtc_init, webrtc_vad_rows,
+                                             webrtc_vad_rows_plain)
+
+    rng = np.random.RandomState(10)
+    noise = ambient(11)
+    raw = vad_windows(VAD_ROWS * (VAD_WARMUP + VAD_WINDOWS), seed=12)
+    pool = denoised_i16(device, cfg, raw, noise)
+    # VAD_ROWS rows that already carry VAD_WARMUP windows, then a fresh one
+    rows = webrtc_init(VAD_ROWS + 1, "cpu")
+    warm = pool[: VAD_ROWS * VAD_WARMUP].cpu().reshape(
+        VAD_ROWS, VAD_WARMUP, -1)
+    for w in range(VAD_WARMUP):
+        webrtc_vad_rows_plain(warm[:, w].contiguous(), rows,
+                              np.arange(VAD_ROWS))
+    pool = pool[VAD_ROWS * VAD_WARMUP:]
+    for batch in (8, 64):
+        check_w1(device, pool, rows, batch, rng)
+    log(f"[vad] W1 (webrtc_vad) == host engine bit for bit at B=8 and 64: "
+        f"{VAD_WINDOWS} windows in a row on rows carrying {VAD_WARMUP} "
+        f"windows of state, one fresh row and 3 padding rows (untouched)")
+    times = {}
+    for batch in W1_BATCHES:
+        x = pool[torch.arange(batch, device=device) % len(pool)]
+        states = rows[np.arange(batch) % VAD_ROWS].contiguous()
+        card, idx = states.to(device), np.arange(batch, dtype=np.int32)
+        reps = 20 if batch <= 8 else 5
+        ms = time_ms(lambda: webrtc_vad_rows(x, card, idx), reps=reps,
+                     rounds=3)
+        plain = host_ms(webrtc_vad_rows_plain, x.cpu(), states.clone(), idx)
+        times[batch] = ms, plain
+        log(f"[vad] W1 B={batch}: kernel {ms:.4f} ms (CUDA events), host "
+            f"engine over the same rows {plain:.4f} ms (host clock, one "
+            f"core), bound {w1_bound(batch, batch)['bound_ms'] * 1e3:.3f} "
+            f"us (bytes; the floor that binds is the serial chain)")
+    # W2 on W1's decisions and on energy decisions of the same windows
+    x = pool[:VAD_ROWS]
+    dec = torch.cat([
+        webrtc_vad_rows(x, rows[:VAD_ROWS].to(device),
+                        np.arange(VAD_ROWS, dtype=np.int32)),
+        energy_vad(x.reshape(VAD_ROWS, VAD_T, VAD_FRAME), 40.0)])
+    check_w2(device, dec.to(torch.uint8), rng)
+    dec, n_valid = dec[:VAD_ROWS], torch.full((VAD_ROWS,), VAD_T,
+                                              dtype=torch.int32)
+    w2_ms = time_ms(vad_collect_rows, dec, n_valid.to(device), reps=50)
+    w2_plain = host_ms(vad_collect_rows_plain, dec.cpu(), n_valid)
+    log(f"[vad] W2 (vad_collect) == collect_mask per row on "
+        f"{2 * VAD_ROWS} rows (webrtc and energy decisions); B=64: kernel "
+        f"{w2_ms:.4f} ms, collect_mask per row {w2_plain:.4f} ms (host "
+        f"clock), bound {w2_bound(VAD_ROWS)['bound_ms'] * 1e3:.4f} us")
+    w1 = dict(max_abs_err=0, ms=times[64][0], plain_ms=times[64][1],
+              **w1_bound(64, 64), library_ms=None)
+    w2 = dict(max_abs_err=0, ms=w2_ms, plain_ms=w2_plain,
+              **w2_bound(VAD_ROWS), library_ms=None)
+    return w1, w2
+
+
+def mux_launches() -> dict:
+    """The launches of the multiplexer's kernels since the last zeroing."""
+    from mmla_audio_torch.ops.cuda_features import overlap_model_input_cuda
+    from mmla_audio_torch.ops.cuda_resblock import fused_resblock_cuda
+    from mmla_audio_torch.vad.collector import vad_collect_rows
+    from mmla_audio_torch.vad.webrtc import webrtc_vad_rows
+
+    return dict(w1=webrtc_vad_rows.launches, w2=vad_collect_rows.launches,
+                b1=overlap_model_input_cuda.launches,
+                b3=fused_resblock_cuda.launches_mma)
+
+
+def add_launches(total: dict, got: dict) -> None:
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+
+
+def serve(mux, captures) -> tuple:
+    """Run ``mux`` over its streams from zeroed counters; (windows, host
+    seconds, launches)."""
+    zero_launch_counters()
+    t0 = time.perf_counter()
+    total = mux.run_until_exhausted()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    for cap in captures:
+        cap.stop()
+    return total, seconds, mux_launches()
+
+
+def check_logs(mux, windows: int, what: str) -> None:
+    """Every stream logged each of its windows once, in order."""
+    from mmla_audio_torch.analyze.logs import parse_log
+
+    for s in mux.streams:
+        rows = parse_log(s.log.path)
+        if [r[0] for r in rows] != list(range(1, windows + 1)) \
+                or len(s.results) != windows:
+            raise AssertionError(f"{what}: stream {s.name} logged "
+                                 f"{[r[:2] for r in rows]}")
+
+
+def mux_vs_sessions(device, pred, session_cls, kind, cfg, tmp: Path,
+                    n_streams: int, total: dict) -> None:
+    """``n_streams`` streams x ``MUX_LABEL_WINDOWS`` windows through the
+    multiplexer and each through a single-stream session of ``session_cls``
+    on the same audio and noise profile: labels equal where the session's
+    top-2 margin exceeds ``TOP2_MARGIN``.  Each stream's detector row equal
+    bit for bit to the host engine run over the int16 windows of the
+    multiplexer's batched denoise (recomputed at its bucket), and to the
+    session's host engine wherever the batched and the single-window
+    denoise gave the same int16 windows; the differing samples counted."""
+    from mmla_audio_torch.ops.denoise import quantize_i16, reduce_noise
+    from mmla_audio_torch.streaming.capture import PrefilledCapture
+    from mmla_audio_torch.streaming.multiplex import Multiplexer
+    from mmla_audio_torch.vad.webrtc import webrtc_init, webrtc_vad_rows_plain
+
+    convs = [vad_windows(MUX_LABEL_WINDOWS, seed=200 + s)
+             for s in range(n_streams)]
+    noises = [ambient(300 + s) for s in range(n_streams)]
+    mux = Multiplexer(pred, tmp / f"mux_{kind}", kind=kind, cfg=cfg,
+                      device=device)
+    for s in range(n_streams):
+        mux.add_stream(f"s{s}", PrefilledCapture(np.concatenate(convs[s])),
+                       noises[s])
+    got, _, launches = serve(mux, [])
+    add_launches(total, launches)
+    if got != n_streams * MUX_LABEL_WINDOWS:
+        raise AssertionError(f"multiplexer {kind}: {got} windows resolved")
+    check_logs(mux, MUX_LABEL_WINDOWS, f"multiplexer {kind}")
+    # every window denoised in a batch of the multiplexer's bucket (zero
+    # padding rows, as it pads) and alone, kept as int16
+    bucket = next(b for b in mux.buckets if b >= n_streams)
+    nts = torch.zeros((bucket, len(mux.streams[0].noise_thresh)))
+    nts[:n_streams] = torch.stack([torch.from_numpy(t.noise_thresh)
+                                   for t in mux.streams])
+    nts = nts.to(device)
+    batched, single = [], []
+    for w in range(MUX_LABEL_WINDOWS):
+        batch = torch.zeros((bucket, len(convs[0][w])))
+        batch[:n_streams] = torch.from_numpy(
+            np.stack([c[w] for c in convs]).astype(np.float32))
+        y = batch.to(device) / 32768.0
+        batched.append(quantize_i16(reduce_noise(
+            y, nts[:, None, :], cfg.denoise,
+            passes=cfg.denoise.passes_live))[:n_streams].cpu())
+        single.append(torch.stack([quantize_i16(reduce_noise(
+            y[s], nts[s], cfg.denoise, passes=cfg.denoise.passes_live)).cpu()
+            for s in range(n_streams)]))
+    clear = agree = 0
+    differing = []
+    n_vad = VAD_T * VAD_FRAME
+    for s, stream in enumerate(mux.streams):
+        sess = session_cls(pred, None, tmp / f"single_{kind}{s}", cfg=cfg)
+        sess.set_noise_profile(noises[s])
+        labels, margins = [], []
+        for w in convs[s]:
+            name, probs = sess.process_window(w)
+            top2 = np.sort(probs)[-2:]
+            labels.append(name)
+            margins.append(top2[1] - top2[0])
+        mux_labels = [r[1] for r in stream.results]
+        ok = np.array(margins) > TOP2_MARGIN
+        if not (np.array(mux_labels)[ok] == np.array(labels)[ok]).all():
+            raise AssertionError(f"multiplexer {kind} stream {s}: "
+                                 f"{mux_labels} vs session {labels}")
+        clear += int(ok.sum())
+        diff = sum(int((b[s] != a[s]).sum()) for b, a in zip(batched, single))
+        differing.append(diff)
+        ref = webrtc_init(1, "cpu")
+        for b in batched:
+            webrtc_vad_rows_plain(b[s: s + 1, :n_vad].to(torch.int16), ref,
+                                  [0])
+        row = mux._webrtc_states[stream.index].cpu()
+        if not torch.equal(row, ref[0]) or (diff == 0 and not np.array_equal(
+                row.numpy(), sess._vad.state_array)):
+            raise AssertionError(f"multiplexer {kind} stream {s}: detector "
+                                 f"row != the host engine's")
+        agree += diff == 0
+    log(f"[mux] {kind}: {n_streams} streams x {MUX_LABEL_WINDOWS} windows, "
+        f"labels == single-stream session where the top-2 margin > "
+        f"{TOP2_MARGIN} ({clear}/{n_streams * MUX_LABEL_WINDOWS}); every "
+        f"detector row == the host engine over the batched denoise's int16 "
+        f"windows, bit for bit; int16 samples of the batched denoise "
+        f"differing from the single-window one, per stream (of "
+        f"{MUX_LABEL_WINDOWS * len(convs[0][0])}): {differing}; rows == the "
+        f"session's own engine on the {agree} streams whose windows agree")
+
+
+def phase_mux_serving(device, pred, cfg, tmp: Path, total: dict) -> dict:
+    """The overlap multiplexer at a realistic size: ``MUX_THREADED``
+    threaded captures, then ``MUX_PREFILLED`` prefilled ones; windows/s,
+    phase times, launches; one profiled warm tick at bucket 64."""
+    from mmla_audio_torch.streaming.capture import (ArraySource,
+                                                    CaptureThread,
+                                                    PrefilledCapture)
+    from mmla_audio_torch.streaming.multiplex import Multiplexer
+
+    convs = [vad_windows(MUX_THREADED_WINDOWS, seed=400 + s).ravel()
+             for s in range(MUX_THREADED)]
+    noises = [ambient(500 + k) for k in range(4)]
+    n_win = cfg.audio.window_samples
+    out = {}
+    for name, n_streams, windows in (
+            ("threaded", MUX_THREADED, MUX_THREADED_WINDOWS),
+            ("prefilled", MUX_PREFILLED, MUX_PREFILLED_WINDOWS)):
+        mux = Multiplexer(pred, tmp / f"serve_{name}", cfg=cfg,
+                          device=device)
+        caps = []
+        for s in range(n_streams):
+            start = (s // MUX_THREADED) % (MUX_THREADED_WINDOWS - windows + 1)
+            audio = convs[s % MUX_THREADED][start * n_win:
+                                            (start + windows) * n_win]
+            cap = CaptureThread(ArraySource(audio), cfg.audio).start() \
+                if name == "threaded" else PrefilledCapture(audio)
+            caps.append(cap)
+            mux.add_stream(f"{name}{s}", cap, noises[s % len(noises)])
+        got, seconds, launches = serve(mux, caps)
+        add_launches(total, launches)
+        expect = n_streams * windows
+        if got != expect or mux.windows_resolved != expect:
+            raise AssertionError(f"serving {name}: {got} of {expect}")
+        check_logs(mux, windows, f"serving {name}")
+        rate = got / seconds
+        phases = ", ".join(f"{k} {v / got * 1e3:.4f}"
+                           for k, v in mux.phase_seconds.items())
+        log(f"[mux] serving {n_streams} {name} streams x {windows} windows "
+            f"({got}): {seconds:.3f} s, {rate:.1f} windows/s, "
+            f"{seconds / got * 1e3:.4f} ms a window, {rate * 2.56:.0f} "
+            f"realtime-stream equivalents; ms a window by phase: {phases} "
+            f"(host side {mux.host_side_seconds() / got * 1e3:.4f}); "
+            f"launches W1 {launches['w1']}, W2 {launches['w2']}, B1 "
+            f"{launches['b1']}, B3 {launches['b3']}; each logged once, in "
+            f"order")
+        out[name] = rate
+    # one warm tick at bucket 64, profiled
+    mux = Multiplexer(pred, tmp / "serve_profile", cfg=cfg, device=device)
+    for s in range(64):
+        mux.add_stream(f"p{s}", PrefilledCapture(
+            convs[s][: 3 * n_win]), noises[s % len(noises)])
+
+    def run():
+        if mux.tick() != 0 or mux.flush() != 64:
+            raise AssertionError("the profiled tick did not resolve 64")
+    prof = profile_steps(run, 1)
+    busy = "not measured (no device events in the trace)" \
+        if prof["busy_ms"] is None else \
+        (f"device busy {prof['busy_ms']:.3f} ms (idle share "
+         f"{prof['idle']:.3f}); top kernels (ms): " + ", ".join(
+             f"{n[:50]} {ms:.3f}" for n, ms in prof["top"]))
+    log(f"[mux] profile of one tick at bucket 64 (gather, dispatch, label "
+        f"fetch): host {prof['host_ms']:.3f} ms; {busy}; by kind (ms): "
+        + ", ".join(f"{k} {ms:.3f}" for k, ms in prof["kinds"])
+        + f"; {prof['launches']:.0f} launches")
+    return out
+
+
+def phase_mux_churn(device, pred, cfg, tmp: Path, total: dict) -> None:
+    """16 streams, 8 retired with ``archive=False`` and 8 added: the rows
+    are recycled (the stacked state stays at 16 rows), a recycled row
+    starts as a fresh engine and ends as a fresh multiplexer's row for the
+    same audio."""
+    from mmla_audio_torch.streaming.capture import PrefilledCapture
+    from mmla_audio_torch.streaming.multiplex import Multiplexer
+    from mmla_audio_torch.vad.webrtc import webrtc_init
+
+    fresh = webrtc_init(1, device)[0]
+    mux = Multiplexer(pred, tmp / "churn", cfg=cfg, device=device)
+    first = vad_windows(MUX_CHURN, seed=600)
+    for s in range(MUX_CHURN):
+        mux.add_stream(f"c{s}", PrefilledCapture(first[s]), ambient(600))
+    add_launches(total, serve(mux, [])[2])
+    for s in list(mux.streams[: MUX_CHURN // 2]):
+        mux.remove_stream(s, archive=False)
+    late = vad_windows(MUX_CHURN // 2, seed=700)
+    added = [mux.add_stream(f"late{s}", PrefilledCapture(late[s]),
+                            ambient(700)) for s in range(MUX_CHURN // 2)]
+    if sorted(s.index for s in added) != list(range(MUX_CHURN // 2)) \
+            or len(mux.streams) != MUX_CHURN or mux.retired \
+            or not all(torch.equal(mux._webrtc_states[s.index], fresh)
+                       for s in added):
+        raise AssertionError("churn: rows were not recycled fresh")
+    add_launches(total, serve(mux, [])[2])
+    ref = Multiplexer(pred, tmp / "churn_ref", cfg=cfg, device=device)
+    ref_streams = [ref.add_stream(f"r{s}", PrefilledCapture(late[s]),
+                                  ambient(700))
+                   for s in range(MUX_CHURN // 2)]
+    add_launches(total, serve(ref, [])[2])
+    if len(mux._webrtc_states) != MUX_CHURN:
+        raise AssertionError(f"churn: {len(mux._webrtc_states)} rows")
+    equal = sum(torch.equal(mux._webrtc_states[a.index],
+                            ref._webrtc_states[b.index])
+                for a, b in zip(added, ref_streams))
+    labels = [s.results[0][1] for s in added]
+    if equal != len(added) or labels != [s.results[0][1]
+                                         for s in ref_streams]:
+        raise AssertionError(f"churn: recycled rows equal to a fresh "
+                             f"multiplexer's on {equal}/{len(added)}; labels "
+                             f"{labels}")
+    log(f"[mux] churn: {MUX_CHURN} streams, {MUX_CHURN // 2} retired "
+        f"(archive=False) and {MUX_CHURN // 2} added on recycled rows "
+        f"(stacked state stays {MUX_CHURN} rows, nothing archived); "
+        f"recycled rows == a fresh multiplexer's bit for bit, labels equal")
+
+
+def phase_multiplexer(device, cfg, state_dict, tmp: Path) -> dict:
+    """Phase 10: W1 and W2 against their plain versions, the multiplexer
+    against the single-stream sessions (overlap and speaker), serving at a
+    realistic size, churn.  Returns the kernels-line entries of W1 and W2
+    and the launches of the multiplexer's runs, each counted from 0."""
+    from mmla_audio_torch.inference import OverlapPredictor, SpeakerPredictor
+    from mmla_audio_torch.params import (speaker_state_dict_from_jax,
+                                         speaker_tree_shapes)
+    from mmla_audio_torch.streaming.session import (OverlapSession,
+                                                    SpeakerSession)
+
+    t_phase = time.perf_counter()
+    w1, w2 = phase_vad_kernels(device, cfg)
+    total: dict = {}
+    pred = OverlapPredictor(state_dict, cfg.overlap_model, device=device,
+                            matmul_precision="highest")
+    mux_vs_sessions(device, pred, OverlapSession, "overlap", cfg, tmp,
+                    MUX_LABEL_STREAMS, total)
+    speaker = SpeakerPredictor(
+        speaker_state_dict_from_jax(seeded_tree(
+            speaker_tree_shapes(cfg.speaker_model, len(SPEAKERS)),
+            np.random.RandomState(13)), cfg.speaker_model, len(SPEAKERS)),
+        cfg.speaker_model, head_units=len(SPEAKERS), sigmoid_head=True,
+        device=device)
+    mux_vs_sessions(device, speaker, SpeakerSession, "speaker", cfg, tmp,
+                    MUX_SPEAKER_STREAMS, total)
+    phase_mux_serving(device, pred, cfg, tmp, total)
+    phase_mux_churn(device, pred, cfg, tmp, total)
+    if min(total.values()) <= 0:
+        raise AssertionError(f"the multiplexer launched {total}")
+    log(f"[mux] launches over phase 10's multiplexer runs: W1 {total['w1']}, "
+        f"W2 {total['w2']}, B1 {total['b1']}, B3 {total['b3']}; phase wall "
+        f"time {time.perf_counter() - t_phase:.1f} s")
+    return dict(w1=w1, w2=w2, launches=total)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1726,26 +2214,33 @@ def main() -> int:
         phase_speaker(device, cfg, noise, Path(tmp), clips)
         phase_training(device, cfg, noise, Path(tmp))
         overlap = phase_overlap_training(device, cfg, noise, Path(tmp), clips)
+        mux = phase_multiplexer(device, cfg, state_dict, Path(tmp))
 
     def entry(name, source, replaces, n, measured):
         return {"name": name, "route": "cuda",
                 "source": f"mmla_audio_torch/csrc/{source}",
                 "replaces": replaces, "launches": n, **measured}
 
-    # launches: the session's, the post-time pass's and overlap training's,
-    # each counted from 0
+    # launches: the session's, the post-time pass's, overlap training's and
+    # the multiplexer's runs, each counted from 0
     log(json.dumps({"kernels": [
         entry("overlap_features", "overlap_features.cu",
               "mmla_audio_tpu/ops/pallas_features.py:44",
-              launches + post["launches"][0] + overlap["featurizer"],
-              feat[1]),
+              launches + post["launches"][0] + overlap["featurizer"]
+              + mux["launches"]["b1"], feat[1]),
         entry("overlap_features_grouped", "overlap_features.cu",
               "mmla_audio_tpu/ops/pallas_features.py:90",
               post["launches"][1], grouped),
         entry("fused_resblock", "fused_resblock.cu",
               "benchmarks/fused_block_probe.py:64",
-              block_launches + post["launches"][2] + overlap["block"],
-              block),
+              block_launches + post["launches"][2] + overlap["block"]
+              + mux["launches"]["b3"], block),
+        entry("webrtc_vad", "webrtc_vad.cu",
+              "mmla_audio_tpu/vad/webrtc.py:580", mux["launches"]["w1"],
+              mux["w1"]),
+        entry("vad_collect", "webrtc_vad.cu",
+              "mmla_audio_tpu/vad/collector.py:48", mux["launches"]["w2"],
+              mux["w2"]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,7 +32,8 @@ __all__ = ["BUILD_DIR", "cuda_library", "cuda_libraries", "host_library",
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG / "_build"
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_double)
 # library name -> (source, {launch function: its argtypes})
 CUDA_KERNELS = {
     "overlap_features": (
@@ -43,6 +44,11 @@ CUDA_KERNELS = {
         _PKG / "csrc" / "fused_resblock.cu",
         {"fused_resblock_launch": [_P] * 10 + [_I] * 4 + [_P],
          "fused_resblock_mma_launch": [_P] * 10 + [_I] * 8 + [_P]}),
+    "webrtc_vad": (
+        _PKG / "csrc" / "webrtc_vad.cu",
+        {"webrtc_vad_launch":
+         [_P, _LL] + [_I] * 5 + [_P, _I, _P, _P, _I, _P],
+         "vad_collect_launch": [_P, _I, _I, _P, _D, _I, _P, _P, _P]}),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

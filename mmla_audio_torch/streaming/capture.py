@@ -2,9 +2,11 @@
 
 A source has one method the sessions need: blocking ``read(n) -> int16[n]``.
 ``FakePCMSource`` is a deterministic speech-like generator, ``ArraySource``
-replays a buffer.  ``CaptureThread`` pumps a source into a ring buffer so
-capture jitter never blocks the session loop; ``PrefilledCapture`` is a
-ring loaded with a whole replay up front.
+replays a buffer.  ``CaptureThread`` pumps a source into a ring buffer
+(``streaming.native.make_ring``: the native SPSC ring where the host library
+builds) so capture jitter never blocks the session loop;
+``PrefilledCapture`` is a ring loaded with a whole replay up front.  With
+native rings the multiplexer gathers all its streams' windows in one call.
 """
 
 from __future__ import annotations
@@ -16,8 +18,9 @@ from typing import Optional
 import numpy as np
 
 from mmla_audio_torch.core.config import AudioConfig
+from mmla_audio_torch.streaming.native import make_ring
 
-__all__ = ["FakePCMSource", "ArraySource", "RingBuffer", "CaptureThread",
+__all__ = ["FakePCMSource", "ArraySource", "CaptureThread",
            "PrefilledCapture"]
 
 
@@ -83,58 +86,6 @@ class ArraySource:
         return out
 
 
-class RingBuffer:
-    """Single-producer single-consumer int16 ring (capacity rounded up to a
-    power of two), lock-protected."""
-
-    def __init__(self, capacity: int):
-        cap = 1
-        while cap < capacity:
-            cap <<= 1
-        self._buf = np.zeros(cap, np.int16)
-        self._cap = cap
-        self._head = 0
-        self._tail = 0
-        self.overruns = 0
-        self._lock = threading.Lock()
-
-    @property
-    def available(self) -> int:
-        with self._lock:
-            return self._head - self._tail
-
-    def push(self, samples) -> int:
-        """Append what fits; the rest is dropped and counted in overruns."""
-        samples = np.asarray(samples, np.int16)
-        with self._lock:
-            free = self._cap - (self._head - self._tail)
-            n = min(len(samples), free)
-            self.overruns += len(samples) - n
-            pos = self._head & (self._cap - 1)
-            first = min(n, self._cap - pos)
-            self._buf[pos: pos + first] = samples[:first]
-            self._buf[: n - first] = samples[first:n]
-            self._head += n
-            return n
-
-    def pop(self, n: int) -> Optional[np.ndarray]:
-        """``n`` samples, or None (nothing consumed) if fewer are buffered."""
-        with self._lock:
-            if self._head - self._tail < n:
-                return None
-            pos = self._tail & (self._cap - 1)
-            first = min(n, self._cap - pos)
-            out = np.empty(n, np.int16)
-            out[:first] = self._buf[pos: pos + first]
-            out[first:] = self._buf[: n - first]
-            self._tail += n
-            return out
-
-    def clear(self) -> None:
-        with self._lock:
-            self._tail = self._head
-
-
 class CaptureThread:
     """Producer thread: ``source.read(chunk)`` -> ring, until stopped or the
     source is exhausted.  ``drained`` turns true only after the final chunk
@@ -145,7 +96,7 @@ class CaptureThread:
                  ring_seconds: float = 30.0):
         self.source = source
         self.cfg = cfg
-        self.ring = RingBuffer(int(ring_seconds * cfg.sample_rate))
+        self.ring = make_ring(int(ring_seconds * cfg.sample_rate))
         self.drained = False
         self.error: Optional[BaseException] = None
         self._stop = threading.Event()
@@ -194,10 +145,12 @@ class PrefilledCapture:
 
     def __init__(self, samples: np.ndarray):
         samples = np.ascontiguousarray(samples, np.int16)
-        self.ring = RingBuffer(len(samples))
+        self.ring = make_ring(len(samples))
         if self.ring.push(samples) != len(samples):
             raise RuntimeError("ring smaller than the replay")
-        self.drained = True
+        self.drained = True             # the producer has finished
+        self.source = self
+        self.exhausted = True
 
     def read_window(self, n_samples: int, timeout: float = 0.0
                     ) -> Optional[np.ndarray]:

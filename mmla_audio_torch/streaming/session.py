@@ -14,6 +14,13 @@ Per 2.56 s window, at B=1:
    overlap featurizer and model, or the MFCC and speaker model), then the
    session's silent gate -> one TSV log row.
 
+``preprocess_windows`` is the same chain over a batch of windows from many
+streams, all on the windows' device: per-row denoise profiles and energy
+thresholds, and for ``decision="webrtc"`` each stream's detector state as
+one row of a stacked state tensor (``vad/webrtc.py``; kernel W1 on the
+card), the hysteresis keep masks from ``vad_trim_batch`` (W2 on the card).
+The multiplexer runs it.
+
 Calibration (10 s of ambient noise) gives the denoise profile, the energy
 VAD threshold and the ``Ambient_Noise.wav`` artifact.  Logs land under
 ``experiment/logs/<timestamp>.txt`` and optional window recordings under
@@ -44,11 +51,13 @@ from mmla_audio_torch.ops.denoise import (noise_threshold, quantize_i16,
                                           reduce_noise)
 from mmla_audio_torch.utils.experiment import ExperimentDirs, bootstrap
 from mmla_audio_torch.vad.collector import (calibrate_threshold, energy_vad,
-                                            frame_count, vad_trim)
+                                            frame_count, vad_trim,
+                                            vad_trim_batch)
 from mmla_audio_torch.vad.native import NativeWebRtcVad
+from mmla_audio_torch.vad.webrtc import webrtc_vad_rows
 
-__all__ = ["session_stamp", "StreamingSession", "OverlapSession",
-           "SpeakerSession"]
+__all__ = ["session_stamp", "preprocess_windows", "StreamingSession",
+           "OverlapSession", "SpeakerSession"]
 
 
 def session_stamp(now: Optional[datetime] = None) -> str:
@@ -58,6 +67,44 @@ def session_stamp(now: Optional[datetime] = None) -> str:
     if "." in s:
         s = s[: s.index(".")]
     return s.replace(" ", "-").replace(":", "-")
+
+
+@torch.no_grad()
+def preprocess_windows(raws_i16: torch.Tensor, noise_threshs: torch.Tensor,
+                       vad_thrs: torch.Tensor, cfg: PipelineConfig, *,
+                       states: Optional[torch.Tensor] = None, idx=None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The single-window chain (``StreamingSession.preprocess``) over a
+    batch of windows, one stream a row, without a host round trip:
+    ``raws_i16 (B, n)`` int16, each row's denoise threshold ``(B, K)`` and
+    energy threshold ``(B,)`` -> /32768 -> denoise (``passes_live``) ->
+    int16 re-quantization -> per-frame decisions -> ``vad_trim_batch``.
+
+    With ``states`` (``(S, 265)`` int32 rows, ``vad/webrtc.py``) and the host
+    array ``idx (B,)`` the decisions are webrtcvad's, advancing
+    ``states[idx[b]]`` in place (``idx[b] >= S``: a padding row, which
+    touches no state); without them the energy detector's.  Only the
+    collector's ``T`` frames (strict ``<``) reach the detector.  Returns
+    (trimmed int16-scale float32 ``(B, n)``, zero beyond each count; kept
+    samples ``(B,)`` int32)."""
+    sr = cfg.audio.sample_rate
+    y = raws_i16.to(torch.float32) / 32768.0
+    # a (B, 1, K) threshold broadcasts against the (B, frames, K) spectra
+    y = reduce_noise(y, noise_threshs[:, None, :], cfg.denoise, sr=sr,
+                     passes=cfg.denoise.passes_live)
+    i16 = quantize_i16(y)
+    B, n = i16.shape
+    fl = int(sr * cfg.vad.frame_ms / 1000)
+    T = frame_count(n, fl)
+    if states is not None:
+        decisions = webrtc_vad_rows(
+            i16[:, : T * fl].to(torch.int16), states, idx,
+            mode=cfg.vad.aggressiveness, frame_len=fl, sample_rate=sr)
+    else:
+        decisions = energy_vad(i16[:, : T * fl].reshape(B, T, fl),
+                               vad_thrs[:, None])
+    n_samples = torch.full((B,), n, dtype=torch.int32, device=i16.device)
+    return vad_trim_batch(i16, n_samples, decisions, fl, cfg.vad.ring_frames)
 
 
 class StreamingSession:
@@ -82,8 +129,9 @@ class StreamingSession:
         self.noise_thresh: Optional[torch.Tensor] = None
         self.vad_threshold_db = 30.0
         self.frame_len = int(cfg.audio.sample_rate * cfg.vad.frame_ms / 1000)
-        # the port has no on-device webrtc engine yet: "webrtc" needs the
-        # native one and raises here if it cannot be built
+        # one window a call: "webrtc" runs the native host engine and raises
+        # here if it cannot be built (the batched chain of many streams,
+        # preprocess_windows, runs the engine on the card)
         self._vad = NativeWebRtcVad(cfg.vad.aggressiveness) \
             if cfg.vad.decision == "webrtc" else None
 

@@ -37,6 +37,12 @@ def _lib():
     lib.wv_process.argtypes = [
         ctypes.c_void_p, ctypes.POINTER(ctypes.c_int16), ctypes.c_int64,
         ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_uint8)]
+    lib.wv_state_slots.restype = ctypes.c_int
+    lib.wv_state_slots.argtypes = []
+    lib.wv_get_state.argtypes = [ctypes.c_void_p,
+                                 ctypes.POINTER(ctypes.c_int32)]
+    lib.wv_set_state.argtypes = [ctypes.c_void_p,
+                                 ctypes.POINTER(ctypes.c_int32)]
     return lib
 
 
@@ -83,3 +89,23 @@ class NativeWebRtcVad:
             raise ValueError(
                 f"invalid frame length {frame_len} @ {sample_rate} Hz")
         return out[:n_frames].astype(bool)
+
+    @property
+    def state_array(self) -> np.ndarray:
+        """The whole detector state as ``(265,)`` int32 slots, in the order
+        of ``vad.webrtc.STATE_FIELDS`` (the JAX ``WebRtcVadState`` fields):
+        values stored as int16 in the engine come back sign-extended."""
+        out = np.zeros(self._lib.wv_state_slots(), np.int32)
+        self._lib.wv_get_state(
+            self._inst, out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+        return out
+
+    @state_array.setter
+    def state_array(self, arr) -> None:
+        arr = np.ascontiguousarray(np.asarray(arr), dtype=np.int32)
+        slots = self._lib.wv_state_slots()
+        if arr.shape != (slots,):
+            raise ValueError(f"state must have {slots} slots, got shape "
+                             f"{arr.shape}")
+        self._lib.wv_set_state(
+            self._inst, arr.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))

@@ -1,7 +1,8 @@
 """Tests that need the card: the CUDA kernels (featurizer, one window and
-grouped, on speech, silence and a clipped sine; fused residual block)
-against their plain versions, the block's dispatch rule, and the predictor
-on the card against the CPU.
+grouped, on speech, silence and a clipped sine; fused residual block; the
+batched webrtcvad engine W1 and the collector W2) against their plain
+versions, the block's dispatch rule, the predictor on the card against the
+CPU, and the multiplexer's launches.
 
 This file imports neither JAX nor tests/conftest.py, so it runs where JAX is
 not installed:  python -m pytest --noconftest tests/test_torch_cuda.py
@@ -244,3 +245,181 @@ def test_training_launches_the_fused_block_only_in_evaluation(device):
     ev = ot.evaluation(tr.variables_of(), x_last, y.cpu().numpy())
     assert fused_resblock_cuda.launches_mma == before + 6 * 6
     assert ev["confusion"].sum() == 10
+
+
+def _vad_windows(count, seed, n=85 * 480):
+    """int16 windows: speech-like tones with silent stretches, noise, a
+    full-scale square wave."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(n) / 16000
+    out = (_audio(count, n, seed) * 30000).astype(np.int16)
+    out[::4, n // 3: 2 * n // 3] = 0
+    out[1::4] = (rng.randn(n) * 300).astype(np.int16)
+    out[2::4] = np.where(np.sin(2 * np.pi * 180 * t) > 0, 32767, -32768)
+    return out
+
+
+@pytest.mark.parametrize("batch", [8, 64])
+def test_webrtc_rows_kernel_matches_host_engine(device, batch):
+    """W1 against the host engine: three windows in a row, rows out of
+    order, two padding rows, one state row named by no batch row;
+    decisions and every state row bit for bit after each window."""
+    from mmla_audio_torch.vad.webrtc import (webrtc_init, webrtc_vad_rows,
+                                             webrtc_vad_rows_plain)
+
+    rng = np.random.RandomState(batch)
+    n_states = batch - 1
+    idx = rng.permutation(np.concatenate(
+        [np.arange(1, n_states), [n_states, n_states + 3]])).astype(np.int32)
+    plain = webrtc_init(n_states, "cpu")
+    card = plain.to(device)
+    for w in range(3):
+        x = torch.from_numpy(_vad_windows(batch, seed=10 * batch + w))
+        ref = webrtc_vad_rows_plain(x, plain, idx)
+        before = webrtc_vad_rows.launches
+        got = webrtc_vad_rows(x.to(device), card, idx)
+        torch.cuda.synchronize()
+        assert webrtc_vad_rows.launches == before + 1
+        assert torch.equal(got.cpu(), ref)
+        assert torch.equal(card.cpu(), plain)
+    assert torch.equal(plain[0], webrtc_init(1, "cpu")[0])   # never named
+    assert ref.any() and not ref.all()
+
+
+def test_webrtc_rows_kernel_refuses_shared_rows(device):
+    from mmla_audio_torch.vad.webrtc import webrtc_init, webrtc_vad_rows
+
+    x = torch.zeros((2, 4800), dtype=torch.int16, device=device)
+    with pytest.raises(ValueError, match="same state row"):
+        webrtc_vad_rows(x, webrtc_init(2, device), [1, 1])
+    with pytest.raises(ValueError, match="on the host"):
+        webrtc_vad_rows(x, webrtc_init(2, device),
+                        torch.tensor([0, 1], device=device))
+
+
+def test_collect_rows_kernel_matches_plain(device):
+    """W2 against collect_mask per row, bool and uint8 decisions."""
+    from mmla_audio_torch.vad.collector import (vad_collect_rows,
+                                                vad_collect_rows_plain)
+
+    rng = np.random.RandomState(0)
+    dec = torch.from_numpy(rng.rand(96, 85) < rng.uniform(0.1, 0.95, (96, 1)))
+    n_valid = torch.from_numpy(rng.randint(0, 86, 96).astype(np.int32))
+    ref_keep, ref_kept = vad_collect_rows_plain(dec, n_valid)
+    for d in (dec, dec.to(torch.uint8)):
+        before = vad_collect_rows.launches
+        keep, kept = vad_collect_rows(d.to(device), n_valid.to(device))
+        torch.cuda.synchronize()
+        assert vad_collect_rows.launches == before + 1
+        assert torch.equal(keep.cpu(), ref_keep)
+        assert torch.equal(kept.cpu(), ref_kept)
+    assert ref_keep.any() and not ref_keep.all()
+
+
+def test_vad_trim_batch_card_matches_cpu(device):
+    from mmla_audio_torch.vad.collector import vad_trim_batch
+
+    rng = np.random.RandomState(1)
+    buf = torch.from_numpy(_vad_windows(6, seed=3, n=40960)).float()
+    dec = torch.from_numpy(rng.rand(6, 85) < 0.8)
+    n = torch.tensor([40960, 30001, 4800, 500, 40960, 20000],
+                     dtype=torch.int32)
+    ref, ref_n = vad_trim_batch(buf, n, dec)
+    got, got_n = vad_trim_batch(buf.to(device), n.to(device),
+                                dec.to(device))
+    assert torch.equal(got.cpu(), ref) and torch.equal(got_n.cpu(), ref_n)
+
+
+def test_cpu_tensors_never_reach_the_vad_kernels(device):
+    """With a card present, CPU tensors still take the plain versions."""
+    from mmla_audio_torch.vad.collector import vad_collect_rows
+    from mmla_audio_torch.vad.webrtc import webrtc_init, webrtc_vad_rows
+
+    before = (webrtc_vad_rows.launches, vad_collect_rows.launches)
+    dec = webrtc_vad_rows(torch.from_numpy(_vad_windows(2, seed=4)),
+                          webrtc_init(2, "cpu"), [0, 1])
+    keep, _ = vad_collect_rows(dec, torch.tensor([85, 85], dtype=torch.int32))
+    assert keep.device.type == "cpu"
+    assert (webrtc_vad_rows.launches, vad_collect_rows.launches) == before
+
+
+def test_multiplexer_launches_each_kernel_once_a_batch(device, tmp_path):
+    """The multiplexer on the card: every dispatched batch launches W1, W2
+    and the featurizer once and the fused block once per non-pooling
+    block; the labels equal the CPU multiplexer's on the same audio."""
+    import dataclasses
+
+    from mmla_audio_torch.core.config import PipelineConfig
+    from mmla_audio_torch.streaming.capture import PrefilledCapture
+    from mmla_audio_torch.streaming.multiplex import Multiplexer
+    from mmla_audio_torch.vad.collector import vad_collect_rows
+    from mmla_audio_torch.vad.webrtc import webrtc_vad_rows
+
+    mcfg = OverlapModelConfig(stage_filters=(8, 8, 8), lstm_units=8,
+                              input_scale=1 / 255)
+    cfg = dataclasses.replace(PipelineConfig(), overlap_model=mcfg)
+    sd = keras_init_(OverlapResBLSTM(mcfg),
+                     torch.Generator().manual_seed(0)).state_dict()
+    audio = [(_audio(1, 3 * 40960, seed=s)[0] * 20000).astype(np.int16)
+             for s in range(3)]
+    noise = (np.random.RandomState(3).randn(160000) * 15).astype(np.int16)
+    labels = {}
+    for dev in (device, torch.device("cpu")):
+        pred = OverlapPredictor(sd, mcfg, device=dev,
+                                matmul_precision="highest")
+        mux = Multiplexer(pred, tmp_path / dev.type, buckets=(2, 4),
+                          cfg=cfg, device=dev)
+        streams = [mux.add_stream(f"s{i}", PrefilledCapture(a), noise)
+                   for i, a in enumerate(audio)]
+        batches = []
+        orig = mux._dispatch_staged
+
+        def spy():
+            batches.append(1)
+            return orig()
+
+        mux._dispatch_staged = spy
+        before = (webrtc_vad_rows.launches, vad_collect_rows.launches,
+                  overlap_model_input_cuda.launches,
+                  fused_resblock_cuda.launches_mma)
+        assert mux.run_until_exhausted() == 9
+        after = (webrtc_vad_rows.launches, vad_collect_rows.launches,
+                 overlap_model_input_cuda.launches,
+                 fused_resblock_cuda.launches_mma)
+        n = len(batches) if dev.type == "cuda" else 0
+        assert [a - b for a, b in zip(after, before)] == [n, n, n, 6 * n]
+        labels[dev.type] = [[r[1] for r in s.results] for s in streams]
+    assert len(batches) >= 3
+    assert labels["cuda"] == labels["cpu"]
+
+
+def test_multiplexer_dispatch_does_not_wait_for_the_card(device, tmp_path):
+    """A tick's gather and dispatch (the copies, W1, W2, the featurizer and
+    the model) enqueue without a synchronizing call: only the next tick's
+    label fetch waits for the card."""
+    import dataclasses
+
+    from mmla_audio_torch.core.config import PipelineConfig
+    from mmla_audio_torch.streaming.capture import PrefilledCapture
+    from mmla_audio_torch.streaming.multiplex import Multiplexer
+
+    mcfg = OverlapModelConfig(stage_filters=(8, 8, 8), lstm_units=8)
+    cfg = dataclasses.replace(PipelineConfig(), overlap_model=mcfg)
+    sd = keras_init_(OverlapResBLSTM(mcfg),
+                     torch.Generator().manual_seed(0)).state_dict()
+    pred = OverlapPredictor(sd, mcfg, device=device)
+    mux = Multiplexer(pred, tmp_path, bucket=2, cfg=cfg, device=device)
+    noise = (np.random.RandomState(3).randn(160000) * 15).astype(np.int16)
+    for s in range(2):
+        mux.add_stream(f"s{s}", PrefilledCapture(
+            (_audio(1, 3 * 40960, seed=s)[0] * 20000).astype(np.int16)),
+            noise)
+    assert mux.tick() == 0 and mux.flush() == 2      # warm: caches, plans
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        assert mux.tick() == 0                       # gather + dispatch
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert mux._inflight is not None
+    assert mux.tick() == 2 and mux.flush() == 2
