@@ -7,6 +7,9 @@ Header, written with the first row:
 Rows: ``<index>\\t<label>\\t<str(datetime)>``.  Live loops start at segment 1
 and stamp ``datetime.today()`` per row; post-time loops start at 0 and add a
 fixed ``timedelta`` per segment (`overlap_detection_post_processing.py:211-226`).
+``timestamps=False`` writes the edge speaker runner's schema: a
+``segment\\tspeaker`` header and rows without a timestamp column
+(`SpeakerIdentification/scripts/record_on_pi.py:226-251`).
 """
 
 from __future__ import annotations
@@ -28,12 +31,15 @@ class SessionLog:
     """Append-only TSV log; each write is flushed as it is made."""
 
     def __init__(self, path, kind: str = "overlap", start_index: int = 1,
-                 overwrite: bool = False):
+                 overwrite: bool = False, timestamps: bool = True):
         if kind not in ("overlap", "speaker"):
             raise ValueError(f"SessionLog kind must be 'overlap' or "
                              f"'speaker': {kind!r}")
         self.path = Path(path)
+        self.timestamps = timestamps
         self.header = OVERLAP_HEADER if kind == "overlap" else SPEAKER_HEADER
+        if not timestamps:
+            self.header = self.header.rsplit("\t", 1)[0]
         self.index = start_index
         self.path.parent.mkdir(parents=True, exist_ok=True)
         if overwrite and self.path.exists():
@@ -58,7 +64,8 @@ class SessionLog:
                 f.write(self.header + "\n")
                 self._wrote_header = True
             for label, ts in rows:
-                f.write(f"{self.index}\t{label}\t{ts}\n")
+                f.write(f"{self.index}\t{label}\t{ts}\n" if self.timestamps
+                        else f"{self.index}\t{label}\n")
                 self.index += 1
 
     def ensure_header(self) -> None:

@@ -1,9 +1,9 @@
 """Command-line entry points of the PyTorch port.
 
     python -m mmla_audio_torch.cli setup        --root experiment
-    python -m mmla_audio_torch.cli overlap-live --fake [--windows N] [--vad energy|webrtc]
-    python -m mmla_audio_torch.cli speaker-live --fake [--windows N] [--register NAME ...]
-    python -m mmla_audio_torch.cli overlap-run  -f clip.wav | --dir DIR
+    python -m mmla_audio_torch.cli overlap-live [--fake] [--windows N] [--vad energy|webrtc] [--edge]
+    python -m mmla_audio_torch.cli speaker-live [--fake] [--windows N] [--register NAME ...] [--edge]
+    python -m mmla_audio_torch.cli overlap-run  -f clip.wav | --dir DIR [--parity]
     python -m mmla_audio_torch.cli overlap-post --root experiment [--vad energy|webrtc]
     python -m mmla_audio_torch.cli speaker-post --root experiment [--vad energy|webrtc]
     python -m mmla_audio_torch.cli speaker-pretrain --wav-dir DIR --out OUT [--epochs N]
@@ -12,8 +12,13 @@
     python -m mmla_audio_torch.cli charts       --root experiment [--kind overlap|speaker]
 
 ``--weights PATH.npz`` loads the model from the flat ``.npz`` that
-``params.py`` documents; without it the weights are random-init from
-``--seed`` (Keras initializers, as the JAX CLI without ``--ckpt``).  A
+``params.py`` documents, ``--ckpt DIR`` from a checkpoint directory of the
+port (its ``variables.npz``: what ``overlap-train --out``,
+``speaker-pretrain --out``, registration's ``experiment/model`` and
+``export.export_serving`` write); without either the weights are
+random-init from ``--seed`` (Keras initializers, as the JAX CLI without
+``--ckpt``).  A reference-trained Keras SavedModel is loaded from Python
+with ``convert.load_checkpoint_state_dict``, as the JAX package offers it.  A
 speaker model's head is as wide as the file's; ``speaker-post`` checks it
 against the enrollment corpus (one ``.wav`` per speaker) and takes a
 sigmoid head when there is one, as the JAX CLI does.  ``speaker-live
@@ -31,8 +36,16 @@ read.
 ``--precision``: ``default`` (alias ``auto``) is each model's own default,
 ``highest`` IEEE fp32 everywhere, ``fast`` TF32 in the models (for
 registration, in training too).  ``--device`` defaults to ``cuda``; a run
-without a card fails unless it asks for ``--device cpu``.  Not ported yet,
-and refused: a microphone (pass ``--fake``).
+without a card fails unless it asks for ``--device cpu``.
+
+The live commands capture from the microphone (``pyaudio``) unless given
+``--fake``.  ``--edge`` runs the edge variants (``streaming/edge.py``: x4
+denoise and the SSIM gate; the gated, pinned-program speaker loop with the
+timestamp-free log).  ``--host-preprocess``/``--no-host-preprocess`` force
+the host split on or off (default: on exactly when the decision is webrtc
+and the native engine builds); it is refused with ``--edge``.
+``overlap-run --parity`` holds the compiled (CUDA-graph) predictor against
+the eager one on the run's batch.
 """
 
 from __future__ import annotations
@@ -69,17 +82,34 @@ def _matmul_precision(args):
             "fast": None}[args.precision]
 
 
+def _weights(args):
+    """The ``.npz`` of ``--weights`` or of the ``--ckpt`` directory (None
+    for random init)."""
+    ckpt = getattr(args, "ckpt", None)
+    if ckpt and args.weights:
+        raise SystemExit(f"{args.cmd}: pass --weights or --ckpt, not both")
+    if not ckpt:
+        return args.weights
+    npz = Path(ckpt) / "variables.npz"
+    if not npz.is_file():
+        raise SystemExit(f"{args.cmd}: --ckpt {ckpt} holds no variables.npz "
+                         f"(a checkpoint directory of the port: "
+                         f"overlap-train --out, speaker-pretrain --out, "
+                         f"experiment/model, export_serving)")
+    return npz
+
+
 def _overlap_predictor(args, cfg):
     from mmla_audio_torch.inference import OverlapPredictor
     from mmla_audio_torch.models.overlap import OverlapResBLSTM, keras_init_
     from mmla_audio_torch.params import (load_overlap_npz,
                                          overlap_state_dict_from_jax)
 
-    if args.weights:
+    weights = _weights(args)
+    if weights:
         state_dict = overlap_state_dict_from_jax(
-            load_overlap_npz(args.weights, cfg.overlap_model),
-            cfg.overlap_model)
-        print(f"[INFO] weights: {args.weights}")
+            load_overlap_npz(weights, cfg.overlap_model), cfg.overlap_model)
+        print(f"[INFO] weights: {weights}")
     else:
         state_dict = keras_init_(OverlapResBLSTM(cfg.overlap_model),
                                  torch.Generator().manual_seed(args.seed)
@@ -103,13 +133,14 @@ def _speaker_predictor(args, cfg, n_speakers: int | None = None):
                                          speaker_state_dict_from_jax)
 
     mcfg = cfg.speaker_model
-    if args.weights:
-        tree, head = load_speaker_npz(args.weights, mcfg)
+    weights = _weights(args)
+    if weights:
+        tree, head = load_speaker_npz(weights, mcfg)
         if n_speakers is not None and head != n_speakers:
-            raise SystemExit(f"{args.weights}: the head has {head} units, "
+            raise SystemExit(f"{weights}: the head has {head} units, "
                              f"the enrollment corpus {n_speakers} speakers")
         state_dict = speaker_state_dict_from_jax(tree, mcfg, head)
-        print(f"[INFO] weights: {args.weights}")
+        print(f"[INFO] weights: {weights}")
     else:
         head = n_speakers
         state_dict = keras_init_(SpeakerResBLSTM(mcfg, head),
@@ -131,14 +162,41 @@ def cmd_setup(args):
     print(f"[INFO] experiment tree ready under {dirs.root}")
 
 
+def _source(args, cfg):
+    """The fake source with ``--fake``, else the microphone."""
+    from mmla_audio_torch.streaming.capture import FakePCMSource, PyAudioSource
+
+    if args.fake:
+        return FakePCMSource(cfg.audio, seed=args.seed,
+                             realtime=args.realtime)
+    try:
+        return PyAudioSource(cfg.audio)
+    except ImportError:
+        raise SystemExit(f"{args.cmd}: the microphone needs the pyaudio "
+                         f"package, which is not installed; pass --fake") \
+            from None
+
+
+def _session_kw(args) -> dict:
+    """The live commands' session options: ``--save-recordings`` and,
+    without ``--edge``, the tri-state ``--host-preprocess``."""
+    if args.edge and args.host_preprocess:
+        raise SystemExit(f"{args.cmd}: --host-preprocess is not supported "
+                         f"with --edge (the edge pipeline runs on the "
+                         f"session's device; see streaming/edge.py)")
+    kw = dict(save_recordings=args.save_recordings)
+    if not args.edge:
+        kw["host_preprocess"] = "auto" if args.host_preprocess is None \
+            else args.host_preprocess
+    return kw
+
+
 def _run_live(args, cfg, make_session, show, prepare=None) -> None:
     """Calibrate, ``prepare(session)`` if given, then run a live session on
-    the fake source."""
-    from mmla_audio_torch.streaming.capture import CaptureThread, FakePCMSource
+    the fake source or the microphone."""
+    from mmla_audio_torch.streaming.capture import CaptureThread
 
-    cap = CaptureThread(FakePCMSource(cfg.audio, seed=args.seed,
-                                      realtime=args.realtime),
-                        cfg.audio).start()
+    cap = CaptureThread(_source(args, cfg), cfg.audio).start()
     try:
         sess = make_session(cap)
         cal_s = args.calibrate_seconds or cfg.audio.noise_profile_seconds
@@ -153,36 +211,36 @@ def _run_live(args, cfg, make_session, show, prepare=None) -> None:
     print(f"[INFO] log: {sess.log.path}")
 
 
-def _refuse_microphone(args):
-    if not args.fake:
-        raise SystemExit(f"{args.cmd}: microphone capture is not ported "
-                         f"yet; pass --fake")
-
-
 def cmd_overlap_live(args):
+    from mmla_audio_torch.streaming.edge import EdgeOverlapSession
     from mmla_audio_torch.streaming.session import OverlapSession
 
-    _refuse_microphone(args)
+    kw = _session_kw(args)
     cfg = _cfg(args)
     pred = _overlap_predictor(args, cfg)
+    # the edge variant: x4 denoise and the SSIM silence gate
+    session_cls = EdgeOverlapSession if args.edge else OverlapSession
 
     def show(idx, label, prob):
         print(f"[INFO] window {idx}: {label}  (probs {np.round(prob, 3)})")
 
-    _run_live(args, cfg, lambda cap: OverlapSession(
-        pred, cap, args.root, cfg=cfg, save_recordings=args.save_recordings),
-        show)
+    _run_live(args, cfg, lambda cap: session_cls(pred, cap, args.root,
+                                                 cfg=cfg, **kw), show)
 
 
 def cmd_speaker_live(args):
     """Identify speakers on the fake source with the base (630-way) model
     or ``--weights``; with ``--register NAME ...``, first enroll each name
     and fine-tune that model on the corpus (`record_on_pc.py` main)."""
+    from mmla_audio_torch.streaming.edge import EdgeSpeakerSession
     from mmla_audio_torch.streaming.session import SpeakerSession
 
-    _refuse_microphone(args)
+    kw = _session_kw(args)
     cfg = _cfg(args)
     pred = _speaker_predictor(args, cfg)
+    # the edge variant: gated capture and registration, the identify step
+    # as a pinned program, the timestamp-free log
+    session_cls = EdgeSpeakerSession if args.edge else SpeakerSession
 
     def register(sess):
         for name in args.register:
@@ -208,14 +266,16 @@ def cmd_speaker_live(args):
     def show(idx, label, prob):
         print(f"[INFO] window {idx}: {label}")
 
-    _run_live(args, cfg, lambda cap: SpeakerSession(
-        pred, cap, args.root, cfg=cfg, save_recordings=args.save_recordings),
-        show, prepare=register if args.register else None)
+    _run_live(args, cfg, lambda cap: session_cls(pred, cap, args.root,
+                                                 cfg=cfg, **kw),
+              show, prepare=register if args.register else None)
 
 
 def cmd_overlap_run(args):
     """Offline WAV file(s) -> one label each (no VAD: the silent gate is the
-    raw length), with timings."""
+    raw length), with timings; ``--parity`` holds the predictor compiled
+    for the batch's signature (``export.aot_compile``, a CUDA graph on the
+    card) against the eager one, argmax per window."""
     from mmla_audio_torch.analyze.logs import OVERLAP_LABELS
     from mmla_audio_torch.data.wavio import read_wav
 
@@ -246,6 +306,18 @@ def cmd_overlap_run(args):
         labels, _ = pred.predict(bufs, counts)
         labels = labels.cpu().numpy()
         times[stage] = time.perf_counter() - t0
+
+    if args.parity:
+        from mmla_audio_torch.export import aot_compile, parity_check
+
+        operands = (torch.from_numpy(bufs).to(pred.device),
+                    torch.from_numpy(counts).to(pred.device))
+        t0 = time.perf_counter()
+        compiled = aot_compile(pred.predict, *operands)
+        times["aot_compile"] = time.perf_counter() - t0
+        parity_check(lambda b, n: pred.predict(b, n)[1],
+                     lambda b, n: compiled(b, n)[1], operands)
+        print("[INFO] AOT parity check passed")
 
     for p, lab in zip(paths, labels):
         name = "silent" if lab < 0 else OVERLAP_LABELS[str(int(lab))]
@@ -439,6 +511,9 @@ def main(argv=None):
         p.add_argument("--weights", default=None, metavar="PATH.npz",
                        help="model weights as the flat .npz of params.py "
                             "(default: random init from --seed)")
+        p.add_argument("--ckpt", default=None, metavar="DIR",
+                       help="a checkpoint directory of the port (its "
+                            "variables.npz), instead of --weights")
 
     p = sub.add_parser("setup")
     p.add_argument("--root", default="experiment")
@@ -460,9 +535,21 @@ def main(argv=None):
         p.add_argument("--windows", type=int, default=None)
         p.add_argument("--calibrate-seconds", type=float, default=None)
         p.add_argument("--save-recordings", action="store_true")
+        p.add_argument("--host-preprocess", dest="host_preprocess",
+                       action="store_true", default=None,
+                       help="force the host split: denoise, webrtc VAD and "
+                            "trim on the CPU, only the trimmed window to "
+                            "the device (default: off on a CUDA card, "
+                            "else on when the decision is webrtc and the "
+                            "native engine builds); --no-host-preprocess "
+                            "keeps the chain on the device")
+        p.add_argument("--no-host-preprocess", dest="host_preprocess",
+                       action="store_false", help=argparse.SUPPRESS)
 
     p = sub.add_parser("overlap-live")
     live(p)
+    p.add_argument("--edge", action="store_true",
+                   help="edge variant: x4 denoise and the SSIM silence gate")
     p.set_defaults(fn=cmd_overlap_live)
 
     p = sub.add_parser("speaker-live")
@@ -473,6 +560,9 @@ def main(argv=None):
     p.add_argument("--enroll-seconds", type=float, default=None)
     p.add_argument("--phase1-epochs", type=int, default=None)
     p.add_argument("--phase2-epochs", type=int, default=None)
+    p.add_argument("--edge", action="store_true",
+                   help="edge variant: gated capture, the identify step as "
+                        "a pinned program, timestamp-free log")
     p.set_defaults(fn=cmd_speaker_live)
 
     p = sub.add_parser("overlap-run")
@@ -481,6 +571,9 @@ def main(argv=None):
                    help="accepted as the JAX CLI does; unused")
     p.add_argument("-f", "--file", default=None)
     p.add_argument("-dir", "--dir", default=None)
+    p.add_argument("--parity", action="store_true",
+                   help="hold the compiled predictor (a CUDA graph on the "
+                        "card) against the eager one, argmax per window")
     p.set_defaults(fn=cmd_overlap_run)
 
     for name, fn in (("overlap-post", cmd_overlap_post),

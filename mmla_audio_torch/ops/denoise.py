@@ -6,13 +6,20 @@
      (population std).
   2. signal: same STFT -> gate mask ``db > threshold`` -> ``mask *
      prop_decrease + (1 - prop_decrease)`` -> smoothed by the outer
-     triangular kernel (~500 Hz x 50 ms), applied as two banded GEMMs.
+     triangular kernel (~500 Hz x 50 ms), a frequency band then a time band.
   3. ``STFT * mask`` -> inverse STFT (overlap-add, squared-window
      normalization), after zero-padding each side (noisereduce's chunk
      padding, shortened phase-aligned; see :func:`_chunk_pad`).
 
 STFT and ISTFT are GEMMs on framed signals against float64-built bases.
-``DenoiseConfig.precision == "highest"`` keeps them in IEEE fp32 on the card.
+Three wrappers dispatch on the tensor's device: ``stft_ri`` and
+``istft_frames`` (kernel D1, ``csrc/denoise.cu``) and ``smooth_mask`` (D2).
+A CPU tensor takes the plain version: ``torch.matmul`` against the bases
+and the dense banded matrices, under ``DenoiseConfig.precision``.  A CUDA
+tensor launches the kernel or raises: D1 sums every output over K in one
+fixed order in IEEE fp32 (whatever the precision policy), D2 sums the taps
+in ascending order, so each window of a batch gets the bits it gets alone.
+Each wrapper counts its launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -24,11 +31,15 @@ import torch
 import torch.nn.functional as F
 
 from mmla_audio_torch.core.config import DenoiseConfig
+from mmla_audio_torch.ops.cuda_denoise import (launch_fixed_order_gemm,
+                                               launch_smooth_mask)
 from mmla_audio_torch.ops.spectral import frame_signal, hann_periodic, pad_last
 from mmla_audio_torch.precision import fp32_policy
 
 __all__ = ["quantize_i16", "amp_to_db", "gate_mask", "noise_threshold",
-           "reduce_noise"]
+           "reduce_noise", "reduce_noise_plain", "stft_ri", "stft_ri_plain",
+           "istft_frames", "istft_frames_plain", "smooth_mask",
+           "smooth_mask_plain"]
 
 _PAD = 30_000     # noisereduce chunk padding
 _AMIN = 1e-20     # librosa amplitude_to_db amin
@@ -104,6 +115,16 @@ def _bases(n_fft: int, device: torch.device):
                  for a in (fc, fs, ic.T, isn.T, w))
 
 
+@functools.lru_cache(maxsize=None)
+def _kernel_bases(n_fft: int, device: torch.device):
+    """D1's operands, the same float32 values as ``_bases``: the forward
+    ``[fwd_cos | fwd_sin]`` ``(n_fft, 2K)`` and the inverse ``[inv_cos.T;
+    -inv_sin.T]`` ``(2K, n_fft)``."""
+    fc, fs, ic_t, is_t, _ = (a.cpu() for a in _bases(n_fft, device))
+    return (torch.cat([fc, fs], dim=1).to(device),
+            torch.cat([ic_t, -is_t], dim=0).to(device))
+
+
 def _band_matrix(v: np.ndarray, n: int) -> np.ndarray:
     """(n, n) matrix M with ``(x @ M)[i] = sum_k v[k] * x[i + c - k]``
     (zero-padded 'same' convolution with the odd-length kernel v)."""
@@ -116,8 +137,9 @@ def _band_matrix(v: np.ndarray, n: int) -> np.ndarray:
     return m
 
 
-# A whole post-time recording gets a (T, T) time matrix of its own (1.4 GB
-# for 5 minutes): keep only the last two shapes.
+# The CPU's plain version only: a whole post-time recording gets a (T, T)
+# time matrix of its own (1.4 GB for 5 minutes): keep only the last two
+# shapes.
 @functools.lru_cache(maxsize=2)
 def _smoothing_matrices(cfg: DenoiseConfig, sr: int, n_bins: int,
                         n_frames: int, device: torch.device):
@@ -132,6 +154,28 @@ def _smoothing_matrices(cfg: DenoiseConfig, sr: int, n_bins: int,
 
 
 @functools.lru_cache(maxsize=None)
+def _smoothing_taps(cfg: DenoiseConfig, sr: int, device: torch.device):
+    """D2's taps ``(v_f, v_t)``: the float32 values of the banded
+    matrices' diagonals."""
+    return tuple(torch.as_tensor(v.astype(np.float32), device=device)
+                 for v in _smoothing_factors(sr, cfg.n_fft, cfg.hop_length,
+                                             cfg.freq_mask_smooth_hz,
+                                             cfg.time_mask_smooth_ms))
+
+
+def _on_card(x: torch.Tensor, name: str) -> bool:
+    """True for a CUDA float32 tensor, False for a CPU one; raise for any
+    other device or dtype."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name}: float32 required, got {x.dtype}")
+    return True
+
+
+@functools.lru_cache(maxsize=None)
 def _inv_window_sum(n_fft: int, hop: int, n_frames: int,
                     device: torch.device) -> torch.Tensor:
     """1 / sum of squared synthesis windows at each overlap-add sample."""
@@ -143,22 +187,99 @@ def _inv_window_sum(n_fft: int, hop: int, n_frames: int,
                            device=device)
 
 
-def _stft_ri(y: torch.Tensor, n_fft: int, hop: int):
-    """Centered (reflect) STFT -> ``(re, im)``, each ``(..., frames, bins)``."""
+def stft_ri_plain(y: torch.Tensor, n_fft: int, hop: int):
+    """``stft_ri``'s plain version: the frames of the reflect-padded signal
+    against the forward bases, two ``torch.matmul``."""
     frames = frame_signal(pad_last(y, n_fft // 2, n_fft // 2, "reflect"),
                           n_fft, hop, 1 + y.shape[-1] // hop)
     fc, fs, _, _, _ = _bases(n_fft, y.device)
     return torch.matmul(frames, fc), torch.matmul(frames, fs)
 
 
+def stft_ri(y: torch.Tensor, n_fft: int, hop: int):
+    """Centered (reflect) STFT of ``y (..., n)`` -> ``(re, im)``, each
+    ``(..., frames, bins)``.  On the card, one launch of D1 reading the
+    frames from the reflect-padded signal (row stride ``hop``); ``re`` and
+    ``im`` are then the two halves of one ``(..., frames, 2 * bins)``
+    spectrum."""
+    if not _on_card(y, "stft_ri"):
+        return stft_ri_plain(y, n_fft, hop)
+    lead, n = y.shape[:-1], y.shape[-1]
+    T, K = 1 + n // hop, n_fft // 2 + 1
+    yr = F.pad(y.reshape(-1, n), (n_fft // 2, n_fft // 2), mode="reflect")
+    spec = launch_fixed_order_gemm(yr, T, yr.stride(0), hop,
+                                   yr.shape[0] * T, n_fft,
+                                   _kernel_bases(n_fft, y.device)[0])
+    stft_ri.launches += bool(spec.numel())
+    spec = spec.reshape(lead + (T, 2 * K))
+    return spec[..., :K], spec[..., K:]
+
+
+stft_ri.launches = 0
+
+
+def istft_frames_plain(re: torch.Tensor, im: torch.Tensor,
+                       n_fft: int) -> torch.Tensor:
+    """``istft_frames``' plain version: two ``torch.matmul``."""
+    _, _, ic_t, is_t, _ = _bases(n_fft, re.device)
+    return torch.matmul(re, ic_t) - torch.matmul(im, is_t)
+
+
+def istft_frames(re: torch.Tensor, im: torch.Tensor,
+                 n_fft: int) -> torch.Tensor:
+    """Unwindowed inverse rDFT frames ``(..., frames, n_fft)`` of ``(re,
+    im)``, each ``(..., frames, bins)``.  On the card, one launch of D1 on
+    ``[re | im]`` against ``[inv_cos.T; -inv_sin.T]`` (K = 2 * bins)."""
+    if not _on_card(re, "istft_frames"):
+        return istft_frames_plain(re, im, n_fft)
+    a = torch.cat([re, im], dim=-1)
+    a2 = a.reshape(-1, a.shape[-1])
+    out = launch_fixed_order_gemm(a2, 1, a2.shape[1], 0, a2.shape[0],
+                                  a2.shape[1],
+                                  _kernel_bases(n_fft, re.device)[1])
+    istft_frames.launches += bool(out.numel())
+    return out.reshape(a.shape[:-1] + (n_fft,))
+
+
+istft_frames.launches = 0
+
+
+def smooth_mask_plain(mask: torch.Tensor, cfg: DenoiseConfig,
+                      sr: int) -> torch.Tensor:
+    """``smooth_mask``'s plain version: the dense banded pair,
+    ``mt_t @ (mask @ mf)``."""
+    mf, mt_t = _smoothing_matrices(cfg, sr, mask.shape[-1], mask.shape[-2],
+                                   mask.device)
+    return torch.matmul(mt_t, torch.matmul(mask, mf))
+
+
+def smooth_mask(mask: torch.Tensor, cfg: DenoiseConfig,
+                sr: int) -> torch.Tensor:
+    """The gate mask ``(..., frames, bins)`` smoothed by the outer
+    triangular kernel: the frequency band, then the time band within each
+    window, both zero-padded "same".  On the card, one launch of D2, whose
+    memory does not grow with the frame count."""
+    if not _on_card(mask, "smooth_mask"):
+        return smooth_mask_plain(mask, cfg, sr)
+    T, K = mask.shape[-2:]
+    out = launch_smooth_mask(mask.reshape(-1, T, K).contiguous(),
+                             *_smoothing_taps(cfg, sr, mask.device))
+    smooth_mask.launches += bool(out.numel())
+    return out.reshape(mask.shape)
+
+
+smooth_mask.launches = 0
+
+
 def _istft(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop: int,
-           out_len: int) -> torch.Tensor:
-    """librosa.istft: windowed inverse frames, overlap-add, divided by the
-    squared-window sum, ``n_fft // 2`` head trimmed (centered)."""
+           out_len: int, inverse) -> torch.Tensor:
+    """librosa.istft: windowed inverse frames (``inverse``), overlap-add,
+    divided by the squared-window sum, ``n_fft // 2`` head trimmed
+    (centered)."""
     T = re.shape[-2]
     total = n_fft + (T - 1) * hop
-    _, _, ic_t, is_t, w = _bases(n_fft, re.device)
-    frames = (torch.matmul(re, ic_t) - torch.matmul(im, is_t)) * w
+    w = _bases(n_fft, re.device)[4]
+    frames = inverse(re, im, n_fft) * w
     lead = frames.shape[:-2]
     cols = frames.reshape(-1, T, n_fft).transpose(1, 2)          # (N, win, T)
     y = F.fold(cols, output_size=(1, total), kernel_size=(1, n_fft),
@@ -196,19 +317,14 @@ def noise_threshold(noise: torch.Tensor,
     """Per-frequency gate threshold ``(K,)`` from the ambient-noise clip
     ``noise (n,)`` float in [-1, 1]: ``mean_db + n_std * std_db`` over time."""
     with fp32_policy(cfg.precision != "highest"):
-        re, im = _stft_ri(noise, cfg.n_fft, cfg.hop_length)
+        re, im = stft_ri(noise, cfg.n_fft, cfg.hop_length)
     db = amp_to_db(torch.sqrt(re * re + im * im))                # (T, K)
     mean = db.mean(dim=-2)
     std = db.std(dim=-2, correction=0)
     return mean + std * cfg.n_std_thresh
 
 
-def reduce_noise(y: torch.Tensor, noise_thresh: torch.Tensor,
-                 cfg: DenoiseConfig = DenoiseConfig(), sr: int = 16_000,
-                 passes: int = 1) -> torch.Tensor:
-    """Denoise ``y (..., n)`` (float [-1, 1]) against a precomputed
-    threshold.  ``passes > 1`` re-applies the gate, quantizing to int16
-    between passes as the reference's WAV round-trips do."""
+def _reduce(y, noise_thresh, cfg, sr, passes, stft, inverse, smooth):
     n = y.shape[-1]
     pad = _chunk_pad(cfg, sr)
     with fp32_policy(cfg.precision != "highest"):
@@ -216,11 +332,29 @@ def reduce_noise(y: torch.Tensor, noise_thresh: torch.Tensor,
             if pass_idx > 0:
                 y = quantize_i16(y) / 32768.0
             yp = F.pad(y, (pad, pad))
-            re, im = _stft_ri(yp, cfg.n_fft, cfg.hop_length)     # (..., T, K)
-            mask = gate_mask(re, im, noise_thresh, cfg.prop_decrease)
-            mf, mt_t = _smoothing_matrices(cfg, sr, mask.shape[-1],
-                                           mask.shape[-2], y.device)
-            mask = torch.matmul(mt_t, torch.matmul(mask, mf))
+            re, im = stft(yp, cfg.n_fft, cfg.hop_length)         # (..., T, K)
+            mask = smooth(gate_mask(re, im, noise_thresh, cfg.prop_decrease),
+                          cfg, sr)
             y = _istft(re * mask, im * mask, cfg.n_fft, cfg.hop_length,
-                       yp.shape[-1])[..., pad: pad + n]
+                       yp.shape[-1], inverse)[..., pad: pad + n]
     return y
+
+
+def reduce_noise(y: torch.Tensor, noise_thresh: torch.Tensor,
+                 cfg: DenoiseConfig = DenoiseConfig(), sr: int = 16_000,
+                 passes: int = 1) -> torch.Tensor:
+    """Denoise ``y (..., n)`` (float [-1, 1]) against a precomputed
+    threshold.  ``passes > 1`` re-applies the gate, quantizing to int16
+    between passes as the reference's WAV round-trips do.  On the card
+    every window of a batch gets the bits it gets alone (D1, D2)."""
+    return _reduce(y, noise_thresh, cfg, sr, passes, stft_ri, istft_frames,
+                   smooth_mask)
+
+
+def reduce_noise_plain(y: torch.Tensor, noise_thresh: torch.Tensor,
+                       cfg: DenoiseConfig = DenoiseConfig(),
+                       sr: int = 16_000, passes: int = 1) -> torch.Tensor:
+    """``reduce_noise`` through the plain versions on any device (what the
+    CPU runs; on the card, the kernels' yardstick)."""
+    return _reduce(y, noise_thresh, cfg, sr, passes, stft_ri_plain,
+                   istft_frames_plain, smooth_mask_plain)

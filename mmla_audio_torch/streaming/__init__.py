@@ -17,6 +17,7 @@ from mmla_audio_torch.streaming.session import (
     OverlapSession,
     SpeakerSession,
     StreamingSession,
+    preprocess_window,
     preprocess_windows,
     session_stamp,
 )
@@ -35,6 +36,7 @@ __all__ = [
     "OverlapSession",
     "SpeakerSession",
     "StreamingSession",
+    "preprocess_window",
     "preprocess_windows",
     "session_stamp",
 ]

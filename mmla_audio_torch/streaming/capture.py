@@ -7,6 +7,10 @@ replays a buffer.  ``CaptureThread`` pumps a source into a ring buffer
 builds) so capture jitter never blocks the session loop;
 ``PrefilledCapture`` is a ring loaded with a whole replay up front.  With
 native rings the multiplexer gathers all its streams' windows in one call.
+``PyAudioSource`` is a microphone (it needs the ``pyaudio`` package and
+raises at construction without it).  ``CaptureThread.suspend``/``resume``
+are the edge runners' gate: the producer thread itself suspends and resumes
+the source (`record_on_pi.py:139-159`).
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import numpy as np
 from mmla_audio_torch.core.config import AudioConfig
 from mmla_audio_torch.streaming.native import make_ring
 
-__all__ = ["FakePCMSource", "ArraySource", "CaptureThread",
+__all__ = ["FakePCMSource", "ArraySource", "PyAudioSource", "CaptureThread",
            "PrefilledCapture"]
 
 
@@ -86,11 +90,53 @@ class ArraySource:
         return out
 
 
+class PyAudioSource:
+    """A microphone through PyAudio (int16 mono), with the reference's
+    suspend/resume (`record_on_pi.py:139-159`).  Raises at construction
+    when ``pyaudio`` is not installed."""
+
+    def __init__(self, cfg: AudioConfig = AudioConfig(), device_index=None):
+        import pyaudio
+
+        self.cfg = cfg
+        self._pa = pyaudio.PyAudio()
+        self._kwargs = dict(
+            format=pyaudio.paInt16, channels=cfg.channels,
+            rate=cfg.sample_rate, input=True,
+            frames_per_buffer=cfg.chunk_samples,
+            input_device_index=device_index)
+        self._stream = self._pa.open(**self._kwargs)
+
+    def read(self, n: int) -> np.ndarray:
+        data = self._stream.read(n, exception_on_overflow=False)
+        return np.frombuffer(data, np.int16).copy()
+
+    def suspend(self) -> None:
+        self._stream.stop_stream()
+        self._stream.close()
+
+    def resume(self) -> None:
+        self._stream = self._pa.open(**self._kwargs)
+
+    def close(self) -> None:
+        try:
+            self._stream.stop_stream()
+            self._stream.close()
+        finally:
+            self._pa.terminate()
+
+
 class CaptureThread:
     """Producer thread: ``source.read(chunk)`` -> ring, until stopped or the
     source is exhausted.  ``drained`` turns true only after the final chunk
     is pushed; a source exception is kept in ``error`` (sessions re-raise
-    it, so a microphone fault is told apart from a clean end)."""
+    it, so a microphone fault is told apart from a clean end).
+
+    ``suspend()``/``resume()`` park and un-park the producer, which runs
+    ``source.suspend()``/``source.resume()`` on its own thread (closing a
+    PyAudio stream from another thread while the producer is blocked in
+    ``read`` kills capture); a suspension clears the ring, so audio from
+    before it is never classified after the resume."""
 
     def __init__(self, source, cfg: AudioConfig = AudioConfig(),
                  ring_seconds: float = 30.0):
@@ -100,6 +146,8 @@ class CaptureThread:
         self.drained = False
         self.error: Optional[BaseException] = None
         self._stop = threading.Event()
+        self._pause_req = threading.Event()
+        self._paused = threading.Event()
         self._thread: Optional[threading.Thread] = None
 
     def start(self) -> "CaptureThread":
@@ -110,6 +158,20 @@ class CaptureThread:
     def _run(self) -> None:
         try:
             while not self._stop.is_set():
+                if self._pause_req.is_set():
+                    if hasattr(self.source, "suspend"):
+                        self.source.suspend()
+                    self.ring.clear()
+                    self._paused.set()
+                    while self._pause_req.is_set() and \
+                            not self._stop.is_set():
+                        time.sleep(0.005)
+                    self._paused.clear()
+                    if self._stop.is_set():
+                        break
+                    if hasattr(self.source, "resume"):
+                        self.source.resume()
+                    continue
                 self.ring.push(self.source.read(self.cfg.chunk_samples))
                 if getattr(self.source, "exhausted", False):
                     break
@@ -117,6 +179,25 @@ class CaptureThread:
             self.error = e
         finally:
             self.drained = True
+
+    def suspend(self, timeout: float = 2.0) -> None:
+        """Gate released: park the producer (it suspends the source on its
+        own thread) and drop the buffered audio.  Callable before
+        ``start()``: the producer then parks before its first read, so a
+        capture created while the gate is released reads nothing."""
+        self._pause_req.set()
+        if self._thread is not None:
+            self._paused.wait(timeout)
+
+    def resume(self) -> None:
+        """Gate pressed again: un-park the producer (it resumes the
+        source)."""
+        self._pause_req.clear()
+
+    @property
+    def suspended(self) -> bool:
+        """True while a suspension is requested."""
+        return self._pause_req.is_set()
 
     def read_window(self, n_samples: int, timeout: float = 10.0
                     ) -> Optional[np.ndarray]:

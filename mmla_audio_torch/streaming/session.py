@@ -21,6 +21,17 @@ one row of a stacked state tensor (``vad/webrtc.py``; kernel W1 on the
 card), the hysteresis keep masks from ``vad_trim_batch`` (W2 on the card).
 The multiplexer runs it.
 
+``host_preprocess=True`` runs steps 1-3's denoise, decisions and trim on
+the CPU (``preprocess_window`` there, as ``streaming/hostpre.py`` does) and
+ships only the trimmed window to the card; ``False`` keeps step 1 on the
+session's device.  ``"auto"`` (the default) takes the host split when the
+decision is webrtc and the native engine builds, as in the JAX package,
+except on a CUDA device: there it keeps the chain on the card, through
+which a window reached its decision sooner on the H100 (``PERF.md``).
+``gate`` (``streaming/edge.GateSource``) is the edge runners' button:
+while it is released the capture is suspended (`record_on_pi.py:139-159`);
+``telemetry`` (``analyze/telemetry``) is sent each logged label.
+
 Calibration (10 s of ambient noise) gives the denoise profile, the energy
 VAD threshold and the ``Ambient_Noise.wav`` artifact.  Logs land under
 ``experiment/logs/<timestamp>.txt`` and optional window recordings under
@@ -53,11 +64,11 @@ from mmla_audio_torch.utils.experiment import ExperimentDirs, bootstrap
 from mmla_audio_torch.vad.collector import (calibrate_threshold, energy_vad,
                                             frame_count, vad_trim,
                                             vad_trim_batch)
-from mmla_audio_torch.vad.native import NativeWebRtcVad
+from mmla_audio_torch.vad.native import NativeWebRtcVad, native_available
 from mmla_audio_torch.vad.webrtc import webrtc_vad_rows
 
-__all__ = ["session_stamp", "preprocess_windows", "StreamingSession",
-           "OverlapSession", "SpeakerSession"]
+__all__ = ["session_stamp", "preprocess_window", "preprocess_windows",
+           "StreamingSession", "OverlapSession", "SpeakerSession"]
 
 
 def session_stamp(now: Optional[datetime] = None) -> str:
@@ -67,6 +78,35 @@ def session_stamp(now: Optional[datetime] = None) -> str:
     if "." in s:
         s = s[: s.index(".")]
     return s.replace(" ", "-").replace(":", "-")
+
+
+@torch.no_grad()
+def preprocess_window(window_i16, noise_thresh: torch.Tensor,
+                      cfg: PipelineConfig, *, vad=None,
+                      vad_threshold_db: float = 30.0
+                      ) -> tuple[torch.Tensor, int]:
+    """The single-window chain on ``noise_thresh``'s device: int16 window
+    -> /32768 -> denoise (``passes_live``) -> int16 re-quantization ->
+    per-frame decisions (the native engine ``vad``'s, its state carried
+    across calls, or without it the energy detector's at
+    ``vad_threshold_db``) -> ``vad_trim``.  Only the collector's ``T``
+    frames (strict ``<``) reach the detector.  Returns the trimmed
+    int16-scale float window on that device (zero beyond the count) and
+    the count."""
+    sr = cfg.audio.sample_rate
+    raw = torch.as_tensor(np.asarray(window_i16, np.int16))
+    y = raw.to(noise_thresh.device).to(torch.float32) / 32768.0
+    y = reduce_noise(y, noise_thresh, cfg.denoise, sr=sr,
+                     passes=cfg.denoise.passes_live)
+    i16 = quantize_i16(y)
+    fl = int(sr * cfg.vad.frame_ms / 1000)
+    T = frame_count(i16.shape[-1], fl)
+    if vad is not None:
+        decisions = vad.decisions(i16[: T * fl].to("cpu", torch.int16).numpy(),
+                                  frame_len=fl, sample_rate=sr)
+    else:
+        decisions = energy_vad(i16[: T * fl].reshape(T, fl), vad_threshold_db)
+    return vad_trim(i16, i16.shape[-1], decisions, fl, cfg.vad.ring_frames)
 
 
 @torch.no_grad()
@@ -115,11 +155,22 @@ class StreamingSession:
     def __init__(self, capture, dirs: ExperimentDirs | str,
                  cfg: PipelineConfig = PipelineConfig(),
                  device: torch.device | str = "cuda",
-                 save_recordings: bool = False):
+                 save_recordings: bool = False, telemetry=None, gate=None,
+                 host_preprocess: bool | str = "auto"):
+        self.device = torch.device(device)
+        if host_preprocess == "auto":
+            host_preprocess = (cfg.vad.decision == "webrtc"
+                               and self.device.type != "cuda"
+                               and native_available())
+        if host_preprocess and cfg.vad.decision != "webrtc":
+            raise ValueError(
+                "host_preprocess is the low-latency arrangement for the "
+                "webrtc decision; set cfg.vad.decision='webrtc'")
+        self.telemetry = telemetry
+        self.gate = gate
         self.capture = capture
         self.dirs = dirs if isinstance(dirs, ExperimentDirs) else bootstrap(dirs)
         self.cfg = cfg
-        self.device = torch.device(device)
         self.save_recordings = save_recordings
         stamp = session_stamp()
         self.log = SessionLog(self.dirs.logs / f"{stamp}.txt", kind=self.kind)
@@ -128,7 +179,10 @@ class StreamingSession:
             self.rec_dir.mkdir(parents=True, exist_ok=True)
         self.noise_thresh: Optional[torch.Tensor] = None
         self.vad_threshold_db = 30.0
-        self.frame_len = int(cfg.audio.sample_rate * cfg.vad.frame_ms / 1000)
+        # where the pre-decision chain runs, and its copy of the profile
+        self.preprocess_device = torch.device("cpu") if host_preprocess \
+            else self.device
+        self._nt_pre: Optional[torch.Tensor] = None
         # one window a call: "webrtc" runs the native host engine and raises
         # here if it cannot be built (the batched chain of many streams,
         # preprocess_windows, runs the engine on the card)
@@ -158,44 +212,59 @@ class StreamingSession:
                                             self.cfg.denoise)
         self.vad_threshold_db = calibrate_threshold(
             noise_i16, self.cfg.vad.aggressiveness)
+        self._nt_pre = self.noise_thresh.to(self.preprocess_device)
 
-    @torch.no_grad()
     def preprocess(self, window_i16: np.ndarray) -> tuple[torch.Tensor, int]:
-        """denoise -> int16 re-quantization -> VAD decisions -> trim.
-        Returns the trimmed int16-scale float window on the device (zero
-        beyond the count) and the count."""
+        """denoise -> int16 re-quantization -> VAD decisions -> trim, on
+        ``preprocess_device`` (``preprocess_window``).  Returns the trimmed
+        int16-scale float window there (zero beyond the count) and the
+        count."""
         if self.noise_thresh is None:
             raise RuntimeError("calibrate() or set_noise_profile() first")
-        cfg = self.cfg
-        raw = torch.from_numpy(np.asarray(window_i16, np.int16))
-        y = raw.to(self.device).to(torch.float32) / 32768.0
-        y = reduce_noise(y, self.noise_thresh, cfg.denoise,
-                         sr=cfg.audio.sample_rate,
-                         passes=cfg.denoise.passes_live)
-        i16 = quantize_i16(y)
-        fl = self.frame_len
-        T = frame_count(i16.shape[-1], fl)
-        if self._vad is not None:
-            # only the collector's T frames (strict `<`) reach the detector
-            decisions = self._vad.decisions(
-                i16[: T * fl].to("cpu", torch.int16).numpy(),
-                frame_len=fl, sample_rate=cfg.audio.sample_rate)
-        else:
-            decisions = energy_vad(i16[: T * fl].reshape(T, fl),
-                                   self.vad_threshold_db)
-        return vad_trim(i16, i16.shape[-1], decisions, fl,
-                        cfg.vad.ring_frames)
+        return preprocess_window(window_i16, self._nt_pre, self.cfg,
+                                 vad=self._vad,
+                                 vad_threshold_db=self.vad_threshold_db)
+
+    # -- the gate ---------------------------------------------------------------
+    def _suspend_target(self):
+        """What owns producer suspension: the capture when it runs its own
+        producer thread (``CaptureThread``), else the raw source."""
+        return self.capture if hasattr(self.capture, "suspend") else \
+            getattr(self.capture, "source", None)
+
+    def _ensure_capturing(self) -> None:
+        """Gate pressed: resume a capture created suspended (the edge
+        device boots with the button up) or parked by an earlier release.
+        Shared by the run loop and gated registration."""
+        target = self._suspend_target()
+        if hasattr(target, "resume"):
+            target.resume()
 
     def run(self, max_windows: Optional[int] = None,
             on_result: Optional[Callable] = None) -> list:
         """Consume windows until the capture ends or ``max_windows``;
-        returns ``[(index, label, timestamp)]``."""
+        returns ``[(index, label, timestamp)]``.  With a gate, the capture
+        is suspended while it is released and resumed when it is pressed;
+        a capture created suspended is adopted only by a gated session (an
+        always-on one leaves a capture an operator parked alone)."""
         if self.noise_thresh is None:
             raise RuntimeError("calibrate() or set_noise_profile() first")
         results = []
         n_win = self.cfg.audio.window_samples
+        target = self._suspend_target()
+        suspended = self.gate is not None and \
+            bool(getattr(target, "suspended", False))
         try:
             while max_windows is None or len(results) < max_windows:
+                if self.gate is not None and not self.gate.pressed:
+                    if not suspended and hasattr(target, "suspend"):
+                        target.suspend()
+                    suspended = True
+                    if not self.gate.wait_pressed(timeout=0.1):
+                        continue
+                if suspended:
+                    self._ensure_capturing()
+                    suspended = False
                 window = self.capture.read_window(n_win, timeout=30.0)
                 if window is None:
                     err = getattr(self.capture, "error", None)
@@ -205,6 +274,8 @@ class StreamingSession:
                 label, prob = self.process_window(window)
                 ts = datetime.today()
                 idx = self.log.append(label, ts)
+                if self.telemetry is not None:
+                    self.telemetry.send(label)
                 if self.save_recordings:
                     write_wav(self.rec_dir / f"{idx}.wav", window,
                               self.cfg.audio.sample_rate)
@@ -281,9 +352,12 @@ class SpeakerSession(StreamingSession):
             chunks.append(w)
             got += len(w)
         raw = (np.concatenate(chunks) if chunks else np.zeros(n, np.int16))[:n]
+        # the session's own chain, so that one detector sees every frame in
+        # capture order
         trimmed, n_out = self.preprocess(raw)
         path = self.dirs.corpus / f"{name}.wav"
-        write_wav(path, trimmed[:n_out].to("cpu", torch.int16).numpy(), sr)
+        write_wav(path, torch.as_tensor(trimmed)[:n_out].to(
+            "cpu", torch.int16).numpy(), sr)
         return path
 
     def train_on_registered(self, base_state_dict: Mapping[str, torch.Tensor],

@@ -1,8 +1,10 @@
 """Tests that need the card: the CUDA kernels (featurizer, one window and
 grouped, on speech, silence and a clipped sine; fused residual block; the
-batched webrtcvad engine W1 and the collector W2) against their plain
-versions, the block's dispatch rule, the predictor on the card against the
-CPU, and the multiplexer's launches.
+batched webrtcvad engine W1 and the collector W2; the denoise's D1 and D2)
+against their plain versions, the block's dispatch rule, the predictor on
+the card against the CPU, the multiplexer's launches, the denoise of a
+window equal in a batch and alone, and the predictor captured as a CUDA
+graph by ``export.aot_compile``.
 
 This file imports neither JAX nor tests/conftest.py, so it runs where JAX is
 not installed:  python -m pytest --noconftest tests/test_torch_cuda.py
@@ -423,3 +425,139 @@ def test_multiplexer_dispatch_does_not_wait_for_the_card(device, tmp_path):
         torch.cuda.set_sync_debug_mode("default")
     assert mux._inflight is not None
     assert mux.tick() == 2 and mux.flush() == 2
+
+
+# -- the denoise kernels: D1 (fixed-order GEMM) and D2 (banded smoothing) --
+
+def _denoise_input(batch, seed, n=40960):
+    from mmla_audio_torch.core.config import DenoiseConfig
+    from mmla_audio_torch.ops.denoise import noise_threshold
+
+    rng = np.random.RandomState(seed)
+    y = _audio(batch, n, seed) * rng.uniform(0.05, 1.0, (batch, 1)) \
+        + rng.randn(batch, n) * 1e-3
+    noise = (rng.randn(32000) * 1e-3).astype(np.float32)
+    return (torch.from_numpy(y.astype(np.float32)),
+            noise_threshold(torch.from_numpy(noise), DenoiseConfig()))
+
+
+@pytest.mark.parametrize("batch,passes", [(1, 1), (8, 1), (64, 1), (512, 1),
+                                          (8, 4)])
+def test_denoise_batch_equals_each_window_alone(device, batch, passes):
+    from mmla_audio_torch.ops.denoise import reduce_noise
+
+    y, nt = _denoise_input(batch, seed=batch)
+    y, nt = y.to(device), nt.to(device)
+    got = reduce_noise(y, nt, passes=passes)
+    rows = range(batch) if batch <= 64 else (0, 1, 200, 383, 510, 511)
+    for b in rows:
+        assert torch.equal(reduce_noise(y[b], nt, passes=passes), got[b])
+
+
+def test_denoise_batch_equals_alone_with_bucket_padding(device):
+    """The multiplexer's shape: 5 streams padded to a bucket of 8 with zero
+    rows, a threshold per row (zero for padding)."""
+    from mmla_audio_torch.ops.denoise import reduce_noise
+
+    y, nt = _denoise_input(8, seed=3)
+    y[5:] = 0
+    nts = torch.stack([nt * (1 + 0.1 * b) for b in range(8)])
+    nts[5:] = 0
+    y, nts = y.to(device), nts.to(device)
+    got = reduce_noise(y, nts[:, None, :])
+    for b in range(5):
+        assert torch.equal(reduce_noise(y[b], nts[b]), got[b])
+
+
+def test_fixed_order_gemm_matches_matmul(device):
+    """D1 against ``torch.matmul`` in IEEE fp32: fp32 sums of 1,024 (STFT)
+    and 1,026 (ISTFT) terms in two orders, within 2e-5 of max |ref|."""
+    from mmla_audio_torch.ops import denoise as dn
+
+    y, _ = _denoise_input(4, seed=7)
+    y = y.to(device)
+    before = (dn.stft_ri.launches, dn.istft_frames.launches)
+    with fp32_policy(False):
+        re, im = dn.stft_ri(y, 1024, 256)
+        pre, pim = dn.stft_ri_plain(y, 1024, 256)
+        fr = dn.istft_frames(pre, pim, 1024)
+        pfr = dn.istft_frames_plain(pre, pim, 1024)
+    assert (dn.stft_ri.launches, dn.istft_frames.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for got, ref in ((re, pre), (im, pim), (fr, pfr)):
+        assert got.shape == ref.shape
+        assert float((got - ref).abs().max()) <= 2e-5 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("frames", [1, 15, 183, 1000])
+def test_smooth_mask_matches_dense(device, frames):
+    from mmla_audio_torch.core.config import DenoiseConfig
+    from mmla_audio_torch.ops import denoise as dn
+
+    mask = torch.from_numpy(np.random.RandomState(frames).rand(
+        3, frames, 513).astype(np.float32)).to(device)
+    before = dn.smooth_mask.launches
+    got = dn.smooth_mask(mask, DenoiseConfig(), 16000)
+    assert dn.smooth_mask.launches == before + 1
+    ref = dn.smooth_mask_plain(mask, DenoiseConfig(), 16000)
+    assert float((got - ref).abs().max()) <= 1e-6
+
+
+def test_card_denoise_never_reaches_the_plain_versions(device, monkeypatch):
+    from mmla_audio_torch.ops import denoise as dn
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    y, nt = _denoise_input(2, seed=9)          # the profile on the CPU
+    for name in ("stft_ri_plain", "istft_frames_plain", "smooth_mask_plain",
+                 "_smoothing_matrices"):
+        monkeypatch.setattr(dn, name, refuse)
+    before = (dn.stft_ri.launches, dn.istft_frames.launches,
+              dn.smooth_mask.launches)
+    dn.noise_threshold(y[0].to(device))
+    dn.reduce_noise(y.to(device), nt.to(device), passes=3)
+    assert (dn.stft_ri.launches, dn.istft_frames.launches,
+            dn.smooth_mask.launches) == (before[0] + 4, before[1] + 3,
+                                         before[2] + 3)
+
+
+def test_denoise_kernels_refuse_float64(device):
+    from mmla_audio_torch.core.config import DenoiseConfig
+    from mmla_audio_torch.ops import denoise as dn
+
+    with pytest.raises(TypeError, match="float32"):
+        dn.stft_ri(torch.zeros(4000, dtype=torch.float64, device=device),
+                   1024, 256)
+    with pytest.raises(TypeError, match="float32"):
+        dn.smooth_mask(torch.zeros((4, 513), dtype=torch.float64,
+                                   device=device), DenoiseConfig(), 16000)
+
+
+def test_aot_compile_captures_the_predictor(device):
+    """``export.aot_compile`` on the card: a CUDA graph of the predictor
+    (featurizer B1, the fused blocks B3, cuDNN's LSTM) whose replay gives
+    eager's labels and probabilities and refuses another batch."""
+    from mmla_audio_torch.export import aot_compile
+
+    cfg = OverlapModelConfig(stage_filters=(8, 8, 16), lstm_units=16)
+    pred = OverlapPredictor(keras_init_(
+        OverlapResBLSTM(cfg), torch.Generator().manual_seed(0)).state_dict(),
+        cfg, device=device, matmul_precision="highest")
+    bufs = torch.from_numpy((_audio(4, 40960) * 20000).astype(np.int16)
+                            ).to(device)
+    counts = torch.tensor([40960, 30000, 20000, 3000], dtype=torch.int32,
+                          device=device)
+    ref = pred.predict(bufs, counts)
+    before = (overlap_model_input_cuda.launches,
+              fused_resblock_cuda.launches)
+    compiled = aot_compile(pred.predict, bufs, counts)
+    # the warm-up and the capture each launch B1 once and B3 six times
+    assert (overlap_model_input_cuda.launches - before[0],
+            fused_resblock_cuda.launches - before[1]) == (2, 12)
+    for _ in range(2):
+        labels, probs = compiled(bufs, counts)
+        assert torch.equal(labels, ref[0])
+        torch.testing.assert_close(probs, ref[1], rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="compiled for"):
+        compiled(bufs[:2], counts[:2])

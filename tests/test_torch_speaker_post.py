@@ -185,10 +185,16 @@ def test_cli_speaker_live_fake(tmp_path, capsys):
     assert logs[0].read_text().startswith("segment\tspeaker\t")
 
 
-# speaker-live --register runs: tests/test_torch_register.py
+# speaker-live --register runs: tests/test_torch_register.py.  Without
+# --fake the live commands open the microphone, which needs pyaudio (not
+# installed here); --host-preprocess is refused together with --edge.
 @pytest.mark.parametrize("argv,message", [
-    (["speaker-live"], "microphone capture is not ported"),
-    (["overlap-live"], "microphone capture is not ported")])
+    (["speaker-live"], "needs the pyaudio package"),
+    (["overlap-live"], "needs the pyaudio package"),
+    (["overlap-live", "--fake", "--edge", "--host-preprocess"],
+     "not supported with --edge"),
+    (["speaker-live", "--fake", "--edge", "--host-preprocess"],
+     "not supported with --edge")])
 def test_cli_refuses_what_is_not_ported(tmp_path, argv, message):
     with pytest.raises(SystemExit, match=message):
         cli.main(argv + ["--root", str(tmp_path), "--device", "cpu"])
@@ -217,17 +223,15 @@ def _flags(main, monkeypatch):
             for name, p in sub.choices.items()}
 
 
-# JAX flags the port does not take yet (ROADMAP A), by subcommand
+# JAX flags the port does not take (ROADMAP A9), by subcommand
 CACHE = {"--compile-cache"}
-LIVE = {"--ckpt", "--host-preprocess", "--no-host-preprocess", "--edge"} \
-    | CACHE
 NOT_YET = {
     "setup": set(),
-    "overlap-live": LIVE,
-    "speaker-live": LIVE,
-    "overlap-post": {"--ckpt"} | CACHE,
-    "speaker-post": {"--ckpt"} | CACHE,
-    "overlap-run": {"--ckpt", "--parity"} | CACHE,
+    "overlap-live": CACHE,
+    "speaker-live": CACHE,
+    "overlap-post": CACHE,
+    "speaker-post": CACHE,
+    "overlap-run": CACHE,
     "speaker-pretrain": CACHE,
     "synth-corpus": CACHE,
     "overlap-train": CACHE,
