@@ -5,16 +5,20 @@
 Builds the port's CUDA kernels from ``mmla_audio_torch/csrc`` (one nvcc
 per source, all at once), then:
 
-0. the denoise kernels (``csrc/denoise.cu``): D1, the fixed-order fp32
-   GEMM of the STFT and ISTFT, and D2, the banded mask smoothing, against
-   their plain versions (``torch.matmul``, TF32 off, within 2e-5 of max
-   |ref|; the dense matrix pair within 1e-6) at live windows (T = 183
-   frames) of B = 1, 8, 64 and 512 and on the 12-minute file (T = 45,023),
-   each timed (CUDA events) beside its plain version and the library call
-   (cuBLAS ``torch.matmul`` of the same product, cuDNN ``conv2d`` with the
-   outer-product kernel); ``reduce_noise`` at each batch equal to every
+0. the denoise kernels (``csrc/denoise.cu``): D1, the STFT and ISTFT as
+   a 1024-point real FFT a frame, and D2, the banded mask smoothing,
+   against their plain versions (``torch.matmul``, TF32 off, within 2e-5
+   of max |ref|; the dense matrix pair within 1e-6; D1 also within 1e-7
+   of max |ref| of the same products in float64) at live windows (T =
+   183 frames) of B = 1, 8, 64 and 512 and on the 12-minute file (T =
+   45,023), each timed (CUDA events) beside its plain version and the
+   library calls (cuFFT ``torch.fft.rfft`` and ``irfft`` of the same
+   frames and spectra, and cuBLAS ``torch.matmul`` of the dense products
+   as written; cuDNN ``conv2d`` with the outer-product kernel);
+   ``reduce_noise`` at each batch equal to every
    window denoised alone (0 differing float samples) and, after int16
-   quantization, within 1 step on < 0.5 % of samples of the plain chain;
+   quantization, within 1 step on < 0.5 % of samples of the plain chain
+   in float64 (and on < 0.5 % of the fp32 plain chain);
    then a 60-minute file at ``passes_post`` through the kernels alone:
    time, peak allocated memory (under 10 GB; its dense time matrix alone
    would be 202.5 GB), a finite output (its windows are not labeled);
@@ -159,16 +163,15 @@ The line before the last is a JSON object describing each kernel, with its
 bound: the larger of its bytes (each input read once, each output written
 once) over 3.35 TB/s and its fp32 FLOPs as 3xTF32 on the tensor cores (three
 TF32 products for each fp32 one at 495 TFLOP/s, 165 TFLOP/s of fp32 work,
-faster than the CUDA cores' 67 TFLOP/s), H100 SXM peaks.  D1's FLOPs are
-the least its function needs, a real FFT a frame forward and inverse, not
-the dense products as the kernel writes them (its log lines print that
-bound beside it); its entry sums the STFT and the ISTFT of one pass at
-B=64, the multiplexer's bucket, as does D2's.  The featurizer's
+faster than the CUDA cores' 67 TFLOP/s), H100 SXM peaks.  D1's entry
+sums the STFT and the ISTFT of one pass at B=64, the multiplexer's
+bucket, as does D2's; its library call is cuFFT's pair.  The featurizer's
 FLOPs are the least its function needs too (a real FFT per frame, the
 banded mel product), not the dense GEMMs of the TPU kernel, whose bound
 the featurizer's log lines print beside it.  W1 and W2 are integer state
 machines: their bound is their bytes, far below the serial dependency
-chain that bounds them in fact.  The last line is
+chain that bounds them in fact (W1's log lines print that floor beside
+it, ``w1_chain_ms``).  The last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises, so nothing after it
 is printed and the exit code is not 0.  Without a CUDA device the script
 stops before doing anything.
@@ -228,6 +231,7 @@ CLI_SINGLES, CLI_MIXTURES, CLI_EPOCHS = 1024, 512, 3
 VAD_FRAME, VAD_T = 480, 85
 VAD_ROWS, VAD_WARMUP, VAD_WINDOWS = 64, 3, 4
 W1_BATCHES = (1, 8, 64, 512)
+W1_STEP_OPS, INT_LATENCY = 6, 4            # W1's chain bound (w1_chain_ms)
 MUX_LABEL_STREAMS, MUX_SPEAKER_STREAMS, MUX_LABEL_WINDOWS = 8, 4, 4
 MUX_THREADED, MUX_THREADED_WINDOWS = 64, 8
 MUX_PREFILLED, MUX_PREFILLED_WINDOWS = 512, 4
@@ -235,15 +239,21 @@ MUX_CHURN = 16
 # phase 0: the denoise kernels at live windows (T = 183 frames) of these
 # batches and on the 12-minute file; D1 of max |ref| (fp32 sums of 1,024 or
 # 1,026 terms in two orders), D2 absolute (mask values in [0, 1], sums of
-# 33 + 7 taps); reduce_noise after int16 quantization vs the plain chain;
-# a 60-minute file through the kernels, its peak allocated memory bounded
+# 33 + 7 taps); D1 against the same products in float64 (it computes in
+# float64 and rounds each output once to fp32, at most 2^-24 of max |ref|);
+# reduce_noise after int16 quantization vs the plain chain in float64 (the
+# exact chain); a 60-minute file through the kernels, its peak allocated
+# memory bounded
 DENOISE_BATCHES = (1, 8, 64, 512)
 ARRANGEMENT_ROUNDS = 20                    # x the windows, each arrangement
 D1_RTOL, D2_ATOL = 2e-5, 1e-6
+D1_EXACT = 1e-7
 # the library yardstick of D2 (cuDNN may pick an FFT or Winograd algorithm)
 # is held only to show that it computes the same function
 D2_LIB_ATOL = 1e-5
 DN_STEP, DN_SHARE = 1.0, 0.005
+# queued_ms's sleep kernel: ~10 ms at the H100's 1,980 MHz
+QUEUE_SLEEP_CYCLES = 20_000_000
 HOUR_SECONDS, HOUR_PEAK_BYTES = 3600, 10e9
 # phase 11: the edge sessions (windows, of them noise-only; labels compared
 # where the CPU's SSIM is further than SSIM_MARGIN from the threshold: the
@@ -342,6 +352,37 @@ def time_ms(fn, *args, reps: int = 20, rounds: int = 5) -> float:
             fn(*args)
         end.record()
         torch.cuda.synchronize()
+        samples.append(start.elapsed_time(end) / reps)
+    return statistics.median(samples)
+
+
+def queued_ms(fn, *args, reps: int = 20, rounds: int = 3) -> float:
+    """The card's time of one call without the host's: the CUDA-event mean
+    over ``reps`` calls queued behind a ``QUEUE_SLEEP_CYCLES`` sleep kernel,
+    so that every launch is enqueued before the card reaches the first;
+    median over ``rounds``.  Raises if the host took longer to enqueue them
+    than the card slept (the host would then pace the card)."""
+    for _ in range(3):
+        fn(*args)
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(rounds):
+        slept = torch.cuda.Event(enable_timing=True)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        slept.record()
+        torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn(*args)
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if host_ms >= slept.elapsed_time(start):
+            raise AssertionError(f"queued_ms: the host took {host_ms:.3f} ms "
+                                 f"to enqueue, longer than the card's "
+                                 f"{slept.elapsed_time(start):.3f} ms sleep")
         samples.append(start.elapsed_time(end) / reps)
     return statistics.median(samples)
 
@@ -580,11 +621,33 @@ def phase_block(device):
 
 # -- phase 0: the denoise kernels D1 and D2 --------------------------------
 
-def d1_work(rows: int, k: int, n: int, a_bytes: float) -> tuple:
-    """(FLOPs, bytes) of D1's product as it is written: 2 rows k n FLOPs;
-    A's bytes as the kernel reads them (for the STFT, the padded signal),
-    the basis and the output."""
-    return 2.0 * rows * k * n, a_bytes + 4.0 * (k * n + rows * n)
+def d1_bound(groups: int, n: int, rows: int, n_fft: int) -> tuple:
+    """The bounds of D1's two functions, ``(stft, istft, both)``: a real
+    FFT of n_fft points a frame, as an n_fft/2-point complex FFT (5 n log2 n
+    FLOPs) and its split into the n_fft/2 + 1 bins (19 FLOPs a bin), plus
+    the window (n_fft multiplies) forward, counted as the function's fp32
+    work (the kernel's float64 arithmetic is a choice of the kernel).
+    Bytes: the STFT reads the ``n`` samples of each of the ``groups`` rows
+    once (the centered STFT's reflect padding is folded into its loads, not
+    read) and writes re and im; the ISTFT reads re and im and writes the
+    frames."""
+    n2, k = n_fft // 2, n_fft // 2 + 1
+    fft = 5 * n2 * np.log2(n2) + 19 * k
+    spec = 4.0 * rows * 2 * k
+    fwd = (rows * (fft + n_fft), 4.0 * groups * n + spec)
+    inv = (rows * fft, spec + 4.0 * rows * n_fft)
+    return bound(*fwd), bound(*inv), bound(fwd[0] + inv[0], fwd[1] + inv[1])
+
+
+def dense_dft_bases(n_fft: int, device) -> tuple:
+    """The dense products' operands for cuBLAS, the yardstick of the
+    products as the JAX package writes them: the forward ``[fwd_cos |
+    fwd_sin]`` ``(n_fft, 2K)`` and the inverse ``[inv_cos.T; -inv_sin.T]``
+    ``(2K, n_fft)``."""
+    from mmla_audio_torch.ops import denoise as dn
+
+    fc, fs, ic_t, is_t, _ = dn._bases(n_fft, device)
+    return torch.cat([fc, fs], dim=1), torch.cat([ic_t, -is_t], dim=0)
 
 
 def d2_bound(elements: int, taps: int) -> dict:
@@ -608,11 +671,14 @@ def denoise_windows(batch: int, seed: int, n: int = 40960) -> np.ndarray:
 def check_denoise_kernels(device, y, nt, cfg, what: str) -> dict:
     """One denoise pass of ``y (B, n)`` on the card, each kernel held
     against its plain version on the same inputs (TF32 off) and timed
-    beside it and beside the library call of the same function, in turns:
-    D1's STFT and ISTFT (``torch.matmul`` of the materialized frames or
-    spectra against the concatenated basis, cuBLAS), D2 (``F.conv2d`` with
-    the outer-product kernel, cuDNN).  Returns the kernels-line numbers of
-    D1 (STFT + ISTFT summed) and D2."""
+    beside it and beside the library calls of the same function, in turns:
+    D1's STFT and ISTFT (cuFFT's ``torch.fft.rfft`` of the materialized
+    windowed frames and ``torch.fft.irfft`` of the complex spectrum, the
+    library call of the kernels line; and cuBLAS's ``torch.matmul`` of
+    the frames or spectra against the concatenated dense basis, the
+    products as written), D2 (``F.conv2d`` with the outer-product kernel,
+    cuDNN).  Returns the kernels-line numbers of D1 (STFT + ISTFT summed)
+    and D2."""
     import torch.nn.functional as F
 
     from mmla_audio_torch.ops import denoise as dn
@@ -626,7 +692,8 @@ def check_denoise_kernels(device, y, nt, cfg, what: str) -> dict:
     yp = F.pad(y, (pad, pad))
     B, L = yp.shape
     T = 1 + L // hop
-    fwd, inv = dn._kernel_bases(n_fft, y.device)
+    fwd, inv = dense_dft_bases(n_fft, y.device)
+    window = dn._window(n_fft, y.device)
     v_f, v_t = dn._smoothing_taps(cfg, sr, y.device)
     outer = (v_t.flip(0)[:, None] * v_f.flip(0)[None, :])[None, None]
     big = B * T > 20_000
@@ -650,76 +717,102 @@ def check_denoise_kernels(device, y, nt, cfg, what: str) -> dict:
         fr = dn.istft_frames(mre, mim, n_fft)
         pfr = dn.istft_frames_plain(mre, mim, n_fft)
         e_istft = max_rel(fr, pfr)
+        xre, xim = dn.stft_ri_plain(yp.double(), n_fft, hop)
+        e_exact = max(max_rel(re.double(), xre), max_rel(im.double(), xim),
+                      max_rel(fr.double(), dn.istft_frames_plain(
+                          mre.double(), mim.double(), n_fft)))
+        del xre, xim
         torch.cuda.synchronize()
         if not (e_stft <= D1_RTOL and e_istft <= D1_RTOL and e_d2 <= D2_ATOL
-                and e_lib <= D2_LIB_ATOL):
+                and e_lib <= D2_LIB_ATOL and e_exact <= D1_EXACT):
             raise AssertionError(f"denoise kernels {what}: D1 STFT {e_stft},"
                                  f" ISTFT {e_istft} (of max |ref|, limit "
-                                 f"{D1_RTOL}); D2 {e_d2} (limit {D2_ATOL}), "
+                                 f"{D1_RTOL}), vs float64 {e_exact} (limit "
+                                 f"{D1_EXACT}); D2 {e_d2} (limit {D2_ATOL}), "
                                  f"conv2d {e_lib} (limit {D2_LIB_ATOL})")
         frames = frame_signal(pad_last(yp, n_fft // 2, n_fft // 2,
                                        "reflect"), n_fft, hop, T)
         frames = frames.reshape(-1, n_fft).contiguous()
+        wframes = frames * window
         spec = torch.cat([mre, mim], -1).reshape(-1, 2 * K)
+        cspec = torch.complex(mre, mim).reshape(-1, K)
+        # cuFFT computes the same functions (its C2R ignores the imaginary
+        # parts at DC and Nyquist, as the inverse bases do)
+        e_fft = max(max_rel(torch.view_as_real(torch.fft.rfft(wframes)),
+                            torch.stack([pre, pim], -1).reshape(-1, K, 2)),
+                    max_rel(torch.fft.irfft(cspec, n=n_fft),
+                            pfr.reshape(-1, n_fft)))
         m4 = mask.reshape(-1, 1, T, K)
-        # plain, kernel, library, library, kernel, plain
+        turns = (
+            ("stft_plain", dn.stft_ri_plain, (yp, n_fft, hop)),
+            ("stft", dn.stft_ri, (yp, n_fft, hop)),
+            ("stft_fft", torch.fft.rfft, (wframes,)),
+            ("stft_lib", torch.matmul, (frames, fwd)),
+            ("istft_plain", dn.istft_frames_plain, (mre, mim, n_fft)),
+            ("istft", dn.istft_frames, (mre, mim, n_fft)),
+            ("istft_fft", lambda x: torch.fft.irfft(x, n=n_fft), (cspec,)),
+            ("istft_lib", torch.matmul, (spec, inv)),
+            ("d2_plain", dn.smooth_mask_plain, (mask, cfg, sr)),
+            ("d2", dn.smooth_mask, (mask, cfg, sr)),
+            ("d2_lib", F.conv2d, (m4, outer, None, 1,
+                                  (len(v_t) // 2, len(v_f) // 2))))
+        # plain, kernel, libraries, then the same backwards
         t = {}
-        for name, fn, args in (
-                ("stft_plain", dn.stft_ri_plain, (yp, n_fft, hop)),
-                ("stft", dn.stft_ri, (yp, n_fft, hop)),
-                ("stft_lib", torch.matmul, (frames, fwd)),
-                ("istft_plain", dn.istft_frames_plain, (mre, mim, n_fft)),
-                ("istft", dn.istft_frames, (mre, mim, n_fft)),
-                ("istft_lib", torch.matmul, (spec, inv)),
-                ("d2_plain", dn.smooth_mask_plain, (mask, cfg, sr)),
-                ("d2", dn.smooth_mask, (mask, cfg, sr)),
-                ("d2_lib", F.conv2d, (m4, outer, None, 1,
-                                      (len(v_t) // 2, len(v_f) // 2)))):
-            t[name] = [timed(fn, *args)]
-        for name, fn, args in (
-                ("d2_lib", F.conv2d, (m4, outer, None, 1,
-                                      (len(v_t) // 2, len(v_f) // 2))),
-                ("d2", dn.smooth_mask, (mask, cfg, sr)),
-                ("d2_plain", dn.smooth_mask_plain, (mask, cfg, sr)),
-                ("istft_lib", torch.matmul, (spec, inv)),
-                ("istft", dn.istft_frames, (mre, mim, n_fft)),
-                ("istft_plain", dn.istft_frames_plain, (mre, mim, n_fft)),
-                ("stft_lib", torch.matmul, (frames, fwd)),
-                ("stft", dn.stft_ri, (yp, n_fft, hop)),
-                ("stft_plain", dn.stft_ri_plain, (yp, n_fft, hop))):
-            t[name].append(timed(fn, *args))
+        for name, fn, args in turns + turns[::-1]:
+            t.setdefault(name, []).append(timed(fn, *args))
+        # the D1 pair and the library pairs on the card alone (at small B
+        # the calls above are paced by the host's launches)
+        queued = {}
+        d1_turns = [turn for turn in turns if turn[0] in (
+            "stft", "stft_fft", "stft_lib", "istft", "istft_fft",
+            "istft_lib")]
+        if not big:
+            for name, fn, args in d1_turns + d1_turns[::-1]:
+                queued.setdefault(name, []).append(queued_ms(fn, *args))
     t = {k: min(v) for k, v in t.items()}
+    queued = {k: min(v) for k, v in queued.items()}
     rows = B * T
-    w_stft = d1_work(rows, n_fft, 2 * K, 4.0 * B * (L + n_fft))
-    w_istft = d1_work(rows, 2 * K, n_fft, 4.0 * rows * 2 * K)
-    b_stft, b_istft = bound(*w_stft), bound(*w_istft)
-    b_d1 = bound(w_stft[0] + w_istft[0], w_stft[1] + w_istft[1])
+    b_stft, b_istft, b_fft = d1_bound(B, L, rows, n_fft)
     b_d2 = d2_bound(rows * K, len(v_f) + len(v_t))
-    # both products as a real FFT a frame (forward and inverse): the signal
-    # in and out, the masked spectrum in
-    b_fft = bound(2 * rows * (5 * (n_fft // 2) * np.log2(n_fft // 2)
-                              + 19 * K),
-                  4.0 * (2 * B * L + rows * 2 * K))
+    pair = {k: t[k] + t["i" + k] for k in ("stft", "stft_fft", "stft_lib")}
+    qpair = {k: queued[k] + queued["i" + k] for k in pair} if queued else {}
     log(f"[denoise] {what} (B={B}, T={T}): D1 STFT max |diff| / max |ref| "
-        f"{e_stft:.3g}, ISTFT {e_istft:.3g} (limit {D1_RTOL}); D2 max |diff| "
-        f"{e_d2:.3g} (limit {D2_ATOL}), conv2d vs dense {e_lib:.3g}; ms: "
-        f"STFT kernel {t['stft']:.4f}, plain {t['stft_plain']:.4f}, cuBLAS "
-        f"{t['stft_lib']:.4f}, bound {b_stft['bound_ms']:.4f}; ISTFT kernel "
-        f"{t['istft']:.4f}, plain {t['istft_plain']:.4f}, cuBLAS "
-        f"{t['istft_lib']:.4f}, bound {b_istft['bound_ms']:.4f}; D2 kernel "
+        f"{e_stft:.3g}, ISTFT {e_istft:.3g} (limit {D1_RTOL}), both vs the "
+        f"float64 products {e_exact:.3g} (limit {D1_EXACT}); cuFFT vs "
+        f"plain {e_fft:.3g}; D2 max |diff| {e_d2:.3g} (limit {D2_ATOL}), "
+        f"conv2d vs dense {e_lib:.3g}; ms: STFT kernel {t['stft']:.4f}, "
+        f"plain {t['stft_plain']:.4f}, cuFFT rfft {t['stft_fft']:.4f}, "
+        f"cuBLAS {t['stft_lib']:.4f}, bound {b_stft['bound_ms']:.4f}; ISTFT "
+        f"kernel {t['istft']:.4f}, plain {t['istft_plain']:.4f}, cuFFT irfft "
+        f"{t['istft_fft']:.4f}, cuBLAS {t['istft_lib']:.4f}, bound "
+        f"{b_istft['bound_ms']:.4f}; D1 pair {pair['stft']:.4f} vs cuFFT "
+        f"{pair['stft_fft']:.4f} vs cuBLAS {pair['stft_lib']:.4f} ("
+        f"{'faster' if pair['stft'] < pair['stft_lib'] else 'NOT faster'} "
+        f"than cuBLAS), bound {b_fft['bound_ms']:.4f} ({b_fft['bound_by']}, "
+        f"{b_fft['bound_ms'] / pair['stft']:.1%} of it reached); D2 kernel "
         f"{t['d2']:.4f}, dense plain {t['d2_plain']:.4f}, cuDNN conv2d "
         f"{t['d2_lib']:.4f}, bound {b_d2['bound_ms']:.4f} "
-        f"({b_d2['bound_by']}); D1 runs the STFT's dense product at "
-        f"{w_stft[0] / t['stft'] / 1e9:.1f} TFLOP/s; D1's bound: a real FFT "
-        f"a frame, both products, {b_fft['bound_ms']:.4f} ms "
-        f"({b_fft['bound_by']}); the dense products as written "
-        f"{b_d1['bound_ms']:.4f} ms ({b_d1['bound_by']}, a note)")
+        f"({b_d2['bound_by']})")
+    if qpair:
+        log(f"[denoise] {what}: on the card alone (queued behind a sleep): "
+            f"D1 pair {qpair['stft']:.4f} (STFT {queued['stft']:.4f}, ISTFT "
+            f"{queued['istft']:.4f}) vs cuFFT {qpair['stft_fft']:.4f} vs "
+            f"cuBLAS {qpair['stft_lib']:.4f} ("
+            f"{'faster' if qpair['stft'] < qpair['stft_lib'] else 'NOT faster'}"
+            f" than cuBLAS)")
+    # D1 must beat the dense pair on the card: its time alone where the
+    # host paces the calls (small B), else the calls' time
+    d1, dense = (qpair or pair)["stft"], (qpair or pair)["stft_lib"]
+    if not d1 < dense:
+        raise AssertionError(f"denoise kernels {what}: D1's pair {d1:.4f} ms "
+                             f"is not faster than cuBLAS's {dense:.4f} ms")
     return dict(
         d1=dict(max_abs_err=max(float((re - pre).abs().max()),
+                                float((im - pim).abs().max()),
                                 float((fr - pfr).abs().max())),
-                ms=t["stft"] + t["istft"],
+                ms=pair["stft"],
                 plain_ms=t["stft_plain"] + t["istft_plain"], **b_fft,
-                library_ms=t["stft_lib"] + t["istft_lib"]),
+                library_ms=pair["stft_fft"]),
         d2=dict(max_abs_err=e_d2, ms=t["d2"], plain_ms=t["d2_plain"], **b_d2,
                 library_ms=t["d2_lib"]))
 
@@ -728,7 +821,14 @@ def check_denoise_batches(device, raw: np.ndarray, nt, cfg) -> tuple:
     """``reduce_noise`` of each window alone equals its row of the batch
     bit for bit (the count of differing float samples must be 0), and the
     batch after int16 quantization is within ``DN_STEP`` on <
-    ``DN_SHARE`` of samples of the plain chain; times of both."""
+    ``DN_SHARE`` of samples of the plain chain run in float64, the exact
+    chain (D1 computes in float64, so the card decides each gate bin as
+    the exact spectrum does).  The fp32 plain chain is compared too: the
+    card within ``DN_STEP``'s share, and both chains' largest step against
+    the exact one logged (an fp32 dense product errs by ~1e-5 of a quiet
+    bin and so gates some near-ties the other way, each moving up to 16
+    steps around it).  Returns the counts, the errors and the times of the
+    card's chain and the fp32 plain chain."""
     from mmla_audio_torch.ops.denoise import (quantize_i16, reduce_noise,
                                               reduce_noise_plain)
 
@@ -739,18 +839,30 @@ def check_denoise_batches(device, raw: np.ndarray, nt, cfg) -> tuple:
         differing = sum(int((reduce_noise(y[b], nt, cfg, passes=passes)
                              != batched[b]).sum())
                         for b in range(len(raw)))
-        plain = reduce_noise_plain(y, nt, cfg, passes=passes)
-        diff = (quantize_i16(batched) - quantize_i16(plain)).abs()
+        plain = quantize_i16(reduce_noise_plain(y, nt, cfg, passes=passes))
+        exact = quantize_i16(reduce_noise_plain(y.double(), nt.double(), cfg,
+                                                passes=passes))
+        card = quantize_i16(batched).double()
+        diff = (card - exact).abs()
         err, share = float(diff.max()), float((diff > 0).float().mean())
-        if differing or err > DN_STEP or share >= DN_SHARE:
+        vs_plain = (card - plain.double()).abs()
+        plain_err = float(vs_plain.max())
+        plain_share = float((vs_plain > 0).float().mean())
+        fp32_err = float((plain.double() - exact).abs().max())
+        del exact, diff, vs_plain
+        if differing or err > DN_STEP or share >= DN_SHARE \
+                or plain_share >= DN_SHARE:
             raise AssertionError(f"reduce_noise B={len(raw)}: {differing} "
                                  f"samples differ from the single-window "
-                                 f"run; vs plain {err} on {share:.4%}")
+                                 f"run; vs the float64 chain {err} on "
+                                 f"{share:.4%}; vs the fp32 chain "
+                                 f"{plain_err} on {plain_share:.4%}")
         reps = 3 if len(raw) >= 64 else 10
         ms = time_ms(reduce_noise, y, nt, cfg, 16000, passes, reps=reps)
         plain_ms = time_ms(reduce_noise_plain, y, nt, cfg, 16000, passes,
                            reps=reps)
-    return differing, err, share, ms, plain_ms
+    return (differing, err, share, (plain_err, plain_share, fp32_err), ms,
+            plain_ms)
 
 
 def phase_denoise(device, noise) -> dict:
@@ -772,12 +884,15 @@ def phase_denoise(device, noise) -> dict:
         got = check_denoise_kernels(device, y, nt, cfg, f"live B={batch}")
         if batch == 64:
             out = got
-        differing, err, share, ms, plain_ms = check_denoise_batches(
-            device, raw, nt, cfg)
+        (differing, err, share, (plain_err, plain_share, fp32_err), ms,
+         plain_ms) = check_denoise_batches(device, raw, nt, cfg)
         log(f"[denoise] reduce_noise B={batch} ({cfg.passes_live} pass): "
             f"{differing} float samples differ between the batch and each "
-            f"window alone; int16 vs the plain chain max |diff| {err} on "
-            f"{share:.4%} (budget {DN_STEP} on < {DN_SHARE:.1%}); "
+            f"window alone; int16 vs the float64 plain chain max |diff| "
+            f"{err} on {share:.4%} (budget {DN_STEP} on < {DN_SHARE:.1%}); "
+            f"vs the fp32 plain chain max |diff| {plain_err} on "
+            f"{plain_share:.4%} (share budget {DN_SHARE:.1%}); the fp32 "
+            f"plain chain vs the float64 one max |diff| {fp32_err}; "
             f"{ms:.4f} ms (plain chain {plain_ms:.4f} ms)")
     seconds = RECORDINGS["zoom_conv1"][0]
     y = torch.from_numpy(denoise_windows(1, seed=45, n=seconds * 16000)
@@ -1660,7 +1775,8 @@ def profile_steps(run, steps: int) -> dict:
 # cuBLAS's fp32 GEMMs on the H100 are named sm90_xmma_gemm_*, cuDNN's
 # convolutions *_xmma_fprop_implicit_gemm_* (and dgrad, wgrad): "xmma" alone
 # names neither
-KERNEL_KINDS = (("denoise D1/D2", ("fixed_order_gemm", "smooth_mask")),
+KERNEL_KINDS = (("denoise D1/D2", ("stft_rfft", "istft_irfft",
+                                   "smooth_mask")),
                 ("convolution", ("conv", "fprop", "dgrad", "wgrad",
                                  "implicit")),
                 ("LSTM", ("lstm", "rnn", "LSTM", "RNN")),
@@ -2100,6 +2216,20 @@ def w1_bound(batch: int, rows: int) -> dict:
                  + 2 * rows * 265 * 4)
 
 
+def w1_chain_ms() -> float:
+    """W1's serial floor: the decimator's chain, ``VAD_T * VAD_FRAME / 2``
+    dependent steps a window (20,400), each ``W1_STEP_OPS`` dependent
+    integer operations of ``INT_LATENCY`` cycles (read from the source,
+    not from its SASS: shift, add, the int16 truncation, multiply, shift,
+    subtract), at the card's highest SM clock as ``nvidia-smi`` reads it."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    steps = VAD_T * VAD_FRAME // 2
+    return steps * W1_STEP_OPS * INT_LATENCY / (mhz * 1e6) * 1e3
+
+
 def w2_bound(batch: int) -> dict:
     """W2's bytes: decisions and counts in, keep masks and kept counts out."""
     return bound(0, batch * 2 * (VAD_T + 4))
@@ -2190,7 +2320,7 @@ def phase_vad_kernels(device, cfg) -> tuple:
     log(f"[vad] W1 (webrtc_vad) == host engine bit for bit at B=8 and 64: "
         f"{VAD_WINDOWS} windows in a row on rows carrying {VAD_WARMUP} "
         f"windows of state, one fresh row and 3 padding rows (untouched)")
-    times = {}
+    times, chain = {}, w1_chain_ms()
     for batch in W1_BATCHES:
         x = pool[torch.arange(batch, device=device) % len(pool)]
         states = rows[np.arange(batch) % VAD_ROWS].contiguous()
@@ -2202,8 +2332,9 @@ def phase_vad_kernels(device, cfg) -> tuple:
         times[batch] = ms, plain
         log(f"[vad] W1 B={batch}: kernel {ms:.4f} ms (CUDA events), host "
             f"engine over the same rows {plain:.4f} ms (host clock, one "
-            f"core), bound {w1_bound(batch, batch)['bound_ms'] * 1e3:.3f} "
-            f"us (bytes; the floor that binds is the serial chain)")
+            f"core), bounds {w1_bound(batch, batch)['bound_ms'] * 1e3:.3f} "
+            f"us (bytes) and {chain:.4f} ms (the decimator's serial chain, "
+            f"the floor that binds)")
     # W2 on W1's decisions and on energy decisions of the same windows
     x = pool[:VAD_ROWS]
     dec = torch.cat([
@@ -3004,7 +3135,7 @@ def main() -> int:
         entry("vad_collect", "webrtc_vad.cu",
               "mmla_audio_tpu/vad/collector.py:48", mux["launches"]["w2"],
               mux["w2"]),
-        entry("fixed_order_gemm", "denoise.cu",
+        entry("stft_rfft+istft_irfft", "denoise.cu",
               "mmla_audio_tpu/ops/denoise.py:139",
               session_dn["d1"] + post["launches"][3] + mux["launches"]["d1"]
               + edge["d1"],

@@ -47,12 +47,12 @@ CUDA_KERNELS = {
     "webrtc_vad": (
         _PKG / "csrc" / "webrtc_vad.cu",
         {"webrtc_vad_launch":
-         [_P, _LL] + [_I] * 5 + [_P, _I, _P, _P, _I, _P],
+         [_P, _LL] + [_I] * 5 + [_P, _I, _P, _P, _P],
          "vad_collect_launch": [_P, _I, _I, _P, _D, _I, _P, _P, _P]}),
     "denoise": (
         _PKG / "csrc" / "denoise.cu",
-        {"fixed_order_gemm_launch":
-         [_P, _LL, _LL, _LL, _I, _I, _P, _I, _P, _P],
+        {"stft_rfft_launch": [_P, _LL, _I, _I, _I, _P, _P, _P],
+         "istft_irfft_launch": [_P, _P, _I, _P, _P, _P],
          "smooth_mask_launch": [_P, _P, _I, _I, _I, _P, _I, _P, _I, _I, _P]}),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,35 +1,62 @@
-// The stationary denoise's products on the card: two kernels that make the
-// denoise of a window the same bits whether it runs alone or in a batch.
+// The stationary denoise on the card: the STFT and ISTFT of every frame as
+// a real FFT (D1) and the gate mask's smoothing (D2).  Together they make
+// the denoise of a window the same bits whether it runs alone or in a batch.
 //
-// Neither replaces a Pallas kernel.  The JAX package's denoise
-// (mmla_audio_tpu/ops/denoise.py: _stft_ri, _istft, and the two smoothing
-// products in reduce_noise) is XLA GEMMs; the port ran them through
-// torch.matmul, and cuBLAS picks its algorithm, and with it the order in
-// which a dot product is summed, by the GEMM's shape.  A batch folds into
-// the GEMM's M, so a window's spectrum differed in its last bits between a
+// Neither replaces a Pallas kernel.  D1 replaces the JAX package's
+// _stft_ri and _istft (mmla_audio_tpu/ops/denoise.py:139, :174), two dense
+// DFT products that XLA runs as GEMMs; D2 the two smoothing products of
+// reduce_noise (:381-383).  A library GEMM picks its algorithm, and with it
+// the order of its sums, by the product's shape; a batch folds into the
+// GEMM's M, so a window's spectrum differed in its last bits between a
 // batch and the window alone, and the int16 re-quantization turned a few of
 // those into a step of one.
 //
-// D1, fixed_order_gemm_kernel: C (M, N) = A (M, K) @ B (K, N) in IEEE fp32
-// FFMA on the CUDA cores (no TF32, whatever the caller's precision policy).
-// Every output element is accumulated by one thread, over k = 0 .. K-1 in
-// ascending order, one fmaf a term, starting from +0; the tile shape is a
-// constant, there is no split-K and one instance serves every M.  So an
-// output depends only on its A row, its B column and K: never on M, on the
-// row's place in the batch or on the grid.  The K tail is zero-filled in
-// shared memory (fmaf(0, 0, s) == s).  Row m of A is read at
-//   A + (m / rows_per_group) * group_stride + (m % rows_per_group) * row_stride
-// so the STFT reads its frames straight from the reflect-padded signal
-// (rows_per_group = frames a window, group_stride = the padded length,
-// row_stride = hop): the (M, n_fft) frame matrix is never built.
+// D1, stft_rfft_kernel and istft_irfft_kernel: n_fft = 1024 only (the
+// wrapper refuses any other size).  One plan serves every frame: the real
+// frame of 1024 points is a complex sequence of 512, z[n] = x[2n] +
+// i x[2n+1], transformed by a 512-point Stockham FFT of three radix-8
+// stages (Ns = 1, 8, 64) in shared memory, 64 threads a frame (one radix-8
+// butterfly a thread a stage), 4 frames a block; then a post-pass splits
+// Z into the 513 bins, X[k] = E[k] + W^k O[k] with E = (Z[k] +
+// conj Z[512-k]) / 2, O = (Z[k] - conj Z[512-k]) / 2i, W = e^{-2 pi i /
+// 1024}.  The inverse runs the same steps backwards: Z'[k] = (X[k] +
+// conj X[512-k]) + i W^{-k} (X[k] - conj X[512-k]) (the imaginary parts at
+// DC and Nyquist ignored, as the inverse bases ignore them), z = conj(FFT(
+// conj Z')) / 1024, x[2n] = Re z[n], x[2n+1] = Im z[n]: the unwindowed
+// inverse rDFT, whose c / n_fft weights (c = 2 but at DC and Nyquist) the
+// factor 1/1024 and the pairing of k with 512 - k carry.
 //
-// Bound: at n_fft 1024 the STFT is 2 * M * 1024 * 1026 FLOP against
-// 4 * (1024 + 1026) bytes a row (a live window's 183 frames: 385 MFLOP
-// against 1.5 MB), so operations bound it, far above the card's ridge.  The
-// design is the classic register-blocked SGEMM: a 128 x 128 output tile per
-// 256-thread block, 8 x 8 outputs a thread, K in steps of 8 through two
-// shared-memory buffers with the next step's loads held in registers.  A
-// per-frame real FFT would do about 80x less work; that is the next design.
+// Precision: float32 in and out, float64 inside.  The gate compares each
+// bin's |X|^2 with a threshold, and a quiet bin near it sits far below the
+// frame's largest bin, so an fp32 transform (FFT or dense product alike)
+// errs there by ~1e-5 of the bin and decides some near-ties against the
+// exact spectrum; a flipped bin moves up to 16 int16 steps around it.  In
+// float64 the transform is exact to well below the one rounding of each
+// output to float32, so the card's spectrum, and every gate decision on
+// it, is that of the exact DFT of its float32 input.  The frame times the
+// float32 window is exact in float64, every twiddle is read from one
+// float64 table, e^{-2 pi i t / 1024} for t < 1024 (W512^t is entry 2t; the
+// radix-8 butterfly's sqrt(1/2) is entry 128), and the wrapper's plan is
+// that table, (cos, sin) pairs, followed by the 1024-point periodic Hann
+// window (its float32 values), one float64 pointer for both kernels.  A
+// frame's sequence of operations depends on nothing but the frame: the
+// grid grows with M and nothing else does, so a window's bits are the same
+// alone and in any batch.
+//
+// Frame t of window g is read straight from the signal, sample t * hop -
+// 512 + s of row g (contiguous rows of n), reflected at both ends as the
+// centered STFT's reflect padding would (the wrapper requires n > 512), and
+// windowed (periodic Hann) as it is loaded; re and im land in two planes
+// of one (2, M, 513) output, M = rows * frames.
+//
+// Bound: bytes.  A frame's FFT is ~33 kFLOP against 4.1 kB of spectrum
+// written (STFT) or read (ISTFT) and 4 kB of frame written (ISTFT) or 1 kB
+// of new signal read (STFT, hop 256), ~3 FLOP a byte; even as float64 FMAs
+// it stays below the card's ridge.  What the design does about it is to
+// touch device memory once: neither the padded signal nor the frame matrix
+// is built, each input is read once (overlapping frames share the L1 and
+// L2) and each output written once, with unit stride across a frame's
+// threads, and every intermediate stays in shared memory.
 //
 // D2, smooth_mask_kernel: the gate mask smoothed by the outer triangular
 // kernel as two banded passes, frequency (taps vf, zero-padded "same") and
@@ -45,99 +72,211 @@
 
 namespace {
 
-constexpr int kBM = 128;     // output rows a block
-constexpr int kBN = 128;     // output columns a block
-constexpr int kBK = 8;       // K a step
-constexpr int kThreads = 256;
+constexpr int kFftN = 1024;               // n_fft
+constexpr int kHalf = kFftN / 2;          // complex points
+constexpr int kBins = kHalf + 1;
+constexpr int kFrameThreads = 64;         // one radix-8 butterfly each
+constexpr int kFramesPerBlock = 4;
+constexpr int kFftThreads = kFrameThreads * kFramesPerBlock;
+// one padding double every 8: the stage stores (stride 8, then runs of 8
+// at stride 64) and the loads (unit stride) meet few bank conflicts
+constexpr int kPadded = kHalf + kHalf / 8;
 
-__global__ void __launch_bounds__(kThreads)
-fixed_order_gemm_kernel(const float* __restrict__ A, long long rows_per_group,
-                        long long group_stride, long long row_stride, int M,
-                        int K, const float* __restrict__ B, int N,
-                        float* __restrict__ C) {
-  __shared__ __align__(16) float As[2][kBK][kBM];
-  __shared__ __align__(16) float Bs[2][kBK][kBN];
-  const int tid = threadIdx.x;
-  const long long m0 = static_cast<long long>(blockIdx.x) * kBM;
-  const int n0 = blockIdx.y * kBN;
+__device__ __forceinline__ int pidx(int i) { return i + (i >> 3); }
 
-  // loads: A as 128 rows x 8 k (4 consecutive k a thread), B as 8 k x 128
-  // columns (4 consecutive columns a thread)
-  const int a_row = tid >> 1, a_k = (tid & 1) * 4;
-  const long long am = m0 + a_row;
-  const bool a_ok = am < M;
-  const float* a_src = A;
-  if (a_ok)
-    a_src += (am / rows_per_group) * group_stride +
-             (am % rows_per_group) * row_stride;
-  const int b_k = tid >> 5, b_n = (tid & 31) * 4;
-  float ra[4], rb[4];
+__device__ __forceinline__ double2 cadd(double2 a, double2 b) {
+  return make_double2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ double2 csub(double2 a, double2 b) {
+  return make_double2(a.x - b.x, a.y - b.y);
+}
+__device__ __forceinline__ double2 cmul(double2 a, double2 w) {
+  return make_double2(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x);
+}
+// a * (-i)
+__device__ __forceinline__ double2 mul_mi(double2 a) {
+  return make_double2(a.y, -a.x);
+}
 
-  auto load = [&](int k0) {
+__device__ __forceinline__ void dft4(double2& u0, double2& u1, double2& u2,
+                                     double2& u3) {
+  const double2 p0 = cadd(u0, u2), p1 = csub(u0, u2);
+  const double2 q0 = cadd(u1, u3), q1 = mul_mi(csub(u1, u3));
+  u0 = cadd(p0, q0);
+  u1 = cadd(p1, q1);
+  u2 = csub(p0, q0);
+  u3 = csub(p1, q1);
+}
+
+// In-register DFT of 8 points, V[q] = sum_r v[r] e^{-2 pi i r q / 8}: a
+// radix-2 split (v[r] +- v[r+4], the difference times W8^r), then two
+// 4-point DFTs giving the even and the odd outputs.
+__device__ __forceinline__ void dft8(double2* v, double c) {
+  double2 a0 = cadd(v[0], v[4]), a1 = cadd(v[1], v[5]);
+  double2 a2 = cadd(v[2], v[6]), a3 = cadd(v[3], v[7]);
+  double2 b0 = csub(v[0], v[4]);
+  const double2 d1 = csub(v[1], v[5]), d2 = csub(v[2], v[6]),
+                d3 = csub(v[3], v[7]);
+  double2 b1 = make_double2(c * (d1.x + d1.y), c * (d1.y - d1.x));
+  double2 b2 = mul_mi(d2);
+  double2 b3 = make_double2(c * (d3.y - d3.x), -(c * (d3.x + d3.y)));
+  dft4(a0, a1, a2, a3);
+  dft4(b0, b1, b2, b3);
+  v[0] = a0; v[2] = a1; v[4] = a2; v[6] = a3;
+  v[1] = b0; v[3] = b1; v[5] = b2; v[7] = b3;
+}
+
+// The 512-point FFT of one frame: on entry v[r] = z[j + 64 r], on return
+// v[r] = Z[j + 64 r].  Stockham, radix 8: at stage Ns the butterfly j reads
+// j + 64 r, multiplies input r by W_{8 Ns}^{r (j mod Ns)} and writes output
+// q at (j / Ns) * 8 Ns + (j mod Ns) + q Ns.  Every thread of the block
+// calls it (it holds barriers).
+__device__ __forceinline__ void fft512(double2* v, double* sre, double* sim,
+                                       int j, const double2* __restrict__ tw,
+                                       double c) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int k = k0 + a_k + i;
-      ra[i] = (a_ok && k < K) ? a_src[k] : 0.f;
+  for (int s = 0; s < 3; ++s) {
+    const int ns = s == 0 ? 1 : (s == 1 ? 8 : 64);
+    if (s > 0) {
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int i = pidx(j + 64 * r);
+        v[r] = make_double2(sre[i], sim[i]);
+      }
+      const int k = j % ns;
+#pragma unroll
+      for (int r = 1; r < 8; ++r)      // W512^e is table entry 2e
+        v[r] = cmul(v[r], __ldg(tw + 2 * r * k * (kHalf / (8 * ns))));
     }
-    const int k = k0 + b_k;
+    dft8(v, c);
+    if (s == 2) break;
+    __syncthreads();                   // every load of the stage is done
+    const int base = (j / ns) * 8 * ns + j % ns;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + b_n + j;
-      rb[j] = (k < K && n < N) ? B[static_cast<long long>(k) * N + n] : 0.f;
+    for (int q = 0; q < 8; ++q) {
+      const int i = pidx(base + q * ns);
+      sre[i] = v[q].x;
+      sim[i] = v[q].y;
     }
-  };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) As[buf][a_k + i][a_row] = ra[i];
-    *reinterpret_cast<float4*>(&Bs[buf][b_k][b_n]) =
-        make_float4(rb[0], rb[1], rb[2], rb[3]);
-  };
-
-  // outputs: rows ty*4 + {0..3} and 64 + ty*4 + {0..3}, columns likewise
-  const int ty = tid >> 4, tx = tid & 15;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  const int steps = (K + kBK - 1) / kBK;
-  load(0);
-  store(0);
-  __syncthreads();
-  for (int s = 0; s < steps; ++s) {
-    const int cur = s & 1;
-    if (s + 1 < steps) load((s + 1) * kBK);
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][kk][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[cur][kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][kk][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&Bs[cur][kk][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    // the other buffer was last read in step s - 1, before its barrier
-    if (s + 1 < steps) store(cur ^ 1);
     __syncthreads();
   }
+}
 
+// Sample i of a row of n, reflected into [0, n) (n > 512 >= the overhang).
+__device__ __forceinline__ long long reflect(long long i, long long n) {
+  return i < 0 ? -i : (i >= n ? 2 * (n - 1) - i : i);
+}
+
+// D1 forward: the M = rows * frames windowed frames of y (contiguous rows
+// of n) -> out (2, M, 513), the re plane then the im plane.
+__global__ void __launch_bounds__(kFftThreads)
+stft_rfft_kernel(const float* __restrict__ y, long long n, int frames,
+                 int hop, int M, const double* __restrict__ plan,
+                 float* __restrict__ out) {
+  const double2* tw = reinterpret_cast<const double2*>(plan);
+  const double* window = plan + 2 * kFftN;
+  __shared__ double sre[kFramesPerBlock][kPadded];
+  __shared__ double sim[kFramesPerBlock][kPadded];
+  const int slot = threadIdx.x / kFrameThreads;
+  const int j = threadIdx.x % kFrameThreads;
+  const long long m = static_cast<long long>(blockIdx.x) * kFramesPerBlock +
+                      slot;
+  const bool valid = m < M;
+  const double c = __ldg(tw + kFftN / 8).x;
+  double2 v[8];
+  const float* src = y;
+  long long start = 0;
+  if (valid) {
+    src += (m / frames) * n;
+    start = (m % frames) * static_cast<long long>(hop) - kHalf;
+  }
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const long long m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (m >= M) continue;
-    float* row = C + m * N;
+  for (int r = 0; r < 8; ++r) {
+    const int s = 2 * (j + 64 * r);
+    // a float32 sample times a float32 window value: exact in float64
+    v[r] = valid ? make_double2(
+                       src[reflect(start + s, n)] * __ldg(window + s),
+                       src[reflect(start + s + 1, n)] * __ldg(window + s + 1))
+                 : make_double2(0.0, 0.0);
+  }
+  double* re = sre[slot];
+  double* im = sim[slot];
+  fft512(v, re, im, j, tw, c);
+  __syncthreads();                     // the last stage's loads are done
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (n < N) row[n] = acc[i][j];
+  for (int r = 0; r < 8; ++r) {
+    const int i = pidx(j + 64 * r);
+    re[i] = v[r].x;
+    im[i] = v[r].y;
+  }
+  __syncthreads();
+  if (!valid) return;
+  float* row_re = out + m * kBins;
+  float* row_im = out + (M + m) * kBins;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int k = j + 64 * q;
+    const int i = pidx(k), i2 = pidx((kHalf - k) & (kHalf - 1));
+    const double ar = re[i], ai = im[i], br = re[i2], bi = im[i2];
+    const double er = 0.5 * (ar + br), ei = 0.5 * (ai - bi);
+    const double2 o = make_double2(0.5 * (ai + bi), 0.5 * (br - ar));
+    const double2 wo = cmul(o, __ldg(tw + k));
+    row_re[k] = static_cast<float>(er + wo.x);   // the one rounding to fp32
+    row_im[k] = static_cast<float>(ei + wo.y);
+  }
+  if (j == 0) {                        // Nyquist: E[0] - O[0], real
+    row_re[kHalf] = static_cast<float>(re[0] - im[0]);
+    row_im[kHalf] = 0.f;
+  }
+}
+
+// D1 inverse: re, im (M, 513) contiguous -> out (M, 1024), the unwindowed
+// inverse rDFT of each row.
+__global__ void __launch_bounds__(kFftThreads)
+istft_irfft_kernel(const float* __restrict__ re,
+                   const float* __restrict__ im, int M,
+                   const double* __restrict__ plan, float* __restrict__ out) {
+  const double2* tw = reinterpret_cast<const double2*>(plan);
+  __shared__ double sre[kFramesPerBlock][kPadded];
+  __shared__ double sim[kFramesPerBlock][kPadded];
+  const int slot = threadIdx.x / kFrameThreads;
+  const int j = threadIdx.x % kFrameThreads;
+  const long long m = static_cast<long long>(blockIdx.x) * kFramesPerBlock +
+                      slot;
+  const bool valid = m < M;
+  const double c = __ldg(tw + kFftN / 8).x;
+  double2 v[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int k = j + 64 * r;
+    if (!valid) {
+      v[r] = make_double2(0.0, 0.0);
+      continue;
     }
+    const float* xr = re + m * kBins;
+    const float* xi = im + m * kBins;
+    // X[k] and X[512 - k]; the imaginary parts at DC and Nyquist ignored
+    const double ar = xr[k], ai = k == 0 ? 0.0 : xi[k];
+    const double br = xr[kHalf - k], bi = k == 0 ? 0.0 : xi[kHalf - k];
+    const double2 e = make_double2(ar + br, ai - bi);
+    const double2 d = make_double2(ar - br, ai + bi);
+    const double2 w = __ldg(tw + k);
+    // W^{-k} = conj(w)
+    const double2 o =
+        make_double2(d.x * w.x + d.y * w.y, d.y * w.x - d.x * w.y);
+    // conj(E + i O)
+    v[r] = make_double2(e.x - o.y, -(e.y + o.x));
+  }
+  fft512(v, sre[slot], sim[slot], j, tw, c);
+  if (!valid) return;
+  float* row = out + m * kFftN;
+  constexpr double kScale = 1.0 / kFftN;          // exact: a power of two
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int n = j + 64 * r;
+    *reinterpret_cast<float2*>(row + 2 * n) =
+        make_float2(static_cast<float>(v[r].x * kScale),
+                    static_cast<float>(-v[r].y * kScale));
   }
 }
 
@@ -187,16 +326,25 @@ smooth_mask_kernel(const float* __restrict__ mask, float* __restrict__ out,
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch (0 on success).
-int fixed_order_gemm_launch(const float* A, long long rows_per_group,
-                            long long group_stride, long long row_stride,
-                            int M, int K, const float* B, int N, float* C,
-                            cudaStream_t stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || rows_per_group <= 0)
+// Return cudaGetLastError() after the launch (0 on success).  plan
+// (float64): the 1024 twiddles e^{-2 pi i t / 1024} as (cos, sin) pairs,
+// then the 1024-point window.
+int stft_rfft_launch(const float* y, long long n, int frames, int hop, int M,
+                     const double* plan, float* out, cudaStream_t stream) {
+  if (M <= 0 || frames <= 0 || n <= kHalf)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
-  fixed_order_gemm_kernel<<<grid, kThreads, 0, stream>>>(
-      A, rows_per_group, group_stride, row_stride, M, K, B, N, C);
+  const int blocks = (M + kFramesPerBlock - 1) / kFramesPerBlock;
+  stft_rfft_kernel<<<blocks, kFftThreads, 0, stream>>>(y, n, frames, hop, M,
+                                                      plan, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int istft_irfft_launch(const float* re, const float* im, int M,
+                       const double* plan, float* out, cudaStream_t stream) {
+  if (M <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (M + kFramesPerBlock - 1) / kFramesPerBlock;
+  istft_irfft_kernel<<<blocks, kFftThreads, 0, stream>>>(re, im, M, plan,
+                                                        out);
   return static_cast<int>(cudaGetLastError());
 }
 

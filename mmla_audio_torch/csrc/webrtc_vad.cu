@@ -8,23 +8,47 @@
 //
 // W1 is the fixed-point webrtcvad engine of csrc/host/webrtcvad.cpp
 // (wv_process -> downsampling -> calc_vad_8khz -> calculate_features ->
-// gmm_probability), one thread a stream.  The thread loads its stream's
-// 265-slot state row (the layout of wv_get_state / wv_set_state), runs the
-// window's frames in order and stores the row back, so a row written by the
-// host engine and one written here are interchangeable bit for bit.  Rows
-// whose index is n_states or more are padding: they read and write no state
-// and their decisions are 0.  The caller guarantees that no two rows of a
-// launch share a state index.
+// gmm_probability), one block of four warps a stream.  The block loads its
+// stream's 265-slot state row (the layout of wv_get_state / wv_set_state,
+// the int16 slots truncated as wv_set_state truncates them) into shared
+// memory, runs the window's frames and stores the row back, so a row
+// written by the host engine and one written here are interchangeable bit
+// for bit.  Rows whose index is n_states or more are padding: they read and
+// write no state and their decisions are 0.  The caller guarantees that no
+// two rows of a launch share a state index.
 //
-// What bounds W1 on this card is its serial dependency chain, not bytes: a
-// row reads 81,600 B of samples and reads and writes 1,060 B of state, but
-// the filterbank is a cascade of sample-serial IIRs whose state is
-// truncated to int16 every sample, and the GMM update of a frame depends on
-// the previous frame's.  The design does nothing about the chain beyond
-// keeping one stream on one thread with its state in registers and local
-// memory; spreading a stream over lanes (the six sub-bands, the pipelined
-// filter stages) is later work.  ``rows_per_block`` sets how many streams
-// share a block (one a lane); 1 gives each stream a warp of its own.
+// What bounds W1 is its longest serial dependency chain, not bytes (a row
+// reads 81,600 B of samples and reads and writes 1,060 B of state).  The
+// engine is 13 sample-serial IIR chains, each truncated to int16 every
+// sample: the 2:1 decimator's two all-pass halves (even and odd samples,
+// state ds), the two all-pass halves of each of the five band splits
+// (upper and lower state), the 80 Hz high-pass; then six sub-band energies
+// and the six-channel GMM, serial only across frames.  The filterbank never
+// reads the GMM state and the GMM never reads the filterbank's.  So the
+// block is a pipeline of four warps, one frame a stage, a tick a frame:
+//   warp 0  frame f:      the decimator, one lane a half (frame_len / 2
+//                         steps each), or the copy of an 8 kHz frame;
+//   warp 1  frame f - 1:  the 2 kHz split (two lanes), then the 3 kHz and
+//                         1 kHz splits of its halves (four lanes);
+//   warp 2  frame f - 2:  the 500 Hz and 250 Hz splits and the high-pass,
+//                         then the six log energies on six lanes and the
+//                         total energy over channels 5, 4, 3, 2, 1, 0 in
+//                         the engine's order (each step reads the sum so
+//                         far);
+//   warp 3  frame f - 3:  the GMM, one lane a channel (its probabilities,
+//                         its 16-slot minimum table, its means and stds),
+//                         the vote over channels by warp shuffles (int32
+//                         sums wrap, so their order keeps the bits), the
+//                         hangover on lane 0; then it stages frame f + 1's
+//                         samples in shared memory.
+// Stages hand frames on through shared buffers of two slots (the frame's
+// parity), and a barrier ends each tick.  Every chain keeps its state in the
+// shared state row and carries it from frame to frame exactly as the
+// engine does (the all-pass states truncated to int16 between frames).
+// Every s16() truncation and every shift stays where the host engine has
+// it.  The floor is the decimator's chain: frame_len / 2 dependent steps a
+// frame, 20,400 a 2.55 s window at 30 ms frames, each a handful of
+// dependent integer operations; the other stages hide under it.
 //
 // Signed overflow: the host engine is compiled with -fwrapv and relies on
 // two's-complement wraparound (Q-format products, sums of products, left
@@ -129,60 +153,20 @@ __device__ __forceinline__ int norm_u32(uint32_t a) {
   return a == 0 ? 0 : __clz(a);
 }
 
-struct VadState {
-  int32_t ds[2];
-  int16_t upper[5];
-  int16_t lower[5];
-  int16_t hp[4];
-  int16_t noise_means[kTableSize];
-  int16_t speech_means[kTableSize];
-  int16_t noise_stds[kTableSize];
-  int16_t speech_stds[kTableSize];
-  int16_t low_value[16 * kNumChannels];
-  int16_t age[16 * kNumChannels];
-  int16_t mean_value[kNumChannels];
-  int32_t frame_counter;
-  int16_t over_hang;
-  int16_t num_of_speech;
-};
+// Slots of the state row (wv_get_state's order).  All hold int16 values
+// but the decimator's two int32 states and the frame counter.
+constexpr int kDsSlot = 0, kUpperSlot = 2, kLowerSlot = 7, kHpSlot = 12;
+constexpr int kNoiseMeansSlot = 16, kSpeechMeansSlot = 28;
+constexpr int kNoiseStdsSlot = 40, kSpeechStdsSlot = 52;
+constexpr int kLowValueSlot = 64, kAgeSlot = 160, kMeanValueSlot = 256;
+constexpr int kFrameCounterSlot = 262, kOverHangSlot = 263;
+constexpr int kNumOfSpeechSlot = 264;
 
-// wv_set_state.
-__device__ void load_state(VadState* st, const int32_t* in) {
-  int i = 0;
-  for (int j = 0; j < 2; ++j) st->ds[j] = in[i++];
-  for (int j = 0; j < 5; ++j) st->upper[j] = s16(in[i++]);
-  for (int j = 0; j < 5; ++j) st->lower[j] = s16(in[i++]);
-  for (int j = 0; j < 4; ++j) st->hp[j] = s16(in[i++]);
-  for (int j = 0; j < kTableSize; ++j) st->noise_means[j] = s16(in[i++]);
-  for (int j = 0; j < kTableSize; ++j) st->speech_means[j] = s16(in[i++]);
-  for (int j = 0; j < kTableSize; ++j) st->noise_stds[j] = s16(in[i++]);
-  for (int j = 0; j < kTableSize; ++j) st->speech_stds[j] = s16(in[i++]);
-  for (int j = 0; j < 96; ++j) st->low_value[j] = s16(in[i++]);
-  for (int j = 0; j < 96; ++j) st->age[j] = s16(in[i++]);
-  for (int j = 0; j < kNumChannels; ++j) st->mean_value[j] = s16(in[i++]);
-  st->frame_counter = in[i++];
-  st->over_hang = s16(in[i++]);
-  st->num_of_speech = s16(in[i++]);
-}
-
-// wv_get_state.
-__device__ void store_state(const VadState* st, int32_t* out) {
-  int i = 0;
-  for (int j = 0; j < 2; ++j) out[i++] = st->ds[j];
-  for (int j = 0; j < 5; ++j) out[i++] = st->upper[j];
-  for (int j = 0; j < 5; ++j) out[i++] = st->lower[j];
-  for (int j = 0; j < 4; ++j) out[i++] = st->hp[j];
-  for (int j = 0; j < kTableSize; ++j) out[i++] = st->noise_means[j];
-  for (int j = 0; j < kTableSize; ++j) out[i++] = st->speech_means[j];
-  for (int j = 0; j < kTableSize; ++j) out[i++] = st->noise_stds[j];
-  for (int j = 0; j < kTableSize; ++j) out[i++] = st->speech_stds[j];
-  for (int j = 0; j < 96; ++j) out[i++] = st->low_value[j];
-  for (int j = 0; j < 96; ++j) out[i++] = st->age[j];
-  for (int j = 0; j < kNumChannels; ++j) out[i++] = st->mean_value[j];
-  out[i++] = st->frame_counter;
-  out[i++] = st->over_hang;
-  out[i++] = st->num_of_speech;
-}
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
+// the largest frame: 480 samples at 16 kHz, 240 at 8 kHz after decimation
+constexpr int kMaxFrame = 480, kMaxNb = 240;
 
 // --- vad_gaussian.c ---------------------------------------------------------
 
@@ -209,32 +193,184 @@ __device__ int32_t gaussian_probability(int16_t inp, int16_t mean,
   return wrap_mul(inv_std, exp_value);                     // Q20
 }
 
-// --- vad_sp.c ---------------------------------------------------------------
-
-// 2:1 all-pass decimation of one 16 kHz frame read from device memory.
-__device__ void downsampling(const int16_t* __restrict__ in, int n,
-                             int16_t* out, int32_t* state) {
-  int32_t tmp32_1 = state[0];
-  int32_t tmp32_2 = state[1];
-  int half = n >> 1;
-  for (int i = 0; i < half; ++i) {
-    int32_t x0 = __ldg(in + 2 * i);
-    int32_t x1 = __ldg(in + 2 * i + 1);
-    int16_t t1 = s16(wrap_add(tmp32_1 >> 1, (kAllPassQ13Upper * x0) >> 14));
-    tmp32_1 = wrap_sub(x0, (kAllPassQ13Upper * t1) >> 12);
-    int16_t t2 = s16(wrap_add(tmp32_2 >> 1, (kAllPassQ13Lower * x1) >> 14));
-    out[i] = s16(t1 + t2);
-    tmp32_2 = wrap_sub(x1, (kAllPassQ13Lower * t2) >> 12);
+__device__ int get_scaling_square(const int16_t* v, int n) {
+  int nbits = 32 - __clz(n);                   // len(vector).bit_length()
+  int32_t smax = 0;
+  for (int i = 0; i < n; ++i) {
+    int32_t sabs = v[i] > 0 ? v[i] : -v[i];
+    if (sabs > smax) smax = sabs;
   }
-  state[0] = tmp32_1;
-  state[1] = tmp32_2;
+  if (smax == 0) return 0;
+  int t = norm_w32(smax * smax);
+  return t > nbits ? 0 : nbits - t;
 }
 
-__device__ int16_t find_minimum(VadState* st, int16_t feature_value,
+__device__ int32_t energy(const int16_t* v, int n, int* scaling) {
+  *scaling = get_scaling_square(v, n);
+  int32_t en = 0;
+  for (int i = 0; i < n; ++i) en = wrap_add(en, (v[i] * v[i]) >> *scaling);
+  return en;
+}
+
+// --- vad_sp.c: the 2:1 decimator ---------------------------------------------
+
+// Every chain's length is a multiple of kChunk (frame_len / 2 = 80, 160 or
+// 240 for the decimator; n / 2 ... n / 16 = 5 ... 120 for the splits).  A
+// chain reads its inputs a chunk ahead into registers, so no shared-memory
+// load sits on its dependency chain.
+constexpr int kChunk = 5;
+
+// One half of downsampling(): the all-pass chain over the even (half 0,
+// upper coefficient) or odd (half 1, lower) samples of a 16 kHz frame,
+// its int32 state carried in st[kDsSlot + half].  out[i] is this half's
+// term of the 8 kHz sample i (the engine adds the halves).
+__device__ void decimate_half(const int16_t* __restrict__ in, int half_len,
+                              int half, int32_t* __restrict__ st,
+                              int16_t* __restrict__ out) {
+  const int32_t coef = half ? kAllPassQ13Lower : kAllPassQ13Upper;
+  int32_t state = st[kDsSlot + half];
+  int32_t x[kChunk], next[kChunk];
+#pragma unroll
+  for (int k = 0; k < kChunk; ++k) next[k] = in[2 * k + half];
+  for (int c = 0; c < half_len; c += kChunk) {
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) x[k] = next[k];
+    if (c + kChunk < half_len) {
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k)
+        next[k] = in[2 * (c + kChunk + k) + half];
+    }
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      const int16_t t = s16(wrap_add(state >> 1, (coef * x[k]) >> 14));
+      state = wrap_sub(x[k], (coef * t) >> 12);
+      out[c + k] = t;
+    }
+  }
+  st[kDsSlot + half] = state;
+}
+
+// --- vad_filterbank.c -------------------------------------------------------
+
+// all_pass_filter_out over in[parity], in[parity + 2], ...: ``len`` outputs,
+// the int16 state in the slot *state.
+__device__ void all_pass(const int16_t* __restrict__ in, int parity, int len,
+                         int32_t coef, int32_t* __restrict__ state,
+                         int16_t* __restrict__ out) {
+  int32_t state32 = wrap_shl(*state, 16);                          // Q15
+  int32_t x[kChunk], next[kChunk];
+#pragma unroll
+  for (int k = 0; k < kChunk; ++k) next[k] = in[parity + 2 * k];
+  for (int c = 0; c < len; c += kChunk) {
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) x[k] = next[k];
+    if (c + kChunk < len) {
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k)
+        next[k] = in[parity + 2 * (c + kChunk + k)];
+    }
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      const int32_t tmp32 = wrap_add(state32, coef * x[k]);
+      const int16_t tmp16 = s16(tmp32 >> 16);                      // Q(-1)
+      out[c + k] = tmp16;
+      state32 = wrap_sub(x[k] * (1 << 14), coef * tmp16);          // Q14
+      state32 = wrap_mul(state32, 2);                              // Q15
+    }
+  }
+  *state = s16(state32 >> 16);
+}
+
+// One of split_filter's two chains on a lane: half 0 the upper chain (even
+// samples, state upper[band]), half 1 the lower chain (odd samples, state
+// lower[band]).  The lanes of a warp that run chains run this one call
+// with their own arguments, so their steps issue together.
+__device__ void split_chain(const int16_t* in, int n, int band, int half,
+                            int32_t* st, int16_t* out) {
+  all_pass(in, half, n >> 1, half ? kAllPassQ15Lower : kAllPassQ15Upper,
+           st + (half ? kLowerSlot : kUpperSlot) + band, out);
+}
+
+// split_filter's sum and difference of the two chains, over the warp.
+__device__ void split_join(const int16_t* u, const int16_t* l, int len,
+                           int lane, int16_t* hp, int16_t* lp) {
+  for (int i = lane; i < len; i += 32) {
+    hp[i] = s16(u[i] - l[i]);
+    lp[i] = s16(l[i] + u[i]);
+  }
+}
+
+__device__ void high_pass_filter(const int16_t* in, int n, int32_t* state,
+                                 int16_t* out) {
+  for (int i = 0; i < n; ++i) {
+    const int32_t x = in[i];
+    int32_t tmp32 = kHpZero0 * x;
+    tmp32 = wrap_add(tmp32, kHpZero1 * state[0]);
+    tmp32 = wrap_add(tmp32, kHpZero2 * state[1]);
+    state[1] = state[0];
+    state[0] = s16(x);
+    tmp32 = wrap_sub(tmp32, kHpPole1 * state[2]);
+    tmp32 = wrap_sub(tmp32, kHpPole2 * state[3]);
+    state[3] = state[2];
+    state[2] = s16(tmp32 >> 14);
+    out[i] = s16(state[2]);
+  }
+}
+
+// log_of_energy without its total-energy update: the feature, and what
+// the update needs (whether the energy is nonzero, the normalized energy
+// and the total right shifts).
+struct BandEnergy {
+  int32_t nonzero, en, rshifts;
+};
+
+__device__ int16_t log_energy(const int16_t* data, int n, int16_t offset,
+                              BandEnergy* out) {
+  int tot_rshifts = 0;
+  uint32_t en = static_cast<uint32_t>(energy(data, n, &tot_rshifts));
+  out->nonzero = en != 0;
+  if (en == 0) return offset;
+  const int normalizing_rshifts = 17 - norm_u32(en);
+  int16_t log2_energy = kLogEnergyIntPart;
+  tot_rshifts += normalizing_rshifts;
+  if (normalizing_rshifts < 0) {
+    en <<= -normalizing_rshifts;
+  } else {
+    en >>= normalizing_rshifts;
+  }
+  log2_energy = s16(log2_energy +
+                    static_cast<int32_t>((en & 0x00003FFFu) >> 4));  // Q10
+  int16_t log_energy = s16(((kLogConst * log2_energy) >> 19)
+                           + ((tot_rshifts * kLogConst) >> 9));
+  if (log_energy < 0) log_energy = 0;
+  out->en = static_cast<int32_t>(en);
+  out->rshifts = tot_rshifts;
+  return s16(log_energy + offset);
+}
+
+// The total energy, log_of_energy's updates in the engine's order
+// (channels 5, 4, 3, 2, 1, 0): each step reads the sum so far.
+__device__ int16_t total_energy(const BandEnergy* band) {
+  int16_t total = 0;
+  for (int c = kNumChannels - 1; c >= 0; --c) {
+    if (!band[c].nonzero || total > kMinEnergy) continue;
+    if (band[c].rshifts >= 0) {
+      total = s16(total + kMinEnergy + 1);
+    } else {
+      total = s16(total + s16(static_cast<int32_t>(
+                  static_cast<uint32_t>(band[c].en) >> -band[c].rshifts)));
+    }
+  }
+  return total;
+}
+
+// --- vad_core.c -------------------------------------------------------------
+
+__device__ int16_t find_minimum(int32_t* st, int16_t feature_value,
                                 int channel) {
-  int offset = channel << 4;
-  int16_t* age = st->age + offset;
-  int16_t* smallest = st->low_value + offset;
+  const int offset = channel << 4;
+  int32_t* age = st + kAgeSlot + offset;
+  int32_t* smallest = st + kLowValueSlot + offset;
   int16_t current_median = 1600;
   int32_t alpha = 0;
 
@@ -265,281 +401,150 @@ __device__ int16_t find_minimum(VadState* st, int16_t feature_value,
     age[position] = 1;
   }
 
-  if (st->frame_counter > 2) {
-    current_median = smallest[2];
-  } else if (st->frame_counter > 0) {
-    current_median = smallest[0];
+  const int32_t frame_counter = st[kFrameCounterSlot];
+  int32_t* mean_value = st + kMeanValueSlot + channel;
+  if (frame_counter > 2) {
+    current_median = s16(smallest[2]);
+  } else if (frame_counter > 0) {
+    current_median = s16(smallest[0]);
   }
 
-  if (st->frame_counter > 0) {
-    alpha = (current_median < st->mean_value[channel]) ? kSmoothingDown
-                                                       : kSmoothingUp;
+  if (frame_counter > 0) {
+    alpha = (current_median < *mean_value) ? kSmoothingDown : kSmoothingUp;
   }
-  int32_t tmp32 = wrap_mul(alpha + 1, st->mean_value[channel]);
+  int32_t tmp32 = wrap_mul(alpha + 1, *mean_value);
   tmp32 = wrap_add(tmp32, wrap_mul(32767 - alpha, current_median));
   tmp32 = wrap_add(tmp32, 16384);
-  st->mean_value[channel] = s16(tmp32 >> 15);
-  return st->mean_value[channel];
+  *mean_value = s16(tmp32 >> 15);
+  return s16(*mean_value);
 }
 
-// --- vad_filterbank.c -------------------------------------------------------
-
-__device__ void all_pass_filter_out(const int16_t* in, int stride_offset,
-                                    int length, int32_t coef, int16_t* state,
-                                    int16_t* out) {
-  int32_t state32 = wrap_shl(*state, 16);                          // Q15
-  for (int i = 0; i < length; ++i) {
-    int32_t x = in[stride_offset + 2 * i];
-    int32_t tmp32 = wrap_add(state32, coef * x);
-    int16_t tmp16 = s16(tmp32 >> 16);                              // Q(-1)
-    out[i] = tmp16;
-    state32 = wrap_sub(x * (1 << 14), coef * tmp16);               // Q14
-    state32 = wrap_mul(state32, 2);                                // Q15
-  }
-  *state = s16(state32 >> 16);
-}
-
-__device__ void split_filter(const int16_t* in, int n, int16_t* state_u,
-                             int16_t* state_l, int16_t* hp, int16_t* lp) {
-  int half = n >> 1;
-  all_pass_filter_out(in, 0, half, kAllPassQ15Upper, state_u, hp);
-  all_pass_filter_out(in, 1, half, kAllPassQ15Lower, state_l, lp);
-  for (int i = 0; i < half; ++i) {
-    int16_t tmp = hp[i];
-    hp[i] = s16(hp[i] - lp[i]);
-    lp[i] = s16(lp[i] + tmp);
-  }
-}
-
-__device__ void high_pass_filter(const int16_t* in, int n, int16_t* state,
-                                 int16_t* out) {
-  for (int i = 0; i < n; ++i) {
-    int32_t x = in[i];
-    int32_t tmp32 = kHpZero0 * x;
-    tmp32 = wrap_add(tmp32, kHpZero1 * state[0]);
-    tmp32 = wrap_add(tmp32, kHpZero2 * state[1]);
-    state[1] = state[0];
-    state[0] = s16(x);
-    tmp32 = wrap_sub(tmp32, kHpPole1 * state[2]);
-    tmp32 = wrap_sub(tmp32, kHpPole2 * state[3]);
-    state[3] = state[2];
-    state[2] = s16(tmp32 >> 14);
-    out[i] = state[2];
-  }
-}
-
-__device__ int get_scaling_square(const int16_t* v, int n) {
-  int nbits = 32 - __clz(n);                   // len(vector).bit_length()
-  int32_t smax = 0;
-  for (int i = 0; i < n; ++i) {
-    int32_t sabs = v[i] > 0 ? v[i] : -v[i];
-    if (sabs > smax) smax = sabs;
-  }
-  if (smax == 0) return 0;
-  int t = norm_w32(smax * smax);
-  return t > nbits ? 0 : nbits - t;
-}
-
-__device__ int32_t energy(const int16_t* v, int n, int* scaling) {
-  *scaling = get_scaling_square(v, n);
-  int32_t en = 0;
-  for (int i = 0; i < n; ++i) en = wrap_add(en, (v[i] * v[i]) >> *scaling);
-  return en;
-}
-
-__device__ int16_t log_of_energy(const int16_t* data, int n, int16_t offset,
-                                 int16_t* total_energy) {
-  int tot_rshifts = 0;
-  uint32_t en = static_cast<uint32_t>(energy(data, n, &tot_rshifts));
-  if (en != 0) {
-    int normalizing_rshifts = 17 - norm_u32(en);
-    int16_t log2_energy = kLogEnergyIntPart;
-    tot_rshifts += normalizing_rshifts;
-    if (normalizing_rshifts < 0) {
-      en <<= -normalizing_rshifts;
-    } else {
-      en >>= normalizing_rshifts;
-    }
-    log2_energy = s16(log2_energy +
-                      static_cast<int32_t>((en & 0x00003FFFu) >> 4));  // Q10
-    int16_t log_energy = s16(((kLogConst * log2_energy) >> 19)
-                             + ((tot_rshifts * kLogConst) >> 9));
-    if (log_energy < 0) log_energy = 0;
-    log_energy = s16(log_energy + offset);
-    if (*total_energy <= kMinEnergy) {
-      if (tot_rshifts >= 0) {
-        *total_energy = s16(*total_energy + kMinEnergy + 1);
-      } else {
-        *total_energy = s16(*total_energy +
-                            s16(static_cast<int32_t>(en >> -tot_rshifts)));
-      }
-    }
-    return log_energy;
-  }
-  return offset;
-}
-
-__device__ int16_t calculate_features(VadState* st, const int16_t* data_in,
-                                      int n, int16_t* features) {
-  int16_t total_energy = 0;
-  int16_t buf_hp[120], buf_lp[120];
-  int16_t buf2_hp[60], buf2_lp[60];
-  int16_t buf3_hp[30], buf3_lp[30];
-  int16_t buf4_hp[15], buf4_lp[15];
-  int16_t hp80[15];
-
-  // Split at 2000 Hz and downsample.
-  split_filter(data_in, n, &st->upper[0], &st->lower[0], buf_hp, buf_lp);
-  int half = n >> 1;
-  // Upper band: split at 3000 Hz.
-  split_filter(buf_hp, half, &st->upper[1], &st->lower[1], buf2_hp, buf2_lp);
-  features[5] = log_of_energy(buf2_hp, half >> 1, kOffsetVector[5],
-                              &total_energy);
-  features[4] = log_of_energy(buf2_lp, half >> 1, kOffsetVector[4],
-                              &total_energy);
-  // Lower band: split at 1000 Hz.
-  split_filter(buf_lp, half, &st->upper[2], &st->lower[2], buf2_hp, buf2_lp);
-  features[3] = log_of_energy(buf2_hp, half >> 1, kOffsetVector[3],
-                              &total_energy);
-  // Split at 500 Hz.
-  split_filter(buf2_lp, half >> 1, &st->upper[3], &st->lower[3], buf3_hp,
-               buf3_lp);
-  features[2] = log_of_energy(buf3_hp, half >> 2, kOffsetVector[2],
-                              &total_energy);
-  // Split at 250 Hz.
-  split_filter(buf3_lp, half >> 2, &st->upper[4], &st->lower[4], buf4_hp,
-               buf4_lp);
-  features[1] = log_of_energy(buf4_hp, half >> 3, kOffsetVector[1],
-                              &total_energy);
-  // Remove 0-80 Hz.
-  high_pass_filter(buf4_lp, half >> 3, st->hp, hp80);
-  features[0] = log_of_energy(hp80, half >> 3, kOffsetVector[0],
-                              &total_energy);
-  return total_energy;
-}
-
-// --- vad_core.c -------------------------------------------------------------
-
-__device__ int32_t weighted_average(int16_t* data, int channel,
+__device__ int32_t weighted_average(int32_t* data, int channel,
                                     int16_t offset, bool speech) {
   int32_t result = 0;
   for (int k = 0; k < 2; ++k) {
-    int g = channel + k * kNumChannels;
+    const int g = channel + k * kNumChannels;
     data[g] = s16(data[g] + offset);
-    int32_t w = speech ? kSpeechDataWeights[g] : kNoiseDataWeights[g];
+    const int32_t w = speech ? kSpeechDataWeights[g] : kNoiseDataWeights[g];
     result = wrap_add(result, data[g] * w);
   }
   return result;
 }
 
-__device__ int16_t gmm_probability(VadState* st, const int16_t* features,
-                                   int16_t total_power, int fl_index,
-                                   int mode) {
+// gmm_probability for one frame, one lane a channel (lanes 0-5 of the
+// calling warp; the whole warp calls it).  The decision lands on lane 0.
+__device__ int16_t gmm_frame(int32_t* st, const int16_t* features,
+                             int16_t total_power, int fl_index, int mode,
+                             int lane) {
+  const int channel = lane;
+  const bool active = lane < kNumChannels;
+  const int16_t individual_test = kLocalThreshold[mode][fl_index];
+  const int16_t total_test = kGlobalThreshold[mode][fl_index];
   int16_t vadflag = 0;
-  int16_t delta_n[kTableSize] = {0};
-  int16_t delta_s[kTableSize] = {0};
-  int16_t ngprvec[kTableSize] = {0};
-  int16_t sgprvec[kTableSize] = {0};
-
-  int16_t overhead1 = kOverHangMax1[mode][fl_index];
-  int16_t overhead2 = kOverHangMax2[mode][fl_index];
-  int16_t individual_test = kLocalThreshold[mode][fl_index];
-  int16_t total_test = kGlobalThreshold[mode][fl_index];
 
   if (total_power > kMinEnergy) {
-    int32_t sum_log_likelihood_ratios = 0;
-    int32_t noise_probability[2];
-    int32_t speech_probability[2];
-    for (int channel = 0; channel < kNumChannels; ++channel) {
-      int32_t h0_test = 0;
-      int32_t h1_test = 0;
+    int16_t delta_n[2] = {0, 0}, delta_s[2] = {0, 0};
+    int16_t ngprvec[2] = {0, 0}, sgprvec[2] = {0, 0};
+    int32_t weighted_llr = 0;
+    int flag = 0;
+    const int16_t feature = active ? features[channel] : 0;
+    if (active) {
+      int32_t h0_test = 0, h1_test = 0;
+      int32_t noise_probability[2], speech_probability[2];
       for (int k = 0; k < 2; ++k) {
-        int gaussian = channel + k * kNumChannels;
+        const int g = channel + k * kNumChannels;
         int32_t prob = gaussian_probability(
-            features[channel], st->noise_means[gaussian],
-            st->noise_stds[gaussian], &delta_n[gaussian]);
-        noise_probability[k] = wrap_mul(kNoiseDataWeights[gaussian], prob);
+            feature, s16(st[kNoiseMeansSlot + g]),
+            s16(st[kNoiseStdsSlot + g]), &delta_n[k]);
+        noise_probability[k] = wrap_mul(kNoiseDataWeights[g], prob);
         h0_test = wrap_add(h0_test, noise_probability[k]);        // Q27
         prob = gaussian_probability(
-            features[channel], st->speech_means[gaussian],
-            st->speech_stds[gaussian], &delta_s[gaussian]);
-        speech_probability[k] = wrap_mul(kSpeechDataWeights[gaussian], prob);
+            feature, s16(st[kSpeechMeansSlot + g]),
+            s16(st[kSpeechStdsSlot + g]), &delta_s[k]);
+        speech_probability[k] = wrap_mul(kSpeechDataWeights[g], prob);
         h1_test = wrap_add(h1_test, speech_probability[k]);       // Q27
       }
-      int shifts_h0 = h0_test == 0 ? 31 : norm_w32(h0_test);
-      int shifts_h1 = h1_test == 0 ? 31 : norm_w32(h1_test);
-      int16_t log_likelihood_ratio = s16(shifts_h0 - shifts_h1);
+      const int shifts_h0 = h0_test == 0 ? 31 : norm_w32(h0_test);
+      const int shifts_h1 = h1_test == 0 ? 31 : norm_w32(h1_test);
+      const int16_t log_likelihood_ratio = s16(shifts_h0 - shifts_h1);
+      weighted_llr = log_likelihood_ratio * kSpectrumWeight[channel];
+      flag = (log_likelihood_ratio * 4) > individual_test;
 
-      sum_log_likelihood_ratios = wrap_add(
-          sum_log_likelihood_ratios,
-          log_likelihood_ratio * kSpectrumWeight[channel]);
-      if ((log_likelihood_ratio * 4) > individual_test) vadflag = 1;
-
-      int16_t h0 = s16(h0_test >> 12);                            // Q15
+      const int16_t h0 = s16(h0_test >> 12);                      // Q15
       if (h0 > 0) {
-        int32_t tmp1_s32 = static_cast<int32_t>(
+        const int32_t tmp1_s32 = static_cast<int32_t>(
             (static_cast<uint32_t>(noise_probability[0]) & 0xFFFFF000u) << 2);
-        ngprvec[channel] = s16(div_w32_w16(tmp1_s32, h0));        // Q14
-        ngprvec[channel + kNumChannels] = s16(16384 - ngprvec[channel]);
+        ngprvec[0] = s16(div_w32_w16(tmp1_s32, h0));              // Q14
+        ngprvec[1] = s16(16384 - ngprvec[0]);
       } else {
-        ngprvec[channel] = 16384;
+        ngprvec[0] = 16384;
       }
-      int16_t h1 = s16(h1_test >> 12);                            // Q15
+      const int16_t h1 = s16(h1_test >> 12);                      // Q15
       if (h1 > 0) {
-        int32_t tmp1_s32 = static_cast<int32_t>(
-            (static_cast<uint32_t>(speech_probability[0]) & 0xFFFFF000u) << 2);
-        sgprvec[channel] = s16(div_w32_w16(tmp1_s32, h1));        // Q14
-        sgprvec[channel + kNumChannels] = s16(16384 - sgprvec[channel]);
+        const int32_t tmp1_s32 = static_cast<int32_t>(
+            (static_cast<uint32_t>(speech_probability[0]) & 0xFFFFF000u)
+            << 2);
+        sgprvec[0] = s16(div_w32_w16(tmp1_s32, h1));              // Q14
+        sgprvec[1] = s16(16384 - sgprvec[0]);
       }
     }
-
+    // the vote: the engine sums the weighted ratios over channels 0..5 in
+    // int32 (wrapping addition: any order gives the same bits)
+    int32_t sum_log_likelihood_ratios = weighted_llr;
+    for (int o = 16; o > 0; o >>= 1)
+      sum_log_likelihood_ratios = wrap_add(
+          sum_log_likelihood_ratios,
+          __shfl_xor_sync(kFullMask, sum_log_likelihood_ratios, o));
+    vadflag = __any_sync(kFullMask, flag) ? 1 : 0;
     if (sum_log_likelihood_ratios >= total_test) vadflag |= 1;
 
-    // Sequential model update.
-    int16_t maxspe = 12800;
-    for (int channel = 0; channel < kNumChannels; ++channel) {
-      int16_t feature_minimum = find_minimum(st, features[channel], channel);
-
-      int32_t noise_global_mean =
-          weighted_average(st->noise_means, channel, 0, false);
-      int16_t tmp1_s16 = s16(noise_global_mean >> 6);             // Q8
+    // Sequential model update, one lane a channel: a channel's update reads
+    // and writes only its own slots (maxspe, carried from channel to
+    // channel in the engine, is the previous channel's constant)
+    if (active) {
+      const int16_t maxspe = channel == 0 ? 12800
+                                          : kMaximumSpeech[channel - 1];
+      const int16_t feature_minimum = find_minimum(st, feature, channel);
+      int32_t noise_global_mean = weighted_average(st + kNoiseMeansSlot,
+                                                   channel, 0, false);
+      const int16_t tmp1_s16 = s16(noise_global_mean >> 6);       // Q8
 
       for (int k = 0; k < 2; ++k) {
-        int gaussian = channel + k * kNumChannels;
-        int16_t nmk = st->noise_means[gaussian];
-        int16_t smk = st->speech_means[gaussian];
-        int16_t nsk = st->noise_stds[gaussian];
-        int16_t ssk = st->speech_stds[gaussian];
+        const int gaussian = channel + k * kNumChannels;
+        const int16_t nmk = s16(st[kNoiseMeansSlot + gaussian]);
+        const int16_t smk = s16(st[kSpeechMeansSlot + gaussian]);
+        int16_t nsk = s16(st[kNoiseStdsSlot + gaussian]);
+        int16_t ssk = s16(st[kSpeechStdsSlot + gaussian]);
 
         int16_t nmk2 = nmk;
         if (!vadflag) {
-          int16_t delt = s16((ngprvec[gaussian] * delta_n[gaussian]) >> 11);
+          const int16_t delt = s16((ngprvec[k] * delta_n[k]) >> 11);
           nmk2 = s16(nmk + s16((delt * kNoiseUpdateConst) >> 22));
         }
 
-        int16_t ndelt = s16(wrap_sub(wrap_shl(feature_minimum, 4),
-                                     tmp1_s16));                  // Q8
+        const int16_t ndelt = s16(wrap_sub(wrap_shl(feature_minimum, 4),
+                                           tmp1_s16));            // Q8
         int16_t nmk3 = s16(nmk2 + s16((ndelt * kBackEta) >> 9));  // Q7
 
         int16_t tmp_s16 = s16((k + 5) << 7);
         if (nmk3 < tmp_s16) nmk3 = tmp_s16;
         tmp_s16 = s16((72 + k - channel) << 7);
         if (nmk3 > tmp_s16) nmk3 = tmp_s16;
-        st->noise_means[gaussian] = nmk3;
+        st[kNoiseMeansSlot + gaussian] = nmk3;
 
         if (vadflag) {
-          int16_t delt = s16((sgprvec[gaussian] * delta_s[gaussian]) >> 11);
+          const int16_t delt = s16((sgprvec[k] * delta_s[k]) >> 11);
           tmp_s16 = s16((delt * kSpeechUpdateConst) >> 21);       // Q8
           int16_t smk2 = s16(smk + ((tmp_s16 + 1) >> 1));         // Q7
-          int16_t maxmu = s16(maxspe + 640);
+          const int16_t maxmu = s16(maxspe + 640);
           if (smk2 > maxmu) smk2 = maxmu;
-          st->speech_means[gaussian] = smk2;
+          st[kSpeechMeansSlot + gaussian] = smk2;
 
           tmp_s16 = s16((smk + 4) >> 3);                          // Q4
-          tmp_s16 = s16(features[channel] - tmp_s16);             // Q4
-          int32_t tmp1_s32 = (delta_s[gaussian] * tmp_s16) >> 3;  // Q12
+          tmp_s16 = s16(feature - tmp_s16);                       // Q4
+          int32_t tmp1_s32 = (delta_s[k] * tmp_s16) >> 3;         // Q12
           int32_t tmp2_s32 = tmp1_s32 - 4096;
-          tmp_s16 = s16(sgprvec[gaussian] >> 2);
+          tmp_s16 = s16(sgprvec[k] >> 2);
           tmp1_s32 = wrap_mul(tmp_s16, tmp2_s32);                 // Q24
           tmp2_s32 = tmp1_s32 >> 4;                               // Q20
           if (tmp2_s32 > 0) {
@@ -551,12 +556,12 @@ __device__ int16_t gmm_probability(VadState* st, const int16_t* features,
           tmp_s16 = s16(tmp_s16 + 128);
           ssk = s16(ssk + (tmp_s16 >> 8));
           if (ssk < kMinStd) ssk = kMinStd;
-          st->speech_stds[gaussian] = ssk;
+          st[kSpeechStdsSlot + gaussian] = ssk;
         } else {
-          int16_t t16 = s16(features[channel] - (nmk >> 3));      // Q4
-          int32_t tmp1_s32 = (delta_n[gaussian] * t16) >> 3;      // Q12
+          int16_t t16 = s16(feature - (nmk >> 3));                // Q4
+          int32_t tmp1_s32 = (delta_n[k] * t16) >> 3;             // Q12
           int32_t tmp2_s32 = tmp1_s32 - 4096;
-          t16 = s16((ngprvec[gaussian] + 2) >> 2);
+          t16 = s16((ngprvec[k] + 2) >> 2);
           tmp2_s32 = wrap_mul(t16, tmp2_s32);                     // Q24
           tmp1_s32 = tmp2_s32 >> 14;                              // Q20
           if (tmp1_s32 > 0) {
@@ -568,100 +573,182 @@ __device__ int16_t gmm_probability(VadState* st, const int16_t* features,
           t16 = s16(t16 + 32);
           nsk = s16(nsk + (t16 >> 6));
           if (nsk < kMinStd) nsk = kMinStd;
-          st->noise_stds[gaussian] = nsk;
+          st[kNoiseStdsSlot + gaussian] = nsk;
         }
       }
 
-      noise_global_mean =
-          weighted_average(st->noise_means, channel, 0, false);
-      int32_t speech_global_mean =
-          weighted_average(st->speech_means, channel, 0, true);
-      int16_t diff = s16(s16(speech_global_mean >> 9)
-                         - s16(noise_global_mean >> 9));
+      noise_global_mean = weighted_average(st + kNoiseMeansSlot, channel, 0,
+                                           false);
+      int32_t speech_global_mean = weighted_average(st + kSpeechMeansSlot,
+                                                    channel, 0, true);
+      const int16_t diff = s16(s16(speech_global_mean >> 9)
+                               - s16(noise_global_mean >> 9));
       if (diff < kMinimumDifference[channel]) {
-        int16_t tmp_s16 = s16(kMinimumDifference[channel] - diff);
-        int16_t tmp1 = s16((13 * tmp_s16) >> 2);
-        int16_t tmp2 = s16((3 * tmp_s16) >> 2);
-        speech_global_mean =
-            weighted_average(st->speech_means, channel, tmp1, true);
-        noise_global_mean =
-            weighted_average(st->noise_means, channel, s16(-tmp2), false);
+        const int16_t tmp_s16 = s16(kMinimumDifference[channel] - diff);
+        const int16_t tmp1 = s16((13 * tmp_s16) >> 2);
+        const int16_t tmp2 = s16((3 * tmp_s16) >> 2);
+        speech_global_mean = weighted_average(st + kSpeechMeansSlot, channel,
+                                              tmp1, true);
+        noise_global_mean = weighted_average(st + kNoiseMeansSlot, channel,
+                                             s16(-tmp2), false);
       }
 
-      maxspe = kMaximumSpeech[channel];
       int16_t tmp2_s16 = s16(speech_global_mean >> 7);
-      if (tmp2_s16 > maxspe) {
-        tmp2_s16 = s16(tmp2_s16 - maxspe);
+      if (tmp2_s16 > kMaximumSpeech[channel]) {
+        tmp2_s16 = s16(tmp2_s16 - kMaximumSpeech[channel]);
         for (int k = 0; k < 2; ++k) {
-          int g = channel + k * kNumChannels;
-          st->speech_means[g] = s16(st->speech_means[g] - tmp2_s16);
+          const int g = kSpeechMeansSlot + channel + k * kNumChannels;
+          st[g] = s16(st[g] - tmp2_s16);
         }
       }
       tmp2_s16 = s16(noise_global_mean >> 7);
       if (tmp2_s16 > kMaximumNoise[channel]) {
         tmp2_s16 = s16(tmp2_s16 - kMaximumNoise[channel]);
         for (int k = 0; k < 2; ++k) {
-          int g = channel + k * kNumChannels;
-          st->noise_means[g] = s16(st->noise_means[g] - tmp2_s16);
+          const int g = kNoiseMeansSlot + channel + k * kNumChannels;
+          st[g] = s16(st[g] - tmp2_s16);
         }
       }
     }
-    st->frame_counter = wrap_add(st->frame_counter, 1);
+    __syncwarp();                  // every channel read the frame counter
+    if (lane == 0)
+      st[kFrameCounterSlot] = wrap_add(st[kFrameCounterSlot], 1);
   }
 
+  if (lane != 0) return 0;
+  int16_t over_hang = s16(st[kOverHangSlot]);
+  int16_t num_of_speech = s16(st[kNumOfSpeechSlot]);
   if (!vadflag) {
-    if (st->over_hang > 0) {
-      vadflag = s16(2 + st->over_hang);
-      st->over_hang = s16(st->over_hang - 1);
+    if (over_hang > 0) {
+      vadflag = s16(2 + over_hang);
+      over_hang = s16(over_hang - 1);
     }
-    st->num_of_speech = 0;
+    num_of_speech = 0;
   } else {
-    st->num_of_speech = s16(st->num_of_speech + 1);
-    if (st->num_of_speech > kMaxSpeechFrames) {
-      st->num_of_speech = kMaxSpeechFrames;
-      st->over_hang = overhead2;
+    num_of_speech = s16(num_of_speech + 1);
+    if (num_of_speech > kMaxSpeechFrames) {
+      num_of_speech = kMaxSpeechFrames;
+      over_hang = kOverHangMax2[mode][fl_index];
     } else {
-      st->over_hang = overhead1;
+      over_hang = kOverHangMax1[mode][fl_index];
     }
   }
+  st[kOverHangSlot] = over_hang;
+  st[kNumOfSpeechSlot] = num_of_speech;
   return vadflag;
 }
 
 // W1: x (B rows, row_stride apart) of T frames each; states (n_states, 265).
-__global__ void webrtc_vad_kernel(const int16_t* __restrict__ x,
-                                  long long row_stride, int B, int T,
-                                  int frame_len, int rate16, int mode,
-                                  int32_t* __restrict__ states, int n_states,
-                                  const int32_t* __restrict__ idx,
-                                  uint8_t* __restrict__ decisions) {
-  int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+// One block of kThreads a row; the pipeline's tick t runs frame t on warp 0
+// down to frame t - 3 on warp 3.
+__global__ void __launch_bounds__(kThreads)
+webrtc_vad_kernel(const int16_t* __restrict__ x, long long row_stride, int T,
+                  int frame_len, int rate16, int mode,
+                  int32_t* __restrict__ states, int n_states,
+                  const int32_t* __restrict__ idx,
+                  uint8_t* __restrict__ decisions) {
+  __shared__ int32_t st[kStateSlots];
+  __shared__ int16_t raw[2][kMaxFrame];        // staged input frames
+  __shared__ int16_t da[kMaxNb], db[kMaxNb];   // the decimator's halves
+  __shared__ int16_t nb[2][kMaxNb];            // 8 kHz frames
+  __shared__ int16_t u1[kMaxNb / 2], l1[kMaxNb / 2];
+  __shared__ int16_t hp1[kMaxNb / 2], lp1[kMaxNb / 2];
+  __shared__ int16_t u2[kMaxNb / 4], l2[kMaxNb / 4];
+  __shared__ int16_t u3[kMaxNb / 4], l3[kMaxNb / 4];
+  __shared__ int16_t hp2[2][kMaxNb / 4], lp2[2][kMaxNb / 4];
+  __shared__ int16_t hp3[2][kMaxNb / 4], lp3[2][kMaxNb / 4];
+  __shared__ int16_t u4[kMaxNb / 8], l4[kMaxNb / 8];
+  __shared__ int16_t hp4[kMaxNb / 8], lp4[kMaxNb / 8];
+  __shared__ int16_t u5[kMaxNb / 16], l5[kMaxNb / 16];
+  __shared__ int16_t hp5[kMaxNb / 16], lp5[kMaxNb / 16];
+  __shared__ int16_t hp80[kMaxNb / 16];
+  __shared__ BandEnergy band[kNumChannels];
+  __shared__ int16_t features[2][kNumChannels];
+  __shared__ int16_t power[2];
+
+  const int b = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   uint8_t* dec = decisions + static_cast<long long>(b) * T;
-  int row = idx[b];
+  const int row = idx[b];
   if (row < 0 || row >= n_states) {
-    for (int f = 0; f < T; ++f) dec[f] = 0;
+    for (int f = threadIdx.x; f < T; f += kThreads) dec[f] = 0;
     return;
   }
   int32_t* slots = states + static_cast<long long>(row) * kStateSlots;
-  VadState st;
-  load_state(&st, slots);
-  const int16_t* samples = x + static_cast<long long>(b) * row_stride;
-  int n8k = rate16 ? frame_len >> 1 : frame_len;
-  int fl_index = n8k == 80 ? 0 : (n8k == 160 ? 1 : 2);
-  int16_t nb[240];
-  int16_t features[kNumChannels];
-  for (int f = 0; f < T; ++f) {
-    const int16_t* frame = samples + static_cast<long long>(f) * frame_len;
-    if (rate16) {
-      downsampling(frame, frame_len, nb, st.ds);
-    } else {
-      for (int i = 0; i < frame_len; ++i) nb[i] = __ldg(frame + i);
-    }
-    int16_t total_power = calculate_features(&st, nb, n8k, features);
-    int16_t flag = gmm_probability(&st, features, total_power, fl_index, mode);
-    dec[f] = flag > 0 ? 1 : 0;
+  for (int i = threadIdx.x; i < kStateSlots; i += kThreads) {
+    const int32_t v = slots[i];
+    st[i] = (i < kUpperSlot || i == kFrameCounterSlot) ? v : s16(v);
   }
-  store_state(&st, slots);
+  const int16_t* samples = x + static_cast<long long>(b) * row_stride;
+  const int n = rate16 ? frame_len >> 1 : frame_len;       // 8 kHz samples
+  const int fl_index = n == 80 ? 0 : (n == 160 ? 1 : 2);
+  if (T > 0)
+    for (int i = threadIdx.x; i < frame_len; i += kThreads)
+      raw[0][i] = __ldg(samples + i);
+  __syncthreads();
+
+  for (int t = 0; t < T + kWarps - 1; ++t) {
+    const int f = t - warp;                  // this warp's frame
+    const int p = f & 1;
+    if (f >= 0 && f < T) {
+      if (warp == 0) {
+        if (rate16) {
+          if (lane < 2) decimate_half(raw[p], n, lane, st, lane ? db : da);
+          __syncwarp();
+          for (int i = lane; i < n; i += 32) nb[p][i] = s16(da[i] + db[i]);
+        } else {
+          for (int i = lane; i < n; i += 32) nb[p][i] = raw[p][i];
+        }
+      } else if (warp == 1) {
+        // split at 2000 Hz, then at 3000 Hz (upper) and 1000 Hz (lower)
+        if (lane < 2) split_chain(nb[p], n, 0, lane, st, lane ? l1 : u1);
+        __syncwarp();
+        split_join(u1, l1, n >> 1, lane, hp1, lp1);
+        __syncwarp();
+        if (lane < 4) {
+          int16_t* const outs[4] = {u2, l2, u3, l3};
+          split_chain(lane < 2 ? hp1 : lp1, n >> 1, 1 + (lane >> 1), lane & 1,
+                      st, outs[lane]);
+        }
+        __syncwarp();
+        split_join(u2, l2, n >> 2, lane, hp2[p], lp2[p]);
+        split_join(u3, l3, n >> 2, lane, hp3[p], lp3[p]);
+      } else if (warp == 2) {
+        // split at 500 Hz and 250 Hz, then remove 0-80 Hz
+        if (lane < 2) split_chain(lp3[p], n >> 2, 3, lane, st, lane ? l4 : u4);
+        __syncwarp();
+        split_join(u4, l4, n >> 3, lane, hp4, lp4);
+        __syncwarp();
+        if (lane < 2) split_chain(lp4, n >> 3, 4, lane, st, lane ? l5 : u5);
+        __syncwarp();
+        split_join(u5, l5, n >> 4, lane, hp5, lp5);
+        __syncwarp();
+        if (lane == 0) high_pass_filter(lp5, n >> 4, st + kHpSlot, hp80);
+        __syncwarp();
+        if (lane < kNumChannels) {
+          const int16_t* data[kNumChannels] = {hp80, hp5, hp4, hp3[p],
+                                               lp2[p], hp2[p]};
+          const int len = lane >= 3 ? n >> 2 : (lane == 2 ? n >> 3 : n >> 4);
+          features[p][lane] = log_energy(data[lane], len,
+                                         kOffsetVector[lane], &band[lane]);
+        }
+        __syncwarp();
+        if (lane == 0) power[p] = total_energy(band);
+      } else {
+        const int16_t flag = gmm_frame(st, features[p], power[p], fl_index,
+                                       mode, lane);
+        if (lane == 0) dec[f] = flag > 0 ? 1 : 0;
+      }
+    }
+    if (warp == kWarps - 1 && t + 1 < T) {   // stage frame t + 1
+      const int16_t* frame = samples + static_cast<long long>(t + 1) *
+                                           frame_len;
+      for (int i = lane; i < frame_len; i += 32)
+        raw[(t + 1) & 1][i] = __ldg(frame + i);
+    }
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < kStateSlots; i += kThreads) slots[i] = st[i];
 }
 
 // W2: decisions (B, T) -> keep (B, T), kept frames (B,); frames at or past
@@ -711,10 +798,12 @@ extern "C" {
 int webrtc_vad_launch(const int16_t* x, long long row_stride, int B, int T,
                       int frame_len, int rate16, int mode, int32_t* states,
                       int n_states, const int32_t* idx, uint8_t* decisions,
-                      int rows_per_block, cudaStream_t stream) {
-  int blocks = (B + rows_per_block - 1) / rows_per_block;
-  webrtc_vad_kernel<<<blocks, rows_per_block, 0, stream>>>(
-      x, row_stride, B, T, frame_len, rate16, mode, states, n_states, idx,
+                      cudaStream_t stream) {
+  if (B <= 0 || T < 0 || frame_len > kMaxFrame ||
+      (rate16 ? frame_len >> 1 : frame_len) > kMaxNb)
+    return static_cast<int>(cudaErrorInvalidValue);
+  webrtc_vad_kernel<<<B, kThreads, 0, stream>>>(
+      x, row_stride, T, frame_len, rate16, mode, states, n_states, idx,
       decisions);
   return static_cast<int>(cudaGetLastError());
 }
@@ -722,9 +811,9 @@ int webrtc_vad_launch(const int16_t* x, long long row_stride, int B, int T,
 int vad_collect_launch(const uint8_t* decisions, int B, int T,
                        const int32_t* n_valid, double thresh, int ring,
                        uint8_t* keep, int32_t* kept, cudaStream_t stream) {
-  constexpr int kThreads = 128;
-  int blocks = (B + kThreads - 1) / kThreads;
-  vad_collect_kernel<<<blocks, kThreads, 0, stream>>>(
+  constexpr int kCollectThreads = 128;
+  int blocks = (B + kCollectThreads - 1) / kCollectThreads;
+  vad_collect_kernel<<<blocks, kCollectThreads, 0, stream>>>(
       decisions, B, T, n_valid, thresh, ring, keep, kept);
   return static_cast<int>(cudaGetLastError());
 }

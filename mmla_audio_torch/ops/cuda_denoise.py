@@ -1,12 +1,14 @@
-"""Launchers of the denoise's two hand-written CUDA kernels.
+"""Launchers of the denoise's hand-written CUDA kernels.
 
-D1 (``fixed_order_gemm_launch``) is an IEEE fp32 GEMM whose every output is
-summed over K in one fixed order that depends on nothing but K, so a
-window's STFT and ISTFT give the same bits alone and in any batch.  D2
+D1 is the STFT and ISTFT of every frame as a 1024-point real FFT
+(``stft_rfft_launch``, ``istft_irfft_launch``), float32 in and out and
+float64 inside, so each output is the exact transform rounded once: one
+plan, whose sequence of operations depends on nothing but the frame, so a
+window's spectrum and frames are the same bits alone and in any batch.  D2
 (``smooth_mask_launch``) is the gate mask's smoothing as two banded passes
 (frequency, then time) instead of the dense ``(K, K)`` and ``(T, T)``
 matrices.  Neither replaces a Pallas kernel: the JAX package runs these
-products as XLA GEMMs (``mmla_audio_tpu/ops/denoise.py``).  The source, with
+steps as XLA GEMMs (``mmla_audio_tpu/ops/denoise.py``).  The source, with
 its design and cost notes, is ``mmla_audio_torch/csrc/denoise.cu``, built
 with nvcc for ``sm_90a`` at first use and bound with ctypes.
 
@@ -19,8 +21,13 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["SMOOTH_TILE_T", "launch_fixed_order_gemm", "launch_smooth_mask"]
+from mmla_audio_torch._build import cuda_library
 
+__all__ = ["FFT_N", "SMOOTH_TILE_T", "launch_stft_rfft",
+           "launch_istft_irfft", "launch_smooth_mask"]
+
+# the one n_fft D1 is built for (DenoiseConfig's)
+FFT_N = 1024
 # frames of one window a D2 block smooths: with the 6 halo frames of the
 # 7-tap time band, 2 x 22 x 513 floats of shared memory (90 KB)
 SMOOTH_TILE_T = 16
@@ -31,35 +38,68 @@ def _err(name: str, err: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed (cudaError {err})")
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def _launch(name: str, t: torch.Tensor, fn, *args) -> None:
+    """``fn(*args, stream)`` on ``t``'s device and its current stream;
+    raise on a launch error.  Lean, because the single-window path is bound
+    by this host work: the device is switched only when another is
+    current, and the stream is read as its raw handle."""
+    index = t.get_device()
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return _launch(name, t, fn, *args)
+    _err(name, fn(*args, torch._C._cuda_getCurrentRawStream(index)))
 
 
-def launch_fixed_order_gemm(a: torch.Tensor, rows_per_group: int,
-                            group_stride: int, row_stride: int, m: int,
-                            k: int, b: torch.Tensor) -> torch.Tensor:
-    """``C (m, N) = A @ b`` with row ``i`` of A read at ``a.data_ptr() +
-    4 * ((i // rows_per_group) * group_stride + (i % rows_per_group) *
-    row_stride)`` (``k`` contiguous floats), ``b (k, N)`` contiguous; all
-    float32 on one CUDA device.  The caller guarantees every row lies
-    inside ``a``."""
-    from mmla_audio_torch._build import cuda_library
-
-    if a.dtype != torch.float32 or b.dtype != torch.float32:
-        raise TypeError("fixed_order_gemm: float32 operands required")
-    if b.ndim != 2 or b.shape[0] != k or not b.is_contiguous() \
-            or b.device != a.device:
-        raise ValueError(f"fixed_order_gemm: b must be a contiguous ({k}, N) "
-                         f"tensor on {a.device}, got {tuple(b.shape)} on "
-                         f"{b.device}")
-    n = b.shape[1]
-    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+def launch_stft_rfft(y: torch.Tensor, frames: int, hop: int,
+                     plan: torch.Tensor) -> torch.Tensor:
+    """``(2, ..., frames, 513)`` spectra, the re plane then the im plane,
+    of the centered frames of each row of ``y (..., n)`` (contiguous, ``n >
+    512``): frame ``t`` of a row is its samples ``t * hop - 512 ...``,
+    reflected at both ends, each multiplied by the window as it is read.
+    ``plan`` is ``ops.denoise._fft_plan``'s on ``y``'s device, float64:
+    the twiddles ``e^{-2 pi i t / 1024}`` as ``(cos, sin)`` pairs, then the
+    window."""
+    if y.dtype != torch.float32:
+        raise TypeError("stft_rfft: float32 signal required")
+    if plan.dtype != torch.float64:
+        raise TypeError("stft_rfft: float64 plan required")
+    n = y.shape[-1]
+    if n <= FFT_N // 2 or not y.is_contiguous():
+        raise ValueError(f"stft_rfft: contiguous rows of more than "
+                         f"{FFT_N // 2} samples required, got "
+                         f"{tuple(y.shape)} strides {y.stride()}")
+    out = y.new_empty((2, *y.shape[:-1], frames, FFT_N // 2 + 1))
+    m = y.numel() // n * frames
     if m:
-        lib = cuda_library("denoise")
-        with torch.cuda.device(a.device):
-            _err("fixed_order_gemm", lib.fixed_order_gemm_launch(
-                a.data_ptr(), rows_per_group, group_stride, row_stride, m, k,
-                b.data_ptr(), n, out.data_ptr(), _stream(a)))
+        _launch("stft_rfft", y, cuda_library("denoise").stft_rfft_launch,
+                y.data_ptr(), n, frames, hop, m, plan.data_ptr(),
+                out.data_ptr())
+    return out
+
+
+def launch_istft_irfft(re: torch.Tensor, im: torch.Tensor,
+                       plan: torch.Tensor) -> torch.Tensor:
+    """The unwindowed inverse rDFT ``(..., 1024)`` of each row of ``(re,
+    im)``, contiguous float32 ``(..., 513)`` of one shape on one CUDA
+    device; ``plan`` as for ``launch_stft_rfft``."""
+    k = FFT_N // 2 + 1
+    if re.dtype != torch.float32 or im.dtype != torch.float32:
+        raise TypeError("istft_irfft: float32 spectra required")
+    if plan.dtype != torch.float64:
+        raise TypeError("istft_irfft: float64 plan required")
+    if re.shape[-1] != k or im.shape != re.shape \
+            or not (re.is_contiguous() and im.is_contiguous()) \
+            or im.get_device() != re.get_device():
+        raise ValueError(f"istft_irfft: re and im must be contiguous (..., "
+                         f"{k}) tensors of one shape on one device, got "
+                         f"{tuple(re.shape)} on {re.device}, "
+                         f"{tuple(im.shape)} on {im.device}")
+    out = re.new_empty((*re.shape[:-1], FFT_N))
+    m = re.numel() // k
+    if m:
+        _launch("istft_irfft", re,
+                cuda_library("denoise").istft_irfft_launch, re.data_ptr(),
+                im.data_ptr(), m, plan.data_ptr(), out.data_ptr())
     return out
 
 
@@ -68,8 +108,6 @@ def launch_smooth_mask(mask: torch.Tensor, v_f: torch.Tensor,
     """``mask (G, T, K)`` contiguous float32 on the card, taps ``v_f``
     (odd length) and ``v_t`` (odd length) float32 on the same device ->
     the smoothed ``(G, T, K)``."""
-    from mmla_audio_torch._build import cuda_library
-
     if mask.ndim != 3 or not mask.is_contiguous() \
             or mask.dtype != torch.float32:
         raise ValueError(f"smooth_mask: a contiguous float32 (G, T, K) mask "
@@ -77,10 +115,8 @@ def launch_smooth_mask(mask: torch.Tensor, v_f: torch.Tensor,
     G, T, K = mask.shape
     out = torch.empty_like(mask)
     if mask.numel():
-        lib = cuda_library("denoise")
-        with torch.cuda.device(mask.device):
-            _err("smooth_mask", lib.smooth_mask_launch(
-                mask.data_ptr(), out.data_ptr(), G, T, K, v_f.data_ptr(),
-                len(v_f), v_t.data_ptr(), len(v_t), SMOOTH_TILE_T,
-                _stream(mask)))
+        _launch("smooth_mask", mask,
+                cuda_library("denoise").smooth_mask_launch, mask.data_ptr(),
+                out.data_ptr(), G, T, K, v_f.data_ptr(), len(v_f),
+                v_t.data_ptr(), len(v_t), SMOOTH_TILE_T)
     return out

@@ -11,15 +11,17 @@
      normalization), after zero-padding each side (noisereduce's chunk
      padding, shortened phase-aligned; see :func:`_chunk_pad`).
 
-STFT and ISTFT are GEMMs on framed signals against float64-built bases.
 Three wrappers dispatch on the tensor's device: ``stft_ri`` and
 ``istft_frames`` (kernel D1, ``csrc/denoise.cu``) and ``smooth_mask`` (D2).
-A CPU tensor takes the plain version: ``torch.matmul`` against the bases
-and the dense banded matrices, under ``DenoiseConfig.precision``.  A CUDA
-tensor launches the kernel or raises: D1 sums every output over K in one
-fixed order in IEEE fp32 (whatever the precision policy), D2 sums the taps
-in ascending order, so each window of a batch gets the bits it gets alone.
-Each wrapper counts its launches in ``<wrapper>.launches``.
+A CPU tensor takes the plain version: GEMMs of the framed signal against
+float64-built bases and the dense banded matrices (``torch.matmul``, under
+``DenoiseConfig.precision``), in the input's dtype (float32 on every
+path; float64 gives the exact chain the card is held to).  A CUDA tensor
+launches the kernel or raises: D1 is a 1024-point real FFT a frame,
+float32 in and out and float64 inside (one plan, ``_fft_table``'s float64
+twiddles; ``n_fft`` 1024 only), D2 sums the taps in ascending order, so
+each window of a batch gets the bits it gets alone.  Each wrapper counts
+its launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -31,8 +33,9 @@ import torch
 import torch.nn.functional as F
 
 from mmla_audio_torch.core.config import DenoiseConfig
-from mmla_audio_torch.ops.cuda_denoise import (launch_fixed_order_gemm,
-                                               launch_smooth_mask)
+from mmla_audio_torch.ops.cuda_denoise import (FFT_N, launch_istft_irfft,
+                                               launch_smooth_mask,
+                                               launch_stft_rfft)
 from mmla_audio_torch.ops.spectral import frame_signal, hann_periodic, pad_last
 from mmla_audio_torch.precision import fp32_policy
 
@@ -106,30 +109,52 @@ def _bases_f64(n_fft: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _bases(n_fft: int, device: torch.device):
-    """float32 ``(fwd_cos, fwd_sin, inv_cos.T, inv_sin.T, window)`` on
+def _bases(n_fft: int, device: torch.device,
+           dtype: torch.dtype = torch.float32):
+    """``(fwd_cos, fwd_sin, inv_cos.T, inv_sin.T, window)`` in ``dtype`` on
     ``device``."""
     fc, fs, ic, isn, w = _bases_f64(n_fft)
-    return tuple(torch.as_tensor(np.ascontiguousarray(a, np.float32),
-                                 device=device)
-                 for a in (fc, fs, ic.T, isn.T, w))
+    return tuple(torch.as_tensor(np.ascontiguousarray(a)).to(dtype)
+                 .to(device) for a in (fc, fs, ic.T, isn.T, w))
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_bases(n_fft: int, device: torch.device):
-    """D1's operands, the same float32 values as ``_bases``: the forward
-    ``[fwd_cos | fwd_sin]`` ``(n_fft, 2K)`` and the inverse ``[inv_cos.T;
-    -inv_sin.T]`` ``(2K, n_fft)``."""
-    fc, fs, ic_t, is_t, _ = (a.cpu() for a in _bases(n_fft, device))
-    return (torch.cat([fc, fs], dim=1).to(device),
-            torch.cat([ic_t, -is_t], dim=0).to(device))
+def _window(n_fft: int, device: torch.device,
+            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The periodic Hann window's float32 values in ``dtype`` (``_bases``'
+    window)."""
+    return torch.as_tensor(hann_periodic(n_fft), device=device).to(dtype)
 
 
-def _band_matrix(v: np.ndarray, n: int) -> np.ndarray:
+def _fft_table(n_fft: int) -> np.ndarray:
+    """D1's twiddles ``e^{-2 pi i t / n_fft}``, ``t < n_fft``, as float64
+    ``(cos, sin)`` rows."""
+    ang = 2.0 * np.pi * np.arange(n_fft) / n_fft
+    return np.stack([np.cos(ang), -np.sin(ang)], axis=-1)
+
+
+def _fft_size(n_fft: int, name: str) -> None:
+    if n_fft != FFT_N:
+        raise ValueError(f"{name}: the card's FFT kernel is built for n_fft "
+                         f"{FFT_N}, got {n_fft}")
+
+
+@functools.lru_cache(maxsize=None)
+def _fft_plan(n_fft: int, device_index: int) -> torch.Tensor:
+    """D1's plan on CUDA device ``device_index``: the twiddle table's
+    ``(cos, sin)`` pairs, then the window's float32 values, one float64
+    vector (one pointer for the kernels; keyed by the index: the
+    single-window path is bound by host work)."""
+    plan = np.concatenate([_fft_table(n_fft).ravel(),
+                           hann_periodic(n_fft).astype(np.float64)])
+    return torch.as_tensor(plan, device=f"cuda:{device_index}")
+
+
+def _band_matrix(v: np.ndarray, n: int, dtype=np.float32) -> np.ndarray:
     """(n, n) matrix M with ``(x @ M)[i] = sum_k v[k] * x[i + c - k]``
     (zero-padded 'same' convolution with the odd-length kernel v)."""
     c = len(v) // 2
-    m = np.zeros((n, n), np.float32)
+    m = np.zeros((n, n), dtype)
     for d, val in enumerate(v):
         k = d - c
         i = np.arange(max(0, -k), min(n, n - k))
@@ -142,15 +167,19 @@ def _band_matrix(v: np.ndarray, n: int) -> np.ndarray:
 # shapes.
 @functools.lru_cache(maxsize=2)
 def _smoothing_matrices(cfg: DenoiseConfig, sr: int, n_bins: int,
-                        n_frames: int, device: torch.device):
+                        n_frames: int, device: torch.device,
+                        dtype: torch.dtype = torch.float32):
     """Banded matrices for the frequency axis ``(K, K)`` and, transposed, the
-    time axis ``(T, T)``."""
+    time axis ``(T, T)``, in ``dtype``."""
     v_f, v_t = _smoothing_factors(sr, cfg.n_fft, cfg.hop_length,
                                   cfg.freq_mask_smooth_hz,
                                   cfg.time_mask_smooth_ms)
-    return (torch.as_tensor(_band_matrix(v_f, n_bins), device=device),
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    return (torch.as_tensor(_band_matrix(v_f, n_bins, np_dtype),
+                            device=device).to(dtype),
             torch.as_tensor(np.ascontiguousarray(
-                _band_matrix(v_t, n_frames).T), device=device))
+                _band_matrix(v_t, n_frames, np_dtype).T),
+                device=device).to(dtype))
 
 
 @functools.lru_cache(maxsize=None)
@@ -166,9 +195,9 @@ def _smoothing_taps(cfg: DenoiseConfig, sr: int, device: torch.device):
 def _on_card(x: torch.Tensor, name: str) -> bool:
     """True for a CUDA float32 tensor, False for a CPU one; raise for any
     other device or dtype."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return False
-    if x.device.type != "cuda":
+    if not x.is_cuda:
         raise ValueError(f"{name}: unsupported device {x.device}")
     if x.dtype != torch.float32:
         raise TypeError(f"{name}: float32 required, got {x.dtype}")
@@ -176,15 +205,15 @@ def _on_card(x: torch.Tensor, name: str) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
-def _inv_window_sum(n_fft: int, hop: int, n_frames: int,
-                    device: torch.device) -> torch.Tensor:
-    """1 / sum of squared synthesis windows at each overlap-add sample."""
+def _inv_window_sum(n_fft: int, hop: int, n_frames: int, device: torch.device,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The sum of squared synthesis windows at each overlap-add sample (the
+    divisor), in ``dtype``."""
     w = hann_periodic(n_fft).astype(np.float64)
     wsq = np.zeros(n_fft + (n_frames - 1) * hop, np.float64)
     for t in range(n_frames):
         wsq[t * hop: t * hop + n_fft] += w * w
-    return torch.as_tensor(np.maximum(wsq, 1e-10).astype(np.float32),
-                           device=device)
+    return torch.as_tensor(np.maximum(wsq, 1e-10)).to(dtype).to(device)
 
 
 def stft_ri_plain(y: torch.Tensor, n_fft: int, hop: int):
@@ -192,27 +221,24 @@ def stft_ri_plain(y: torch.Tensor, n_fft: int, hop: int):
     against the forward bases, two ``torch.matmul``."""
     frames = frame_signal(pad_last(y, n_fft // 2, n_fft // 2, "reflect"),
                           n_fft, hop, 1 + y.shape[-1] // hop)
-    fc, fs, _, _, _ = _bases(n_fft, y.device)
+    fc, fs, _, _, _ = _bases(n_fft, y.device, y.dtype)
     return torch.matmul(frames, fc), torch.matmul(frames, fs)
 
 
 def stft_ri(y: torch.Tensor, n_fft: int, hop: int):
     """Centered (reflect) STFT of ``y (..., n)`` -> ``(re, im)``, each
-    ``(..., frames, bins)``.  On the card, one launch of D1 reading the
-    frames from the reflect-padded signal (row stride ``hop``); ``re`` and
-    ``im`` are then the two halves of one ``(..., frames, 2 * bins)``
-    spectrum."""
+    ``(..., frames, bins)``.  On the card, one launch of D1's forward FFT
+    reading the frames from the signal itself (the reflect padding folded
+    into its loads); ``re`` and ``im`` are then the two planes of one
+    ``(2, ..., frames, bins)`` spectrum."""
     if not _on_card(y, "stft_ri"):
         return stft_ri_plain(y, n_fft, hop)
-    lead, n = y.shape[:-1], y.shape[-1]
-    T, K = 1 + n // hop, n_fft // 2 + 1
-    yr = F.pad(y.reshape(-1, n), (n_fft // 2, n_fft // 2), mode="reflect")
-    spec = launch_fixed_order_gemm(yr, T, yr.stride(0), hop,
-                                   yr.shape[0] * T, n_fft,
-                                   _kernel_bases(n_fft, y.device)[0])
+    _fft_size(n_fft, "stft_ri")
+    spec = launch_stft_rfft(y if y.is_contiguous() else y.contiguous(),
+                            1 + y.shape[-1] // hop, hop,
+                            _fft_plan(n_fft, y.get_device()))
     stft_ri.launches += bool(spec.numel())
-    spec = spec.reshape(lead + (T, 2 * K))
-    return spec[..., :K], spec[..., K:]
+    return spec[0], spec[1]
 
 
 stft_ri.launches = 0
@@ -221,24 +247,23 @@ stft_ri.launches = 0
 def istft_frames_plain(re: torch.Tensor, im: torch.Tensor,
                        n_fft: int) -> torch.Tensor:
     """``istft_frames``' plain version: two ``torch.matmul``."""
-    _, _, ic_t, is_t, _ = _bases(n_fft, re.device)
+    _, _, ic_t, is_t, _ = _bases(n_fft, re.device, re.dtype)
     return torch.matmul(re, ic_t) - torch.matmul(im, is_t)
 
 
 def istft_frames(re: torch.Tensor, im: torch.Tensor,
                  n_fft: int) -> torch.Tensor:
     """Unwindowed inverse rDFT frames ``(..., frames, n_fft)`` of ``(re,
-    im)``, each ``(..., frames, bins)``.  On the card, one launch of D1 on
-    ``[re | im]`` against ``[inv_cos.T; -inv_sin.T]`` (K = 2 * bins)."""
+    im)``, each ``(..., frames, bins)``.  On the card, one launch of D1's
+    inverse FFT (on contiguous copies of views)."""
     if not _on_card(re, "istft_frames"):
         return istft_frames_plain(re, im, n_fft)
-    a = torch.cat([re, im], dim=-1)
-    a2 = a.reshape(-1, a.shape[-1])
-    out = launch_fixed_order_gemm(a2, 1, a2.shape[1], 0, a2.shape[0],
-                                  a2.shape[1],
-                                  _kernel_bases(n_fft, re.device)[1])
+    _fft_size(n_fft, "istft_frames")
+    out = launch_istft_irfft(re if re.is_contiguous() else re.contiguous(),
+                             im if im.is_contiguous() else im.contiguous(),
+                             _fft_plan(n_fft, re.get_device()))
     istft_frames.launches += bool(out.numel())
-    return out.reshape(a.shape[:-1] + (n_fft,))
+    return out
 
 
 istft_frames.launches = 0
@@ -249,7 +274,7 @@ def smooth_mask_plain(mask: torch.Tensor, cfg: DenoiseConfig,
     """``smooth_mask``'s plain version: the dense banded pair,
     ``mt_t @ (mask @ mf)``."""
     mf, mt_t = _smoothing_matrices(cfg, sr, mask.shape[-1], mask.shape[-2],
-                                   mask.device)
+                                   mask.device, mask.dtype)
     return torch.matmul(mt_t, torch.matmul(mask, mf))
 
 
@@ -278,13 +303,12 @@ def _istft(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop: int,
     (centered)."""
     T = re.shape[-2]
     total = n_fft + (T - 1) * hop
-    w = _bases(n_fft, re.device)[4]
-    frames = inverse(re, im, n_fft) * w
+    frames = inverse(re, im, n_fft) * _window(n_fft, re.device, re.dtype)
     lead = frames.shape[:-2]
     cols = frames.reshape(-1, T, n_fft).transpose(1, 2)          # (N, win, T)
     y = F.fold(cols, output_size=(1, total), kernel_size=(1, n_fft),
                stride=(1, hop)).reshape(lead + (total,))
-    y = y / _inv_window_sum(n_fft, hop, T, re.device)
+    y = y / _inv_window_sum(n_fft, hop, T, re.device, re.dtype)
     start = n_fft // 2
     return y[..., start: start + out_len]
 
@@ -308,7 +332,7 @@ def gate_mask(re: torch.Tensor, im: torch.Tensor, noise_thresh: torch.Tensor,
     peak_sq = torch.amax(magsq, dim=(-2, -1), keepdim=True)
     mask = torch.logical_or(
         magsq > thr_sq,
-        peak_sq > thr_sq * 10.0 ** (_TOP_DB / 10.0)).to(torch.float32)
+        peak_sq > thr_sq * 10.0 ** (_TOP_DB / 10.0)).to(re.dtype)
     return mask * prop_decrease + (1.0 - prop_decrease)
 
 

@@ -31,7 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from mmla_audio_torch.analyze.logs import OVERLAP_LABELS, SessionLog
+from mmla_audio_torch.analyze.logs import OVERLAP_LABELS
 from mmla_audio_torch.core.config import PipelineConfig
 from mmla_audio_torch.export import aot_compile
 from mmla_audio_torch.ops.cuda_features import overlap_model_input_cuda
@@ -123,6 +123,7 @@ class EdgeSpeakerSession(SpeakerSession):
     the SSIM gate is the overlap runner's only."""
 
     kind = "speaker"
+    log_timestamps = False        # the Pi runner's timestamp-free schema
 
     def __init__(self, predictor, capture, dirs,
                  gate: Optional[GateSource] = None,
@@ -130,9 +131,6 @@ class EdgeSpeakerSession(SpeakerSession):
         super().__init__(predictor, capture, dirs, cfg=cfg,
                          gate=gate or GateSource(pressed=True),
                          **_refuse_host_split(kw))
-        # the timestamp-free Pi log schema at the same path
-        self.log = SessionLog(self.log.path, kind="speaker", start_index=1,
-                              timestamps=False)
         self._aot = None
 
     def register_speaker(self, name, seconds=None):

@@ -35,7 +35,10 @@ while it is released the capture is suspended (`record_on_pi.py:139-159`);
 Calibration (10 s of ambient noise) gives the denoise profile, the energy
 VAD threshold and the ``Ambient_Noise.wav`` artifact.  Logs land under
 ``experiment/logs/<timestamp>.txt`` and optional window recordings under
-``experiment/recordings/real-time/<timestamp>/wav``.
+``experiment/recordings/real-time/<timestamp>/wav``, the timestamp that of
+``now`` (default: the session's construction).  A session creates its log,
+header included, when it is built, and raises ``FileExistsError`` if
+another session already holds that name.
 
 Speaker registration (`record_on_pc.py:299-346`): each enrollment clip
 (~60 s) goes through the same denoise, VAD and trim chain, the detector's
@@ -151,11 +154,13 @@ class StreamingSession:
     """Calibration, the per-window pre-decision chain, the run loop, logs."""
 
     kind = "overlap"
+    log_timestamps = True
 
     def __init__(self, capture, dirs: ExperimentDirs | str,
                  cfg: PipelineConfig = PipelineConfig(),
                  device: torch.device | str = "cuda",
-                 save_recordings: bool = False, telemetry=None, gate=None,
+                 save_recordings: bool = False,
+                 now: Optional[datetime] = None, telemetry=None, gate=None,
                  host_preprocess: bool | str = "auto"):
         self.device = torch.device(device)
         if host_preprocess == "auto":
@@ -172,8 +177,8 @@ class StreamingSession:
         self.dirs = dirs if isinstance(dirs, ExperimentDirs) else bootstrap(dirs)
         self.cfg = cfg
         self.save_recordings = save_recordings
-        stamp = session_stamp()
-        self.log = SessionLog(self.dirs.logs / f"{stamp}.txt", kind=self.kind)
+        stamp = session_stamp(now)
+        self.log = self._claim_log(self.dirs.logs / f"{stamp}.txt")
         self.rec_dir = self.dirs.real_time / stamp / "wav"
         if save_recordings:
             self.rec_dir.mkdir(parents=True, exist_ok=True)
@@ -188,6 +193,23 @@ class StreamingSession:
         # preprocess_windows, runs the engine on the card)
         self._vad = NativeWebRtcVad(cfg.vad.aggressiveness) \
             if cfg.vad.decision == "webrtc" else None
+
+    def _claim_log(self, path: Path) -> SessionLog:
+        """Create the session's log with its header, or raise
+        ``FileExistsError`` if another session already holds that name (two
+        sessions started in the same second with no distinct ``now``): one
+        log a session, never a second header in one file."""
+        try:
+            path.open("x").close()
+        except FileExistsError:
+            raise FileExistsError(
+                f"session log {path} already exists: another session "
+                f"started at the same time; give each session its own "
+                f"now=") from None
+        log = SessionLog(path, kind=self.kind,
+                         timestamps=self.log_timestamps)
+        log.ensure_header()
+        return log
 
     def calibrate(self, seconds: Optional[float] = None) -> None:
         """Record ambient noise -> denoise profile + VAD threshold +

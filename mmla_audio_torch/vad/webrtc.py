@@ -8,7 +8,8 @@ one row of an ``(n, 265)`` int32 tensor: the slots of the host engine's
 the rows that ``idx`` names and updates them in place:
 
 * for a CUDA tensor it launches W1, the engine of ``csrc/webrtc_vad.cu``
-  (one thread a stream), or raises;
+  (a block of four warps a stream, its filterbank and GMM pipelined across
+  frames), or raises;
 * for a CPU tensor it runs the plain version, ``webrtc_vad_rows_plain``:
   the native host engine once per row, its state set from the row before
   and read back after.
@@ -148,12 +149,10 @@ def webrtc_vad_rows_plain(i16: torch.Tensor, states: torch.Tensor, idx,
 
 def launch_webrtc_rows(i16: torch.Tensor, states: torch.Tensor,
                        idx: np.ndarray, frame_len: int, sample_rate: int,
-                       mode: int, rows_per_block: int = 1) -> torch.Tensor:
+                       mode: int) -> torch.Tensor:
     """Launch W1 on checked CUDA arguments (``idx`` the host array
-    ``_check`` returned) with ``rows_per_block`` streams a block, one a
-    thread: ``(B, T)`` uint8 decisions.  Counts nothing: the wrapper does.
-    One stream a block was the fastest at every batch from 1 to 512 on the
-    H100 (``scripts/webrtc_probe.py sweep`` times the others)."""
+    ``_check`` returned), one block a stream: ``(B, T)`` uint8 decisions.
+    Counts nothing: the wrapper does."""
     from mmla_audio_torch._build import cuda_library
 
     B, T = i16.shape[0], i16.shape[1] // frame_len
@@ -169,7 +168,7 @@ def launch_webrtc_rows(i16: torch.Tensor, states: torch.Tensor,
         err = launch(i16.data_ptr(), i16.stride(0), B, T, frame_len,
                      int(sample_rate == 16000), mode, states.data_ptr(),
                      states.shape[0], idx_dev.data_ptr(), out.data_ptr(),
-                     rows_per_block, stream)
+                     stream)
     if err != 0:
         raise RuntimeError(f"webrtc_vad kernel launch failed (cudaError "
                            f"{err})")

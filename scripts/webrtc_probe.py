@@ -1,5 +1,5 @@
-"""Build report, checks and launch-geometry sweep of the batched webrtcvad
-kernel (W1) and the collector kernel (W2) on one CUDA card.
+"""Build report, checks and batch sweep of the batched webrtcvad kernel
+(W1) and the collector kernel (W2) on one CUDA card.
 
     env PYTHONPATH=. python3 scripts/webrtc_probe.py build
     env PYTHONPATH=. python3 scripts/webrtc_probe.py sweep [--batches 1 8 ...]
@@ -7,11 +7,11 @@ kernel (W1) and the collector kernel (W2) on one CUDA card.
 ``build``: compiles ``csrc/webrtc_vad.cu`` with ``-Xptxas -v`` and prints
 each kernel's registers, stack frame and spills.
 
-``sweep``: for each ``rows_per_block`` of ``GEOMETRIES`` (streams a block,
-one a thread), W1 held against the host engine at B=8 and 64
-(``chip_smoke.check_w1``: adapted rows, padding rows, 4 windows in a row),
-then CUDA-event times at each batch beside the host engine's time over the
-same rows (host clock, one core), in turns.
+``sweep``: W1 (one block of four warps a stream) held against the host
+engine at B=8 and 64 (``chip_smoke.check_w1``: adapted rows, padding rows,
+4 windows in a row), then CUDA-event times at each batch beside the host
+engine's time over the same rows (host clock, one core) and W1's two
+bounds (bytes; the decimator's serial chain at the card's clock).
 
 Every run names the card (``nvidia-smi`` name and power limit).  Without a
 CUDA device the script stops before doing anything.
@@ -34,13 +34,11 @@ sys.path.insert(0, str(ROOT))
 
 from chip_smoke import (VAD_ROWS, VAD_WARMUP, VAD_WINDOWS,  # noqa: E402
                         ambient, check_w1, denoised_i16, host_ms, log,
-                        time_ms, vad_windows, w1_bound)
+                        time_ms, vad_windows, w1_bound, w1_chain_ms)
 from mmla_audio_torch import _build  # noqa: E402
 from mmla_audio_torch.core.config import PipelineConfig  # noqa: E402
 from mmla_audio_torch.vad.webrtc import (  # noqa: E402
-    launch_webrtc_rows, webrtc_init, webrtc_vad_rows_plain)
-
-GEOMETRIES = (1, 32)
+    webrtc_init, webrtc_vad_rows, webrtc_vad_rows_plain)
 
 
 def ptxas_report() -> None:
@@ -55,15 +53,6 @@ def ptxas_report() -> None:
     for line in proc.stderr.splitlines():
         if re.search(r"Compiling entry|registers|stack frame|spill", line):
             log(f"[ptxas] {line.strip()}")
-
-
-def geometry(rows_per_block: int):
-    """W1 launched with ``rows_per_block`` streams a block (no checks and
-    no count: the arguments are the probe's own)."""
-    def launch(x, states, idx):
-        return launch_webrtc_rows(x, states, np.asarray(idx, np.int32), 480,
-                                  16000, 3, rows_per_block)
-    return launch
 
 
 def adapted_rows(device, cfg):
@@ -82,35 +71,27 @@ def adapted_rows(device, cfg):
 
 def sweep(device, batches) -> None:
     pool, rows = adapted_rows(device, PipelineConfig())
-    for rpb in GEOMETRIES:
-        for batch in (8, 64):
-            check_w1(device, pool, rows, batch, np.random.RandomState(batch),
-                     launch=geometry(rpb))
-        log(f"[check] rows_per_block={rpb}: W1 == host engine bit for bit "
-            f"at B=8 and 64")
+    for batch in (8, 64):
+        check_w1(device, pool, rows, batch, np.random.RandomState(batch))
+    log("[check] W1 == host engine bit for bit at B=8 and 64")
+    chain = w1_chain_ms()
     for batch in batches:
         x = pool[torch.arange(batch, device=device) % len(pool)]
         states = rows[np.arange(batch) % VAD_ROWS].contiguous()
         idx = np.arange(batch, dtype=np.int32)
-        reps = 20 if batch <= 8 else 5
-        turns = list(GEOMETRIES) + list(reversed(GEOMETRIES))
-        times = {rpb: [] for rpb in GEOMETRIES}
-        for rpb in turns:
-            card, launch = states.to(device), geometry(rpb)
-            times[rpb].append(time_ms(lambda: launch(x, card, idx),
-                                      reps=reps, rounds=3))
+        card = states.to(device)
+        ms = time_ms(lambda: webrtc_vad_rows(x, card, idx),
+                     reps=20 if batch <= 8 else 5, rounds=3)
         plain = host_ms(webrtc_vad_rows_plain, x.cpu(), states.clone(), idx)
-        log(f"[sweep] B={batch}: " + ", ".join(
-            f"rows_per_block={rpb} {min(t):.4f} ms" for rpb, t in
-            times.items()) + f"; host engine {plain:.4f} ms; bound "
-            f"{w1_bound(batch, batch)['bound_ms'] * 1e3:.3f} us (bytes)")
+        log(f"[sweep] B={batch}: W1 {ms:.4f} ms; host engine {plain:.4f} ms; "
+            f"bounds {w1_bound(batch, batch)['bound_ms'] * 1e3:.3f} us "
+            f"(bytes), {chain:.4f} ms (the decimator's serial chain)")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("what", choices=("build", "sweep"))
-    ap.add_argument("--batches", type=int, nargs="+",
-                    default=[1, 8, 64, 512])
+    ap.add_argument("--batches", type=int, nargs="+")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("webrtc_probe: no CUDA device", file=sys.stderr)
@@ -118,10 +99,11 @@ def main() -> int:
     log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
                        text=True, timeout=60).stdout.strip())
+    device = torch.device("cuda", 0)
     if args.what == "build":
         ptxas_report()
     else:
-        sweep(torch.device("cuda", 0), args.batches)
+        sweep(device, args.batches or [1, 8, 64, 512])
     return 0
 
 

@@ -261,31 +261,73 @@ def _vad_windows(count, seed, n=85 * 480):
     return out
 
 
-@pytest.mark.parametrize("batch", [8, 64])
-def test_webrtc_rows_kernel_matches_host_engine(device, batch):
-    """W1 against the host engine: three windows in a row, rows out of
-    order, two padding rows, one state row named by no batch row;
-    decisions and every state row bit for bit after each window."""
+def _hold_w1_against_host(device, windows, n_states, idx, **geometry):
+    """W1 and the host engine from the same fresh rows, one window of
+    ``windows`` after another: decisions and every state row bit for bit
+    after each, one launch each.  Returns the host's last decisions and
+    rows."""
     from mmla_audio_torch.vad.webrtc import (webrtc_init, webrtc_vad_rows,
                                              webrtc_vad_rows_plain)
 
-    rng = np.random.RandomState(batch)
-    n_states = batch - 1
-    idx = rng.permutation(np.concatenate(
-        [np.arange(1, n_states), [n_states, n_states + 3]])).astype(np.int32)
     plain = webrtc_init(n_states, "cpu")
     card = plain.to(device)
-    for w in range(3):
-        x = torch.from_numpy(_vad_windows(batch, seed=10 * batch + w))
-        ref = webrtc_vad_rows_plain(x, plain, idx)
+    for x in windows:
+        x = torch.from_numpy(x)
+        ref = webrtc_vad_rows_plain(x, plain, idx, **geometry)
         before = webrtc_vad_rows.launches
-        got = webrtc_vad_rows(x.to(device), card, idx)
+        got = webrtc_vad_rows(x.to(device), card, idx, **geometry)
         torch.cuda.synchronize()
         assert webrtc_vad_rows.launches == before + 1
         assert torch.equal(got.cpu(), ref)
         assert torch.equal(card.cpu(), plain)
+    return ref, plain
+
+
+@pytest.mark.parametrize("frame_len,sample_rate", [
+    (480, 16000), (320, 16000), (160, 16000), (240, 8000), (160, 8000),
+    (80, 8000)])
+@pytest.mark.parametrize("batch", [1, 8, 64, 512])
+def test_webrtc_rows_kernel_matches_host_engine(device, batch, frame_len,
+                                                sample_rate):
+    """W1 against the host engine at every frame length and rate the
+    engine takes: three windows in a row, rows out of order, two padding
+    rows, one state row named by no batch row; decisions and every state
+    row bit for bit after each window."""
+    from mmla_audio_torch.vad.webrtc import webrtc_init
+
+    rng = np.random.RandomState(batch)
+    if batch == 1:
+        n_states, idx = 2, np.array([1], np.int32)
+    else:
+        n_states = batch - 1
+        idx = rng.permutation(np.concatenate(
+            [np.arange(1, n_states), [n_states, n_states + 3]])).astype(
+                np.int32)
+    ref, plain = _hold_w1_against_host(
+        device, [_vad_windows(batch, seed=10 * batch + w) for w in range(3)],
+        n_states, idx, frame_len=frame_len, sample_rate=sample_rate)
     assert torch.equal(plain[0], webrtc_init(1, "cpu")[0])   # never named
-    assert ref.any() and not ref.all()
+    if batch > 1:
+        assert ref.any() and not ref.all()
+
+
+def test_webrtc_rows_kernel_silence_and_clipped_squares(device):
+    """Rows of silence, of sparse one-step impulses and of full-scale
+    clipped squares: the silent frames keep the total power at or under
+    kMinEnergy, so the GMM is skipped (the frame counter, slot 262, does
+    not move) while the squares saturate every band; bit for bit."""
+    n, t = 85 * 480, np.arange(85 * 480) / 16000
+    rng = np.random.RandomState(0)
+    x = np.zeros((8, n), np.int16)
+    x[2:4] = (rng.rand(2, n) < 0.002) * rng.choice([-2, -1, 1, 2], (2, n))
+    for r, hz in zip(range(4, 8), (60, 180, 1000, 3900)):
+        x[r] = np.where(np.sin(2 * np.pi * hz * t) >= 0, 32767, -32768)
+    idx = np.arange(8, dtype=np.int32)
+    ref, plain = _hold_w1_against_host(
+        device, [x, np.roll(x, 1234, axis=1)], 8, idx)
+    assert not ref[:2].any()
+    assert int(plain[0, 262]) == int(plain[1, 262]) == 0
+    assert (plain[4:, 262] > 0).all()
 
 
 def test_webrtc_rows_kernel_refuses_shared_rows(device):
@@ -427,7 +469,7 @@ def test_multiplexer_dispatch_does_not_wait_for_the_card(device, tmp_path):
     assert mux.tick() == 2 and mux.flush() == 2
 
 
-# -- the denoise kernels: D1 (fixed-order GEMM) and D2 (banded smoothing) --
+# -- the denoise kernels: D1 (a real FFT a frame) and D2 (banded smoothing) --
 
 def _denoise_input(batch, seed, n=40960):
     from mmla_audio_torch.core.config import DenoiseConfig
@@ -469,24 +511,40 @@ def test_denoise_batch_equals_alone_with_bucket_padding(device):
         assert torch.equal(reduce_noise(y[b], nts[b]), got[b])
 
 
-def test_fixed_order_gemm_matches_matmul(device):
-    """D1 against ``torch.matmul`` in IEEE fp32: fp32 sums of 1,024 (STFT)
-    and 1,026 (ISTFT) terms in two orders, within 2e-5 of max |ref|."""
+@pytest.mark.parametrize("batch", [1, 8, 64])
+def test_d1_fft_matches_plain(device, batch):
+    """D1's forward and inverse FFT kernels against the plain dense
+    products (``torch.matmul``, IEEE fp32) on live windows: within 2e-5 of
+    max |ref| (the fp32 products err near 1e-6); against the same products
+    in float64 within 1e-7 of max |ref| (D1 computes in float64 and rounds
+    each output once to float32, at most 2^-24 of it); the inverse ignores
+    the imaginary parts at DC and Nyquist, as the inverse bases do; one
+    launch each."""
     from mmla_audio_torch.ops import denoise as dn
 
-    y, _ = _denoise_input(4, seed=7)
+    y, _ = _denoise_input(batch, seed=7)
     y = y.to(device)
     before = (dn.stft_ri.launches, dn.istft_frames.launches)
     with fp32_policy(False):
         re, im = dn.stft_ri(y, 1024, 256)
         pre, pim = dn.stft_ri_plain(y, 1024, 256)
+        pim = pim.clone()
+        pim[..., [0, 512]] += 0.25
         fr = dn.istft_frames(pre, pim, 1024)
         pfr = dn.istft_frames_plain(pre, pim, 1024)
+    torch.cuda.synchronize()
     assert (dn.stft_ri.launches, dn.istft_frames.launches) == \
         (before[0] + 1, before[1] + 1)
     for got, ref in ((re, pre), (im, pim), (fr, pfr)):
         assert got.shape == ref.shape
+    pim[..., [0, 512]] -= 0.25
+    for got, ref in ((re, pre), (im, pim), (fr, pfr)):
         assert float((got - ref).abs().max()) <= 2e-5 * float(ref.abs().max())
+    xre, xim = dn.stft_ri_plain(y.double(), 1024, 256)
+    xfr = dn.istft_frames_plain(pre.double(), pim.double(), 1024)
+    for got, ref in ((re, xre), (im, xim), (fr, xfr)):
+        assert float((got.double() - ref).abs().max()) <= \
+            1e-7 * float(ref.abs().max())
 
 
 @pytest.mark.parametrize("frames", [1, 15, 183, 1000])
@@ -530,8 +588,14 @@ def test_denoise_kernels_refuse_float64(device):
         dn.stft_ri(torch.zeros(4000, dtype=torch.float64, device=device),
                    1024, 256)
     with pytest.raises(TypeError, match="float32"):
+        dn.istft_frames(torch.zeros((4, 513), dtype=torch.float64,
+                                    device=device),
+                        torch.zeros((4, 513), device=device), 1024)
+    with pytest.raises(TypeError, match="float32"):
         dn.smooth_mask(torch.zeros((4, 513), dtype=torch.float64,
                                    device=device), DenoiseConfig(), 16000)
+    with pytest.raises(ValueError, match="built for n_fft 1024"):
+        dn.stft_ri(torch.zeros(4000, device=device), 512, 128)
 
 
 def test_aot_compile_captures_the_predictor(device):

@@ -3,14 +3,19 @@
 for CPU tensors, so ``reduce_noise`` is bit for bit the dense-GEMM chain it
 was before the kernels; the port against ``mmla_audio_tpu.ops.denoise``
 pass by pass at 1, 3 and 4 passes; a batch equal to each window alone;
-and numpy models of the kernels' algorithms (D1's strided frame rows, D2's
-banded passes over ascending taps with the halo tiles of
-``SMOOTH_TILE_T`` frames) against the plain versions.
+and numpy models of the kernels' algorithms (D1's strided, windowed frame
+rows through its FFT plan: the float64 twiddle table the wrapper hands the
+kernel, three radix-8 Stockham stages and the real split, in float64 with
+each output rounded once to float32; D2's banded passes over ascending
+taps with the halo tiles of ``SMOOTH_TILE_T`` frames) against numpy's
+float64 FFT and the plain versions.
 
 Tolerances: the port vs JAX within 1 int16 step on <= 0.5 % of samples
 (GEMM accumulation order decides round-half ties, as in
-``tests/test_torch_denoise.py``); the numpy models in float64 within 1e-5
-of max |ref| (D1) and 1e-6 (D2, mask values in [0, 1]).
+``tests/test_torch_denoise.py``); D1's model within 1e-7 of max |ref| of
+numpy's float64 FFT (one rounding to float32 is at most 2^-24 of it) and
+within 1e-5 of the plain float32 products (whose sums err near 1e-6 of the
+max); D2's float64 model within 1e-6 (mask values in [0, 1]).
 """
 
 import jax.numpy as jnp
@@ -84,6 +89,38 @@ def test_plain_versions_equal_the_dense_chain(profile, passes):
                        got)
 
 
+@pytest.mark.parametrize("seed", [1, 2])
+def test_plain_chain_in_float64(profile, seed):
+    """The plain chain keeps a float64 input in float64 end to end (the
+    exact chain the card's denoise is held to), at 1 pass and at 3: its
+    STFT and inverse frames equal numpy's float64 FFT within 1e-12 of max
+    |ref|, and one pass's int16 output is within 1 step on < 0.5 % of
+    samples of the float32 chain's (over several passes the two drift
+    apart, as the port and JAX do: see ``test_reduce_noise_matches_jax``)."""
+    y = torch.from_numpy(_windows(2, n=20000, seed=seed))
+    assert denoise.reduce_noise_plain(y.double(), profile.double(),
+                                      passes=3).dtype == torch.float64
+    got = denoise.reduce_noise_plain(y.double(), profile.double())
+    assert got.dtype == torch.float64
+    diff = (denoise.quantize_i16(got)
+            - denoise.quantize_i16(denoise.reduce_noise_plain(
+                y, profile))).abs()
+    assert float(diff.max()) <= 1.0 and float((diff > 0).float().mean()) \
+        < 0.005
+    x = y.double()
+    re, im = denoise.stft_ri_plain(x, 1024, 256)
+    frames = frame_signal(pad_last(x, 512, 512, "reflect"), 1024, 256,
+                          re.shape[-2]).numpy()
+    exact = np.fft.rfft(frames * denoise._window(
+        1024, torch.device("cpu"), torch.float64).numpy(), axis=-1)
+    for got, ref in ((re, exact.real), (im, exact.imag)):
+        assert got.dtype == torch.float64
+        assert np.abs(got.numpy() - ref).max() <= 1e-12 * np.abs(ref).max()
+    back = denoise.istft_frames_plain(re, im, 1024).numpy()
+    ref = np.fft.irfft(exact, n=1024, axis=-1)
+    assert np.abs(back - ref).max() <= 1e-12 * np.abs(ref).max()
+
+
 @pytest.mark.parametrize("passes", [1, 3, 4])
 def test_reduce_noise_matches_jax(profile, passes):
     """Every pass of the chain against JAX's from the same input (the
@@ -134,30 +171,132 @@ def test_wrappers_refuse_other_devices():
         denoise.smooth_mask(torch.zeros((3, 513), device="meta"), CFG, 16000)
 
 
+def _dft8(vr, vi, c):
+    """The kernel's 8-point DFT: a radix-2 split (the differences times
+    W8^r), then two 4-point DFTs giving the even and the odd outputs."""
+    def dft4(u):
+        (u0r, u0i), (u1r, u1i), (u2r, u2i), (u3r, u3i) = u
+        p0, p1 = (u0r + u2r, u0i + u2i), (u0r - u2r, u0i - u2i)
+        q0, t = (u1r + u3r, u1i + u3i), (u1r - u3r, u1i - u3i)
+        q1 = (t[1], -t[0])
+        return [(p0[0] + q0[0], p0[1] + q0[1]), (p1[0] + q1[0], p1[1] + q1[1]),
+                (p0[0] - q0[0], p0[1] - q0[1]), (p1[0] - q1[0], p1[1] - q1[1])]
+    a = [(vr[r] + vr[r + 4], vi[r] + vi[r + 4]) for r in range(4)]
+    d = [(vr[r] - vr[r + 4], vi[r] - vi[r + 4]) for r in range(4)]
+    b = [d[0], (c * (d[1][0] + d[1][1]), c * (d[1][1] - d[1][0])),
+         (d[2][1], -d[2][0]),
+         (c * (d[3][1] - d[3][0]), -(c * (d[3][0] + d[3][1])))]
+    out = [None] * 8
+    out[0::2], out[1::2] = dft4(a), dft4(b)
+    return [o[0] for o in out], [o[1] for o in out]
+
+
+def _fft512_model(zr, zi, tw):
+    """D1's 512-point FFT of the rows of ``(zr, zi)`` as the kernel runs it:
+    Stockham, radix 8, butterfly j of stage Ns reading j + 64 r, twiddled
+    by table entry ``2 r (j mod Ns) 512 / (8 Ns)``, writing output q at
+    ``(j // Ns) 8 Ns + j mod Ns + q Ns``."""
+    c, j = tw[128, 0], np.arange(64)
+    for stage, ns in enumerate((1, 8, 64)):
+        vr = [zr[:, j + 64 * r] for r in range(8)]
+        vi = [zi[:, j + 64 * r] for r in range(8)]
+        if stage:
+            for r in range(1, 8):
+                w = tw[2 * r * (j % ns) * (512 // (8 * ns))]
+                vr[r], vi[r] = (vr[r] * w[:, 0] - vi[r] * w[:, 1],
+                                vr[r] * w[:, 1] + vi[r] * w[:, 0])
+        vr, vi = _dft8(vr, vi, c)
+        base = (j // ns) * 8 * ns + j % ns
+        zr, zi = np.empty_like(zr), np.empty_like(zi)
+        for q in range(8):
+            zr[:, base + q * ns], zi[:, base + q * ns] = vr[q], vi[q]
+    return zr, zi
+
+
+def _rfft_model(frames, tw):
+    """The forward kernel on windowed frames ``(F, 1024)`` (float64): z =
+    even + i odd, the FFT, then X[k] = E[k] + W^k O[k], rounded to
+    float32."""
+    zr, zi = _fft512_model(frames[:, 0::2], frames[:, 1::2], tw)
+    k = np.arange(512)
+    ar, ai = zr[:, k], zi[:, k]
+    br, bi = zr[:, (512 - k) & 511], zi[:, (512 - k) & 511]
+    er, ei = 0.5 * (ar + br), 0.5 * (ai - bi)
+    o_r, o_i = 0.5 * (ai + bi), 0.5 * (br - ar)
+    w = tw[k]
+    re = np.concatenate([er + (o_r * w[:, 0] - o_i * w[:, 1]),
+                         (zr[:, :1] - zi[:, :1])], axis=1)
+    im = np.concatenate([ei + (o_r * w[:, 1] + o_i * w[:, 0]),
+                         np.zeros_like(zr[:, :1])], axis=1)
+    return re.astype(np.float32), im.astype(np.float32)
+
+
+def _irfft_model(re, im, tw):
+    """The inverse kernel on float32 ``(F, 513)`` spectra, in float64:
+    Z'[k] = (X[k] + conj X[512-k]) + i W^-k (X[k] - conj X[512-k])
+    (imaginary parts at DC and Nyquist ignored), x = conj(FFT(conj Z')) /
+    1024 interleaved, rounded to float32."""
+    re, im = re.astype(np.float64), im.astype(np.float64)
+    im[:, [0, 512]] = 0
+    k = np.arange(512)
+    ar, ai, br, bi = re[:, k], im[:, k], re[:, 512 - k], im[:, 512 - k]
+    er, ei, dr, di = ar + br, ai - bi, ar - br, ai + bi
+    w = tw[k]
+    o_r, o_i = dr * w[:, 0] + di * w[:, 1], di * w[:, 0] - dr * w[:, 1]
+    vr, vi = _fft512_model(er - o_i, -(ei + o_r), tw)
+    out = np.empty((len(re), 1024), np.float32)
+    out[:, 0::2] = vr * (1 / 1024)
+    out[:, 1::2] = -vi * (1 / 1024)
+    return out
+
+
 @pytest.mark.parametrize("batch,n", [(1, 5000), (3, 3001)])
 def test_d1_frame_rows_model(batch, n):
-    """D1's STFT reads row ``m`` of A at ``(m // T) * (n + n_fft) + (m % T)
-    * hop`` of the reflect-padded signal against ``[fwd_cos | fwd_sin]``;
-    its ISTFT takes ``[re | im]`` against ``[inv_cos.T; -inv_sin.T]``."""
+    """D1's FFT plan on the CPU: the STFT reads frame ``m`` from row ``m
+    // T`` of the signal at samples ``(m % T) * hop - n_fft / 2 + s``,
+    reflected at both ends, windowed as it is loaded; the float64 model of
+    both kernels from the wrapper's twiddle table, each output rounded to
+    float32, against numpy's float64 FFT and the plain versions."""
     nf, hop = 1024, 256
     y = torch.from_numpy(_windows(batch, n=n, seed=5))
-    yr = F.pad(y, (nf // 2, nf // 2), mode="reflect").numpy()
     T = 1 + n // hop
-    flat = yr.ravel().astype(np.float64)
     m = np.arange(batch * T)
-    starts = (m // T) * yr.shape[1] + (m % T) * hop
-    A = flat[starts[:, None] + np.arange(nf)[None]]
-    fwd, inv = (b.numpy().astype(np.float64)
-                for b in denoise._kernel_bases(nf, torch.device("cpu")))
-    spec = (A @ fwd).reshape(batch, T, -1)
-    re, im = denoise.stft_ri_plain(y, nf, hop)
-    K = nf // 2 + 1
-    for got, ref in ((spec[..., :K], re), (spec[..., K:], im)):
-        assert np.abs(got - ref.numpy()).max() <= 1e-5 * ref.abs().max()
-    frames = np.concatenate([re.numpy(), im.numpy()], -1).astype(
-        np.float64) @ inv
-    ref = denoise.istft_frames_plain(re, im, nf).numpy()
-    assert np.abs(frames - ref).max() <= 1e-5 * np.abs(ref).max()
+    i = ((m % T) * hop - nf // 2)[:, None] + np.arange(nf)[None]
+    i = np.where(i < 0, -i, np.where(i >= n, 2 * (n - 1) - i, i))
+    frames = y.numpy()[(m // T)[:, None], i]
+    window = denoise._window(nf, torch.device("cpu")).numpy()
+    tw = denoise._fft_table(nf)
+    assert tw.dtype == np.float64 and tw.shape == (nf, 2)
+    windowed = frames.astype(np.float64) * window.astype(np.float64)
+    re, im = _rfft_model(windowed, tw)
+    exact = np.fft.rfft(windowed, axis=-1)
+    pre, pim = denoise.stft_ri_plain(y, nf, hop)
+    for got, ref, plain in ((re, exact.real, pre), (im, exact.imag, pim)):
+        scale = np.abs(ref).max()
+        assert got.dtype == np.float32
+        assert np.abs(got - ref).max() <= 1e-7 * scale
+        assert np.abs(got - plain.numpy().reshape(got.shape)).max() <= \
+            1e-5 * scale
+    re, im = pre.numpy().reshape(-1, nf // 2 + 1), \
+        pim.numpy().reshape(-1, nf // 2 + 1)
+    frames = _irfft_model(re, im, tw)
+    exact = np.fft.irfft(re.astype(np.float64) + 1j * im, n=nf, axis=-1)
+    plain = denoise.istft_frames_plain(pre, pim, nf).numpy().reshape(
+        frames.shape)
+    scale = np.abs(exact).max()
+    assert np.abs(frames - exact).max() <= 1e-7 * scale
+    assert np.abs(frames - plain).max() <= 1e-5 * scale
+
+
+def test_d1_refuses_other_fft_sizes():
+    """The card's D1 serves n_fft 1024 alone (the wrappers check the size
+    before any launch); the CPU's plain versions take any size."""
+    for n_fft in (512, 2048):
+        with pytest.raises(ValueError, match="built for n_fft 1024"):
+            denoise._fft_size(n_fft, "stft_ri")
+    denoise._fft_size(1024, "stft_ri")
+    re, im = denoise.stft_ri(torch.zeros(3000), 512, 128)
+    assert re.shape == im.shape == (24, 257)
 
 
 @pytest.mark.parametrize("frames", [1, 7, 183])

@@ -351,7 +351,8 @@ def native():
         pytest.skip("the native webrtcvad engine cannot build here")
 
 
-def test_host_preprocessor_matches_the_device_chain_and_jax(native):
+def test_host_preprocessor_matches_the_device_chain_and_jax(native,
+                                                          tmp_path):
     """The host split equals the port's on-device chain run on the CPU bit
     for bit (the same engine state carried over windows), and JAX's chain
     (``preprocess_window`` with its pure-JAX webrtc engine): equal kept
@@ -366,7 +367,7 @@ def test_host_preprocessor_matches_the_device_chain_and_jax(native):
     device_chain = OverlapSession(
         OverlapPredictor(overlap_state_dict_from_jax(
             perturbed_tree(CFG, seed=1), as_port(CFG)), as_port(CFG),
-            device="cpu"), None, "unused", cfg=cfg, host_preprocess=False)
+            device="cpu"), None, tmp_path, cfg=cfg, host_preprocess=False)
     device_chain.set_noise_profile(NOISE)
     host.set_noise_threshold(device_chain.noise_thresh)
     jcfg = jax_config.PipelineConfig()
@@ -401,11 +402,12 @@ def test_session_arrangements_agree(native, predictors, tmp_path):
     for arrangement, on_card in (("auto", "cuda"), (True, "cpu"),
                                  (False, "cuda")):
         # where a card session's chain runs (built without touching a card)
-        card = StreamingSession(None, tmp_path, cfg=cfg, device="cuda",
-                                host_preprocess=arrangement)
+        # (each session claims a log of its own: a directory each)
+        card = StreamingSession(None, tmp_path / f"card{len(out)}", cfg=cfg,
+                                device="cuda", host_preprocess=arrangement)
         assert card.preprocess_device.type == on_card
-        sess = OverlapSession(predictors[1], None, tmp_path, cfg=cfg,
-                              host_preprocess=arrangement)
+        sess = OverlapSession(predictors[1], None, tmp_path / f"s{len(out)}",
+                              cfg=cfg, host_preprocess=arrangement)
         assert sess.preprocess_device.type == "cpu"
         sess.set_noise_profile(NOISE)
         out.append([sess.process_window(synth_speech_i16(WIN, seed=s))
