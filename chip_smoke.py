@@ -14,7 +14,11 @@ per source, all at once), then:
    45,023), each timed (CUDA events) beside its plain version and the
    library calls (cuFFT ``torch.fft.rfft`` and ``irfft`` of the same
    frames and spectra, and cuBLAS ``torch.matmul`` of the dense products
-   as written; cuDNN ``conv2d`` with the outer-product kernel);
+   as written; cuDNN ``conv2d`` with the outer-product kernel), and at
+   B <= 512 each on the card alone (``queued_ms``), D2 and ``conv2d``
+   also on the 12-minute file, beside an empty kernel queued the same way
+   (the launch floor) and cuFFT's float64 pair, D1's working precision
+   (D2 must beat the dense pair and ``conv2d`` at every shape);
    ``reduce_noise`` at each batch equal to every
    window denoised alone (0 differing float samples) and, after int16
    quantization, within 1 step on < 0.5 % of samples of the plain chain
@@ -123,7 +127,9 @@ per source, all at once), then:
    B=8 and 64, decisions and every state row bit for bit; W1 timed at B=1,
    8, 64 and 512 (CUDA events) beside the host engine over the same rows
    (host clock); W2 (``vad_collect_rows``) against ``collect_mask`` per row
-   on W1's and energy decisions, timed at B=64; 8 overlap streams x 4
+   on W1's and energy decisions, then at B=1, 8, 64 and 512 checked and
+   timed (CUDA events and on the card alone, beside the launch floor);
+   8 overlap streams x 4
    windows against ``OverlapSession`` and 4 speaker streams (3-speaker
    sigmoid head) against ``SpeakerSession`` (each with its chain on the
    card): labels equal where the session's top-2 margin is above 1e-3, the
@@ -134,9 +140,11 @@ per source, all at once), then:
    ms a window, realtime-stream equivalents, the phase times a window, the
    kernels' launches, every window logged once and in order; one warm tick
    at bucket 64 under ``torch.profiler`` (device busy, idle share,
-   launches); churn: 16 streams, 8 retired with ``archive=False`` and 8
-   added on recycled rows that start fresh and end equal to a fresh
-   multiplexer's.  The multiplexer's runs are the fourth main path whose
+   launches, D1's and D2's kernels by name), then D1's two kernels and D2
+   at the tick's shape timed by CUDA events, on the card alone and by the
+   profiler over the same calls; churn: 16 streams, 8 retired with
+   ``archive=False`` and 8 added on recycled rows that start fresh and end
+   equal to a fresh multiplexer's.  The multiplexer's runs are the fourth main path whose
    launches are counted (W1, W2, the featurizer, the fused block, D1, D2);
 11. edge, export and weights: ``EdgeOverlapSession.run`` over 8 windows
    (3 noise-only, where the SSIM gate fires) on the card and the CPU,
@@ -718,10 +726,9 @@ def check_denoise_kernels(device, y, nt, cfg, what: str) -> dict:
         pfr = dn.istft_frames_plain(mre, mim, n_fft)
         e_istft = max_rel(fr, pfr)
         xre, xim = dn.stft_ri_plain(yp.double(), n_fft, hop)
+        xfr = dn.istft_frames_plain(mre.double(), mim.double(), n_fft)
         e_exact = max(max_rel(re.double(), xre), max_rel(im.double(), xim),
-                      max_rel(fr.double(), dn.istft_frames_plain(
-                          mre.double(), mim.double(), n_fft)))
-        del xre, xim
+                      max_rel(fr.double(), xfr))
         torch.cuda.synchronize()
         if not (e_stft <= D1_RTOL and e_istft <= D1_RTOL and e_d2 <= D2_ATOL
                 and e_lib <= D2_LIB_ATOL and e_exact <= D1_EXACT):
@@ -742,15 +749,26 @@ def check_denoise_kernels(device, y, nt, cfg, what: str) -> dict:
                             torch.stack([pre, pim], -1).reshape(-1, K, 2)),
                     max_rel(torch.fft.irfft(cspec, n=n_fft),
                             pfr.reshape(-1, n_fft)))
+        # the same function in float64, D1's working precision: cuFFT's
+        # double pair against the float64 products
+        wframes64, cspec64 = wframes.double(), cspec.to(torch.complex128)
+        e_fft64 = max(max_rel(torch.view_as_real(torch.fft.rfft(wframes64)),
+                              torch.stack([xre, xim], -1).reshape(-1, K, 2)),
+                      max_rel(torch.fft.irfft(cspec64, n=n_fft),
+                              xfr.reshape(-1, n_fft)))
+        del xre, xim, xfr
         m4 = mask.reshape(-1, 1, T, K)
         turns = (
             ("stft_plain", dn.stft_ri_plain, (yp, n_fft, hop)),
             ("stft", dn.stft_ri, (yp, n_fft, hop)),
             ("stft_fft", torch.fft.rfft, (wframes,)),
+            ("stft_fft64", torch.fft.rfft, (wframes64,)),
             ("stft_lib", torch.matmul, (frames, fwd)),
             ("istft_plain", dn.istft_frames_plain, (mre, mim, n_fft)),
             ("istft", dn.istft_frames, (mre, mim, n_fft)),
             ("istft_fft", lambda x: torch.fft.irfft(x, n=n_fft), (cspec,)),
+            ("istft_fft64", lambda x: torch.fft.irfft(x, n=n_fft),
+             (cspec64,)),
             ("istft_lib", torch.matmul, (spec, inv)),
             ("d2_plain", dn.smooth_mask_plain, (mask, cfg, sr)),
             ("d2", dn.smooth_mask, (mask, cfg, sr)),
@@ -760,33 +778,40 @@ def check_denoise_kernels(device, y, nt, cfg, what: str) -> dict:
         t = {}
         for name, fn, args in turns + turns[::-1]:
             t.setdefault(name, []).append(timed(fn, *args))
-        # the D1 pair and the library pairs on the card alone (at small B
-        # the calls above are paced by the host's launches)
+        # the kernels and the library calls on the card alone (at small B
+        # the calls above are paced by the host's launches); on the long
+        # file D2 and cuDNN's (the dense pair there is the card's work
+        # anyway); an empty kernel queued the same way is the launch floor
+        alone = ("d2", "d2_lib") if big else (
+            "stft", "stft_fft", "stft_fft64", "stft_lib", "istft",
+            "istft_fft", "istft_fft64", "istft_lib", "d2", "d2_plain",
+            "d2_lib")
         queued = {}
-        d1_turns = [turn for turn in turns if turn[0] in (
-            "stft", "stft_fft", "stft_lib", "istft", "istft_fft",
-            "istft_lib")]
-        if not big:
-            for name, fn, args in d1_turns + d1_turns[::-1]:
-                queued.setdefault(name, []).append(queued_ms(fn, *args))
+        q_turns = [turn for turn in turns if turn[0] in alone]
+        for name, fn, args in q_turns + q_turns[::-1]:
+            queued.setdefault(name, []).append(queued_ms(fn, *args))
+        floor = queued_ms(torch.cuda._sleep, 0)
     t = {k: min(v) for k, v in t.items()}
     queued = {k: min(v) for k, v in queued.items()}
     rows = B * T
     b_stft, b_istft, b_fft = d1_bound(B, L, rows, n_fft)
     b_d2 = d2_bound(rows * K, len(v_f) + len(v_t))
-    pair = {k: t[k] + t["i" + k] for k in ("stft", "stft_fft", "stft_lib")}
-    qpair = {k: queued[k] + queued["i" + k] for k in pair} if queued else {}
+    pair = {k: t[k] + t["i" + k]
+            for k in ("stft", "stft_fft", "stft_fft64", "stft_lib")}
+    qpair = {k: queued[k] + queued["i" + k] for k in pair} if not big else {}
     log(f"[denoise] {what} (B={B}, T={T}): D1 STFT max |diff| / max |ref| "
         f"{e_stft:.3g}, ISTFT {e_istft:.3g} (limit {D1_RTOL}), both vs the "
         f"float64 products {e_exact:.3g} (limit {D1_EXACT}); cuFFT vs "
-        f"plain {e_fft:.3g}; D2 max |diff| {e_d2:.3g} (limit {D2_ATOL}), "
+        f"plain {e_fft:.3g}, cuFFT float64 vs the float64 products "
+        f"{e_fft64:.3g}; D2 max |diff| {e_d2:.3g} (limit {D2_ATOL}), "
         f"conv2d vs dense {e_lib:.3g}; ms: STFT kernel {t['stft']:.4f}, "
         f"plain {t['stft_plain']:.4f}, cuFFT rfft {t['stft_fft']:.4f}, "
         f"cuBLAS {t['stft_lib']:.4f}, bound {b_stft['bound_ms']:.4f}; ISTFT "
         f"kernel {t['istft']:.4f}, plain {t['istft_plain']:.4f}, cuFFT irfft "
         f"{t['istft_fft']:.4f}, cuBLAS {t['istft_lib']:.4f}, bound "
         f"{b_istft['bound_ms']:.4f}; D1 pair {pair['stft']:.4f} vs cuFFT "
-        f"{pair['stft_fft']:.4f} vs cuBLAS {pair['stft_lib']:.4f} ("
+        f"{pair['stft_fft']:.4f} (float64 {pair['stft_fft64']:.4f}) vs "
+        f"cuBLAS {pair['stft_lib']:.4f} ("
         f"{'faster' if pair['stft'] < pair['stft_lib'] else 'NOT faster'} "
         f"than cuBLAS), bound {b_fft['bound_ms']:.4f} ({b_fft['bound_by']}, "
         f"{b_fft['bound_ms'] / pair['stft']:.1%} of it reached); D2 kernel "
@@ -796,10 +821,27 @@ def check_denoise_kernels(device, y, nt, cfg, what: str) -> dict:
     if qpair:
         log(f"[denoise] {what}: on the card alone (queued behind a sleep): "
             f"D1 pair {qpair['stft']:.4f} (STFT {queued['stft']:.4f}, ISTFT "
-            f"{queued['istft']:.4f}) vs cuFFT {qpair['stft_fft']:.4f} vs "
-            f"cuBLAS {qpair['stft_lib']:.4f} ("
+            f"{queued['istft']:.4f}) vs cuFFT {qpair['stft_fft']:.4f} "
+            f"(float64 {qpair['stft_fft64']:.4f}) vs cuBLAS "
+            f"{qpair['stft_lib']:.4f} ("
             f"{'faster' if qpair['stft'] < qpair['stft_lib'] else 'NOT faster'}"
             f" than cuBLAS)")
+    # D2 alone where it was queued, else (the long file's dense pair) the
+    # calls' time, which the card sets there
+    d2_ms = {k: queued.get(k, t[k]) for k in ("d2", "d2_plain", "d2_lib")}
+    plain_alone = "" if big else f" (alone {queued['d2_plain']:.4f})"
+    log(f"[denoise] {what}: D2 time_ms {t['d2']:.4f}, queued_ms "
+        f"{queued['d2']:.4f} (the launch floor, an empty kernel queued the "
+        f"same way, {floor:.4f}); dense plain {t['d2_plain']:.4f}"
+        f"{plain_alone}, cuDNN conv2d {t['d2_lib']:.4f} (alone "
+        f"{queued['d2_lib']:.4f}); "
+        f"bound {b_d2['bound_ms']:.4f} ({b_d2['bound_by']}, "
+        f"{b_d2['bound_ms'] / queued['d2']:.1%} of it reached alone)")
+    if not (d2_ms["d2"] < d2_ms["d2_plain"] and d2_ms["d2"] < d2_ms["d2_lib"]):
+        raise AssertionError(f"denoise kernels {what}: D2 {d2_ms['d2']:.4f} "
+                             f"ms is not faster than the dense pair "
+                             f"{d2_ms['d2_plain']:.4f} and cuDNN's conv2d "
+                             f"{d2_ms['d2_lib']:.4f}")
     # D1 must beat the dense pair on the card: its time alone where the
     # host paces the calls (small B), else the calls' time
     d1, dense = (qpair or pair)["stft"], (qpair or pair)["stft_lib"]
@@ -1749,7 +1791,7 @@ def profile_steps(run, steps: int) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    spans, names, kinds = [], Counter(), Counter()
+    spans, names, kinds, denoise = [], Counter(), Counter(), Counter()
     for evt in prof.events():
         # record_function ranges (Optimizer.step, ...) also appear on the
         # device timeline; they are not work of the device
@@ -1757,8 +1799,12 @@ def profile_steps(run, steps: int) -> dict:
             spans.append((evt.time_range.start, evt.time_range.end))
             names[evt.name] += evt.time_range.elapsed_us()
             kinds[kernel_kind(evt.name)] += evt.time_range.elapsed_us()
+            for key in DENOISE_KERNELS:
+                if key in evt.name:
+                    denoise[key] += evt.time_range.elapsed_us() / 1e3 / steps
     out = dict(host_ms=host_ms, busy_ms=None, idle=None,
-               launches=len(spans) / steps, top=[], kinds=[])
+               launches=len(spans) / steps, top=[], kinds=[],
+               denoise=dict(denoise))
     if spans:
         busy, end = 0, -1
         for a, b in sorted(spans):
@@ -1771,6 +1817,8 @@ def profile_steps(run, steps: int) -> dict:
     return out
 
 
+# D1's two kernels and D2's, by a substring of their device-event names
+DENOISE_KERNELS = ("stft_rfft_kernel", "istft_irfft_kernel", "smooth_mask")
 # substrings of device-event names -> a kind of work, first match wins
 # cuBLAS's fp32 GEMMs on the H100 are named sm90_xmma_gemm_*, cuDNN's
 # convolutions *_xmma_fprop_implicit_gemm_* (and dgrad, wgrad): "xmma" alone
@@ -2342,14 +2390,27 @@ def phase_vad_kernels(device, cfg) -> tuple:
                         np.arange(VAD_ROWS, dtype=np.int32)),
         energy_vad(x.reshape(VAD_ROWS, VAD_T, VAD_FRAME), 40.0)])
     check_w2(device, dec.to(torch.uint8), rng)
-    dec, n_valid = dec[:VAD_ROWS], torch.full((VAD_ROWS,), VAD_T,
-                                              dtype=torch.int32)
-    w2_ms = time_ms(vad_collect_rows, dec, n_valid.to(device), reps=50)
-    w2_plain = host_ms(vad_collect_rows_plain, dec.cpu(), n_valid)
+    # W2 timed on rows of those decisions at every n_valid = T, each batch
+    # checked first; beside its bytes and the launch floor (an empty kernel
+    # queued behind the same sleep)
+    floor, w2_times = queued_ms(torch.cuda._sleep, 0), {}
+    for batch in W1_BATCHES:
+        rows = dec[torch.arange(batch, device=dec.device) % len(dec)]
+        n_valid = torch.full((batch,), VAD_T, dtype=torch.int32)
+        check_w2(device, rows.to(torch.uint8), rng)
+        nv = n_valid.to(device)
+        ms = time_ms(vad_collect_rows, rows, nv, reps=50)
+        alone = queued_ms(vad_collect_rows, rows, nv)
+        plain = host_ms(vad_collect_rows_plain, rows.cpu(), n_valid)
+        w2_times[batch] = ms, plain
+        log(f"[vad] W2 B={batch}: time_ms {ms:.4f}, queued_ms {alone:.4f} "
+            f"(launch floor {floor:.4f}), collect_mask per row {plain:.4f} "
+            f"ms (host clock), bound "
+            f"{w2_bound(batch)['bound_ms'] * 1e3:.4f} us (bytes)")
     log(f"[vad] W2 (vad_collect) == collect_mask per row on "
-        f"{2 * VAD_ROWS} rows (webrtc and energy decisions); B=64: kernel "
-        f"{w2_ms:.4f} ms, collect_mask per row {w2_plain:.4f} ms (host "
-        f"clock), bound {w2_bound(VAD_ROWS)['bound_ms'] * 1e3:.4f} us")
+        f"{2 * VAD_ROWS} rows (webrtc and energy decisions) and at every "
+        f"timed batch")
+    w2_ms, w2_plain = w2_times[VAD_ROWS]
     w1 = dict(max_abs_err=0, ms=times[64][0], plain_ms=times[64][1],
               **w1_bound(64, 64), library_ms=None)
     w2 = dict(max_abs_err=0, ms=w2_ms, plain_ms=w2_plain,
@@ -2554,8 +2615,55 @@ def phase_mux_serving(device, pred, cfg, tmp: Path, total: dict) -> dict:
     log(f"[mux] profile of one tick at bucket 64 (gather, dispatch, label "
         f"fetch): host {prof['host_ms']:.3f} ms; {busy}; by kind (ms): "
         + ", ".join(f"{k} {ms:.3f}" for k, ms in prof["kinds"])
-        + f"; {prof['launches']:.0f} launches")
+        + f"; {prof['launches']:.0f} launches; the denoise kernels (ms): "
+        + ", ".join(f"{k} {ms:.4f}" for k, ms in prof["denoise"].items()))
+    denoise_profile_vs_events(device, cfg)
     return out
+
+
+def denoise_profile_vs_events(device, cfg) -> None:
+    """D1's two kernels and D2 at the tick's shape (64 live windows, one
+    pass), each timed three ways on the same inputs: ``time_ms`` (CUDA
+    events over back-to-back calls), ``queued_ms`` (the card alone) and
+    the mean kernel duration in a profiler trace of ``reps`` back-to-back
+    calls, beside the count of the calls the trace holds (a trace can
+    miss device events, which then also leave a tick's breakdown short)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmla_audio_torch.ops import denoise as dn
+
+    dcfg, sr, reps = cfg.denoise, cfg.audio.sample_rate, 20
+    y = torch.from_numpy(denoise_windows(64, seed=104).astype(np.float32)
+                         / 32768.0).to(device)
+    nt = dn.noise_threshold(torch.from_numpy(ambient(105).astype(np.float32)
+                                             / 32768.0).to(device), dcfg)
+    pad = dn._chunk_pad(dcfg, sr)
+    yp = torch.nn.functional.pad(y, (pad, pad))
+    with torch.no_grad():
+        re, im = dn.stft_ri(yp, dcfg.n_fft, dcfg.hop_length)
+        mask = dn.gate_mask(re, im, nt, dcfg.prop_decrease)
+        calls = {"stft_rfft_kernel": (dn.stft_ri, (yp, dcfg.n_fft,
+                                                   dcfg.hop_length)),
+                 "istft_irfft_kernel": (dn.istft_frames, (re * mask,
+                                                          im * mask,
+                                                          dcfg.n_fft)),
+                 "smooth_mask": (dn.smooth_mask, (mask, dcfg, sr))}
+        parts = []
+        for key, (fn, args) in calls.items():
+            events, alone = time_ms(fn, *args), queued_ms(fn, *args)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn(*args)
+                torch.cuda.synchronize()
+            traced = [e.time_range.elapsed_us() for e in prof.events()
+                      if key in e.name]
+            mean = sum(traced) / 1e3 / max(len(traced), 1)
+            parts.append(f"{key} time_ms {events:.4f}, queued_ms "
+                         f"{alone:.4f}, profiler {mean:.4f} (a mean over "
+                         f"the {len(traced)} of {reps} calls it traced)")
+    log(f"[mux] the tick's denoise kernels at its shape (B=64, one pass), "
+        f"three clocks on the same calls: " + "; ".join(parts))
 
 
 def phase_mux_churn(device, pred, cfg, tmp: Path, total: dict) -> None:

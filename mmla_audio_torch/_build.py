@@ -53,7 +53,8 @@ CUDA_KERNELS = {
         _PKG / "csrc" / "denoise.cu",
         {"stft_rfft_launch": [_P, _LL, _I, _I, _I, _P, _P, _P],
          "istft_irfft_launch": [_P, _P, _I, _P, _P, _P],
-         "smooth_mask_launch": [_P, _P, _I, _I, _I, _P, _I, _P, _I, _I, _P]}),
+         "smooth_mask_launch":
+         [_P, _P, _I, _I, _I, _P, _I, _P, _I, _I, _I, _P]}),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

@@ -58,15 +58,36 @@
 // L2) and each output written once, with unit stride across a frame's
 // threads, and every intermediate stays in shared memory.
 //
-// D2, smooth_mask_kernel: the gate mask smoothed by the outer triangular
-// kernel as two banded passes, frequency (taps vf, zero-padded "same") and
-// then time (taps vt, zero-padded "same" within the window), each summed
-// over ascending taps.  It replaces the dense (K, K) and (T, T) matrices
-// (8.1 GB for the time matrix of a 12-minute recording).  A block takes
-// tile_t frames of one window and all K bins: it stages the tile's frames
-// and nt - 1 halo frames in shared memory, runs the frequency pass over all
-// of them into a second buffer, then the time pass.  Bound: bytes (the mask
-// read and written once, 8 bytes a bin); memory does not grow with T.
+// D2, smooth_mask_stream_kernel: the gate mask smoothed by the outer
+// triangular kernel as two banded passes, frequency (taps vf, zero-padded
+// "same") and then time (taps vt, zero-padded "same" within the window).
+// It replaces the dense (K, K) and (T, T) matrices (8.1 GB for the time
+// matrix of a 12-minute recording).  Bound: bytes, the mask read and the
+// result written once, 8 bytes a bin; the 40 multiply-adds a bin of the
+// (33, 7) taps are ~7 us of the CUDA cores' fp32 rate at B=64, under the
+// 14 us of bytes, and every FMA leaves the register file for nothing but
+// its operands.  The design: a block streams a strip of one window's
+// frames once, at one tile of bins with a halo of nf / 2 bins a side.
+// Each input row arrives by cp.async in a ring of kSmoothStages rows in
+// shared memory, three rows ahead of the row in work, so no load waits on
+// the math; a thread owns 6 consecutive bins of a row and reads the 38
+// staged values they need once (float2, no bank conflicts) for 6 x 33
+// FMAs with the taps in registers; the frequency pass runs once a row into
+// a register ring of nt rows, and each output goes from a register to
+// device memory.  Shared memory is ~9 KB a block (a tile of 16 frames
+// staged whole, 22 x 513 floats twice, took 90 KB), nothing grows with T,
+// and a strip recomputes the nt - 1 halo rows of the time band (6 of 16
+// frames at B=64).  What is left bounds it by instruction issue (an
+// estimate from the source, not from its SASS): a thread's 240 FMAs a row
+// come with ~100 loads, copies, stores and loop instructions.  The host (ops/cuda_denoise.py::smooth_plan)
+// picks the strip and the tile to fill the SMs.  Every output is summed as
+// before, s = fmaf(vf[d], x[j + cf - d], s) over ascending d (out-of-range
+// bins read the ring's zero columns, and fmaf(v, 0, s) is s), then the
+// time taps over ascending d: its bits depend on the taps alone, never on
+// the strip, the tile or the batch, so a window's smoothing is the same
+// alone and in any batch.  Other odd tap counts take
+// smooth_mask_generic_kernel (one thread an output, nt * nf FMAs), in the
+// same order.
 
 #include <cuda_runtime.h>
 
@@ -280,45 +301,167 @@ istft_irfft_kernel(const float* __restrict__ re,
   }
 }
 
-constexpr int kSmoothThreads = 256;
+// D2 (see the head of the file).  The streaming instance's geometry: bins
+// a thread, rows in flight in a block's staging ring, bins a block at most.
+constexpr int kSmoothR = 6;
+constexpr int kSmoothStages = 4;                 // a power of two
+constexpr int kSmoothMaxTile = 768;              // 128 threads
+constexpr int kSmoothMaxThreads = kSmoothMaxTile / kSmoothR;
+constexpr int kSmoothGenericThreads = 128;
 
-__global__ void __launch_bounds__(kSmoothThreads)
-smooth_mask_kernel(const float* __restrict__ mask, float* __restrict__ out,
-                   int T, int K, const float* __restrict__ vf, int nf,
-                   const float* __restrict__ vt, int nt, int tile_t) {
-  extern __shared__ float smem[];
-  const int ct = nt / 2, cf = nf / 2;
-  const int rows = tile_t + 2 * ct;
-  float* in = smem;                 // rows x K: frames t0 - ct .. t0 + tile_t + ct - 1
-  float* fr = smem + rows * K;      // the same frames after the frequency pass
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// D2, streaming: block (x, y, z) smooths frames [x * strip, + strip) of
+// window y at bins [z * tile, + tile).  It walks input rows t0 - CT ...
+// t0 + n_out + CT - 1 once: row i lands by cp.async in stage i % kSmoothStages
+// of a ring in shared memory (bins k0 - CF ... k0 + tile + CF - 1, the
+// columns outside [0, K) zero), kSmoothStages - 1 rows ahead of the row
+// being computed.  Thread j owns bins k0 + 6 j ... + 5: it reads the
+// 6 + NF - 1 staged values they need into registers, runs the frequency
+// pass into slot i % NT of a register ring of NT rows, and, once the ring
+// holds rows i - NT + 1 ... i, the time pass of output frame t0 + i - 2 CT,
+// stored straight from the registers (a warp's six stores cover its 768
+// bytes of the row).  The frame loop is unrolled by NT so that every ring
+// slot is a compile-time register.
+template <int NF, int NT>
+__global__ void __launch_bounds__(kSmoothMaxThreads)
+smooth_mask_stream_kernel(const float* __restrict__ mask,
+                          float* __restrict__ out, int T, int K,
+                          const float* __restrict__ vf,
+                          const float* __restrict__ vt, int strip, int tile) {
+  constexpr int CF = NF / 2, CT = NT / 2;
+  constexpr int R = kSmoothR;
+  constexpr int W = R + NF - 1;             // staged values a thread reads
+  static_assert(W % 2 == 0, "float2 loads of the staged values");
+  extern __shared__ float stage[];          // kSmoothStages x width
+  const int width = tile + 2 * CF;          // even: tile % 6 == 0
+
+  const int t0 = blockIdx.x * strip, k0 = blockIdx.z * tile;
   const long long base = static_cast<long long>(blockIdx.y) * T * K;
-  const int t0 = blockIdx.x * tile_t;
+  const int n_out = min(strip, T - t0);
+  const int rows = n_out + 2 * CT;
+  const int n_tile = min(tile, K - k0);
+  // staged bins [lo, hi) sit at columns [lo - k0 + CF, hi - k0 + CF)
+  const int lo = max(k0 - CF, 0), hi = min(k0 + tile + CF, K);
+  const int pl = lo - k0 + CF, ph = hi - k0 + CF;
+  const int tid = threadIdx.x;
+  const bool active = R * tid < n_tile;
 
-  for (int idx = threadIdx.x; idx < rows * K; idx += blockDim.x) {
-    const int r = idx / K, j = idx - r * K;
-    const int t = t0 - ct + r;
-    in[idx] = (t >= 0 && t < T) ? mask[base + static_cast<long long>(t) * K + j]
-                                : 0.f;
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < rows * K; idx += blockDim.x) {
-    const int r = idx / K, j = idx - r * K;
-    const float* x = in + r * K;
-    float s = 0.f;
-    for (int d = 0; d < nf; ++d) {
-      const int i = j + cf - d;
-      if (i >= 0 && i < K) s = fmaf(vf[d], x[i], s);
+  for (int s = 0; s < kSmoothStages; ++s)
+    for (int p = tid; p < width; p += blockDim.x)
+      if (p < pl || p >= ph) stage[s * width + p] = 0.f;
+  float tf[NF], tt[NT];
+#pragma unroll
+  for (int d = 0; d < NF; ++d) tf[d] = __ldg(vf + d);
+#pragma unroll
+  for (int d = 0; d < NT; ++d) tt[d] = __ldg(vt + d);
+  __syncthreads();                          // the zeros before any copy
+
+  // input row i (frame t0 - CT + i) into its stage; rows outside the
+  // window are never read, but every call commits one group
+  auto issue = [&](int i) {
+    const int t = t0 - CT + i;
+    if (i < rows && t >= 0 && t < T) {
+      // bin k at column k - k0 + CF of the stage
+      const int off = (i & (kSmoothStages - 1)) * width + CF - k0;
+      const float* src = mask + base + static_cast<long long>(t) * K;
+      for (int k = lo + tid; k < hi; k += blockDim.x)
+        cp_async4(stage + (off + k), src + k);
     }
-    fr[idx] = s;
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int i = 0; i < kSmoothStages - 1; ++i) issue(i);
+  float ring[NT][R];
+  for (int ib = 0; ib < rows; ib += NT) {
+#pragma unroll
+    for (int q = 0; q < NT; ++q) {
+      const int i = ib + q;                 // slot q holds row i
+      if (i >= rows) break;
+      cp_async_wait<kSmoothStages - 2>();   // this thread's copies of row i
+      __syncthreads();                      // everyone's; row i - 1 read
+      issue(i + kSmoothStages - 1);
+      const int t = t0 - CT + i;
+      if (active && t >= 0 && t < T) {
+        const float2* x = reinterpret_cast<const float2*>(
+            stage + (i & (kSmoothStages - 1)) * width + R * tid);
+        float w[W];
+#pragma unroll
+        for (int m = 0; m < W / 2; ++m) {
+          const float2 v = x[m];
+          w[2 * m] = v.x;
+          w[2 * m + 1] = v.y;
+        }
+        // bin j + r + CF - d sits at w[r + 2 CF - d]
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float s = 0.f;
+#pragma unroll
+          for (int d = 0; d < NF; ++d) s = fmaf(tf[d], w[r + 2 * CF - d], s);
+          ring[q][r] = s;
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < R; ++r) ring[q][r] = 0.f;
+      }
+      if (active && i >= 2 * CT) {
+        // frame t - CT: taps d = 0 ... NT - 1 on rows i, i - 1, ...
+        float* dst = out + base + static_cast<long long>(t - CT) * K + k0 +
+                     R * tid;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float s = 0.f;
+#pragma unroll
+          for (int d = 0; d < NT; ++d)
+            s = fmaf(tt[d], ring[(q - d + NT) % NT][r], s);
+          if (R * tid + r < n_tile) dst[r] = s;
+        }
+      }
+    }
   }
-  __syncthreads();
-  const int n_out = min(tile_t, T - t0);
-  for (int idx = threadIdx.x; idx < n_out * K; idx += blockDim.x) {
-    const int r = idx / K, j = idx - r * K;
-    // frame t0 + r + ct - d sits at row r + 2 * ct - d of the buffer
+}
+
+// D2, any odd tap counts: one thread an output, the frequency pass of each
+// of the nt frames recomputed from the mask (nt * nf multiply-adds an
+// output), in the streaming instance's order.  Block x smooths row x of
+// the (groups * T) rows.
+__global__ void __launch_bounds__(kSmoothGenericThreads)
+smooth_mask_generic_kernel(const float* __restrict__ mask,
+                           float* __restrict__ out, int T, int K,
+                           const float* __restrict__ vf, int nf,
+                           const float* __restrict__ vt, int nt) {
+  const int ct = nt / 2, cf = nf / 2;
+  const long long m = blockIdx.x;
+  const long long g = m / T;
+  const int t = static_cast<int>(m - g * T);
+  const float* win = mask + g * T * K;
+  for (int j = threadIdx.x; j < K; j += blockDim.x) {
     float s = 0.f;
-    for (int d = 0; d < nt; ++d) s = fmaf(vt[d], fr[(r + 2 * ct - d) * K + j], s);
-    out[base + static_cast<long long>(t0 + r) * K + j] = s;
+    for (int d = 0; d < nt; ++d) {
+      const int tt = t + ct - d;
+      float f = 0.f;
+      if (tt >= 0 && tt < T) {
+        const float* x = win + static_cast<long long>(tt) * K;
+        for (int e = 0; e < nf; ++e) {
+          const int i = j + cf - e;
+          if (i >= 0 && i < K) f = fmaf(__ldg(vf + e), __ldg(x + i), f);
+        }
+      }
+      s = fmaf(__ldg(vt + d), f, s);
+    }
+    out[m * K + j] = s;
   }
 }
 
@@ -348,22 +491,33 @@ int istft_irfft_launch(const float* re, const float* im, int M,
   return static_cast<int>(cudaGetLastError());
 }
 
-// mask and out: (groups, T, K) contiguous; vf (nf,), vt (nt,) odd lengths.
+// mask and out: (groups, T, K) contiguous; vf (nf,), vt (nt,) odd lengths
+// on the card.  (nf, nt) = (33, 7) streams (strip frames and tile bins a
+// block, tile a positive multiple of 6 up to 768); any other pair takes the
+// generic kernel, which ignores strip and tile.
 int smooth_mask_launch(const float* mask, float* out, int groups, int T,
                        int K, const float* vf, int nf, const float* vt,
-                       int nt, int tile_t, cudaStream_t stream) {
-  if (groups <= 0 || T <= 0 || K <= 0 || tile_t <= 0 || nf % 2 == 0 ||
-      nt % 2 == 0)
+                       int nt, int strip, int tile, cudaStream_t stream) {
+  if (groups <= 0 || T <= 0 || K <= 0 || nf <= 0 || nt <= 0 ||
+      nf % 2 == 0 || nt % 2 == 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem =
-      2 * static_cast<size_t>(tile_t + nt - 1) * K * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      smooth_mask_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((T + tile_t - 1) / tile_t, groups);
-  smooth_mask_kernel<<<grid, kSmoothThreads, smem, stream>>>(
-      mask, out, T, K, vf, nf, vt, nt, tile_t);
+  if (nf == 33 && nt == 7) {
+    if (strip <= 0 || tile <= 0 || tile % kSmoothR || tile > kSmoothMaxTile ||
+        groups > 65535)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int threads = (tile / kSmoothR + 31) / 32 * 32;
+    const size_t smem = static_cast<size_t>(kSmoothStages) *
+                        (tile + 2 * (33 / 2)) * sizeof(float);   // < 48 KB
+    const dim3 grid((T + strip - 1) / strip, groups, (K + tile - 1) / tile);
+    smooth_mask_stream_kernel<33, 7><<<grid, threads, smem, stream>>>(
+        mask, out, T, K, vf, vt, strip, tile);
+  } else {
+    const long long rows = static_cast<long long>(groups) * T;
+    if (rows > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    smooth_mask_generic_kernel<<<static_cast<unsigned>(rows),
+                                 kSmoothGenericThreads, 0, stream>>>(
+        mask, out, T, K, vf, nf, vt, nt);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,7 +2,7 @@
 //
 // W1, webrtc_vad_kernel, replaces mmla_audio_tpu/vad/webrtc.py:580
 // (webrtc_vad_frames: an int32 lax.scan over samples, vmapped over the
-// multiplexer's stream batch).  W2, vad_collect_kernel, replaces
+// multiplexer's stream batch).  W2, vad_collect_warp_kernel, replaces
 // mmla_audio_tpu/vad/collector.py:48 (collect_mask: a lax.scan over frames).
 // Neither replaces a Pallas kernel.
 //
@@ -63,8 +63,19 @@
 // decisions: a ring of ``ring`` frames, NOTTRIGGERED -> TRIGGERED when more
 // than ``thresh`` of the ring is voiced (the ring is kept retroactively),
 // TRIGGERED -> NOTTRIGGERED when more than ``thresh`` is unvoiced, the ring
-// cleared at both.  One thread a row walks its T decisions; the ring holds
-// consecutive frames, so it is read back from the decisions themselves.
+// cleared at both.  Bound: a launch.  The bytes are 178 a row at T = 85
+// (the decisions and the count in, the keep flags and the count out), and
+// the machine is serial in frames, a few dependent integer operations a
+// frame.  vad_collect_warp_kernel (a ring of 1 ... 32 frames) runs one
+// warp a row, four rows a block: the warp reads 32 decisions at a time,
+// coalesced, and turns them into a word with __ballot_sync (frames at or
+// past n_valid cleared); every lane then runs the same trigger machine over
+// the word, the ring's voiced count one __popcll of the last two words
+// masked to the ring, and builds the keep flags as a bitmask, the ring's
+// bits set at once at a trigger; a finished word's flags go out one byte a
+// lane, coalesced, and the kept count is a sum of __popc.  Rows of any
+// length loop over words.  A longer ring takes vad_collect_kernel, one
+// thread a row that recounts the ring from the decisions.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -751,8 +762,75 @@ webrtc_vad_kernel(const int16_t* __restrict__ x, long long row_stride, int T,
   for (int i = threadIdx.x; i < kStateSlots; i += kThreads) slots[i] = st[i];
 }
 
-// W2: decisions (B, T) -> keep (B, T), kept frames (B,); frames at or past
-// n_valid[b] do not exist.
+// W2 (see the head of the file), one warp a row for a ring of 1 ... 32
+// frames.  Bits 0 ... 31 of dbits and kbits are the decisions and keep
+// flags of word w - 1 (frames 32 (w - 1) ...), bits 32 ... 63 those of word
+// w.  Every lane runs the same trigger machine on the same words, so the
+// machine needs no broadcast; lane l writes frame 32 w + l of a finished
+// word.
+constexpr int kCollectWarps = 4;
+
+__global__ void __launch_bounds__(kCollectWarps * 32)
+vad_collect_warp_kernel(const uint8_t* __restrict__ decisions, int B, int T,
+                        const int32_t* __restrict__ n_valid, double thresh,
+                        int ring, uint8_t* __restrict__ keep,
+                        int32_t* __restrict__ kept) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kCollectWarps + (threadIdx.x >> 5);
+  if (b >= B) return;                          // the whole warp
+  const uint8_t* d = decisions + static_cast<long long>(b) * T;
+  uint8_t* k = keep + static_cast<long long>(b) * T;
+  const int nv = min(max(n_valid[b], 0), T);
+  const int words = (T + 31) >> 5;
+  unsigned long long dbits = 0, kbits = 0;
+  bool triggered = false;
+  int start = 0, total = 0;                    // first frame in the ring
+  for (int w = 0; w < words; ++w) {
+    const int base = w << 5;
+    const int f = base + lane;
+    const bool voiced = f < nv && d[f] != 0;   // frames past n_valid: 0
+    dbits |= static_cast<unsigned long long>(
+                 __ballot_sync(0xffffffffu, voiced)) << 32;
+    const int end = min(base + 32, nv);
+    for (int i = base; i < end; ++i) {
+      // the ring is frames [lo, i]: bits [q, p] (q >= 1 as ring <= 32)
+      const int p = i - base + 32;
+      const int q = max(start, i - ring + 1) - base + 32;
+      const unsigned long long win = (~0ull >> (63 - p)) & (~0ull << q);
+      const int voiced_n = __popcll(dbits & win);
+      if (!triggered) {
+        if (static_cast<double>(voiced_n) > thresh) {
+          triggered = true;
+          kbits |= win;                        // the ring, retroactively
+          start = i + 1;
+        }
+      } else {
+        kbits |= 1ull << p;
+        if (static_cast<double>(p - q + 1 - voiced_n) > thresh) {
+          triggered = false;
+          start = i + 1;
+        }
+      }
+    }
+    if (w > 0) {                               // word w - 1 is final
+      const unsigned done = static_cast<unsigned>(kbits);
+      k[f - 32] = (done >> lane) & 1u;
+      total += __popc(done);
+    }
+    dbits >>= 32;
+    kbits >>= 32;
+  }
+  if (words > 0) {
+    const unsigned done = static_cast<unsigned>(kbits);
+    const int f = ((words - 1) << 5) + lane;
+    if (f < T) k[f] = (done >> lane) & 1u;
+    total += __popc(done);
+  }
+  if (lane == 0) kept[b] = total;
+}
+
+// W2 for any other ring: one thread a row walks its T decisions and
+// recounts the ring (consecutive frames, read back from the decisions).
 __global__ void vad_collect_kernel(const uint8_t* __restrict__ decisions,
                                    int B, int T,
                                    const int32_t* __restrict__ n_valid,
@@ -811,10 +889,17 @@ int webrtc_vad_launch(const int16_t* x, long long row_stride, int B, int T,
 int vad_collect_launch(const uint8_t* decisions, int B, int T,
                        const int32_t* n_valid, double thresh, int ring,
                        uint8_t* keep, int32_t* kept, cudaStream_t stream) {
-  constexpr int kCollectThreads = 128;
-  int blocks = (B + kCollectThreads - 1) / kCollectThreads;
-  vad_collect_kernel<<<blocks, kCollectThreads, 0, stream>>>(
-      decisions, B, T, n_valid, thresh, ring, keep, kept);
+  if (B <= 0 || T < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (ring >= 1 && ring <= 32) {
+    const int blocks = (B + kCollectWarps - 1) / kCollectWarps;
+    vad_collect_warp_kernel<<<blocks, kCollectWarps * 32, 0, stream>>>(
+        decisions, B, T, n_valid, thresh, ring, keep, kept);
+  } else {
+    constexpr int kCollectThreads = 128;
+    const int blocks = (B + kCollectThreads - 1) / kCollectThreads;
+    vad_collect_kernel<<<blocks, kCollectThreads, 0, stream>>>(
+        decisions, B, T, n_valid, thresh, ring, keep, kept);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

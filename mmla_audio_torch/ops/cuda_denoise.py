@@ -7,10 +7,14 @@ plan, whose sequence of operations depends on nothing but the frame, so a
 window's spectrum and frames are the same bits alone and in any batch.  D2
 (``smooth_mask_launch``) is the gate mask's smoothing as two banded passes
 (frequency, then time) instead of the dense ``(K, K)`` and ``(T, T)``
-matrices.  Neither replaces a Pallas kernel: the JAX package runs these
-steps as XLA GEMMs (``mmla_audio_tpu/ops/denoise.py``).  The source, with
-its design and cost notes, is ``mmla_audio_torch/csrc/denoise.cu``, built
-with nvcc for ``sm_90a`` at first use and bound with ctypes.
+matrices: a block streams a strip of one window's frames once, at one tile
+of bins, and ``smooth_plan`` picks the strip and the tile from the shape
+(each output's sequence of operations depends on neither, so neither
+changes a bit of it).  Neither replaces a Pallas kernel: the JAX package
+runs these steps as XLA GEMMs (``mmla_audio_tpu/ops/denoise.py``).  The
+source, with its design and cost notes, is
+``mmla_audio_torch/csrc/denoise.cu``, built with nvcc for ``sm_90a`` at
+first use and bound with ctypes.
 
 These functions check shapes and launch; they count nothing.  The wrappers
 that dispatch on the device and count launches are ``ops.denoise.stft_ri``
@@ -19,18 +23,50 @@ and ``ops.denoise.istft_frames`` (D1) and ``ops.denoise.smooth_mask`` (D2).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from mmla_audio_torch._build import cuda_library
 
-__all__ = ["FFT_N", "SMOOTH_TILE_T", "launch_stft_rfft",
-           "launch_istft_irfft", "launch_smooth_mask"]
+__all__ = ["FFT_N", "SMOOTH_BINS_PER_THREAD", "SMOOTH_MAX_TILE",
+           "smooth_plan", "launch_stft_rfft", "launch_istft_irfft",
+           "launch_smooth_mask"]
 
 # the one n_fft D1 is built for (DenoiseConfig's)
 FFT_N = 1024
-# frames of one window a D2 block smooths: with the 6 halo frames of the
-# 7-tap time band, 2 x 22 x 513 floats of shared memory (90 KB)
-SMOOTH_TILE_T = 16
+# D2's streaming instance (the (33, 7) taps of DenoiseConfig at 16 kHz;
+# other odd tap counts take the generic kernel, which has no grid to plan):
+# bins a thread, bins a block at most (a multiple of the former), the
+# longest and shortest strip of frames a block streams, and the blocks per
+# SM the plan aims for before it shortens the strip
+SMOOTH_BINS_PER_THREAD = 6
+SMOOTH_MAX_TILE = 768
+SMOOTH_STRIPS = (64, 4)
+SMOOTH_BLOCKS_PER_SM = 4
+
+
+def smooth_plan(groups: int, frames: int, bins: int,
+                sms: int = 132) -> tuple[int, int]:
+    """D2's ``(strip, tile)`` for a ``(groups, frames, bins)`` mask on a card
+    of ``sms`` SMs: frames and bins a block.  The tile is all the bins (in
+    pieces of at most ``SMOOTH_MAX_TILE``); the strip halves from 64 frames
+    down to 4 until the grid holds ``SMOOTH_BLOCKS_PER_SM`` blocks an SM.
+    A strip recomputes the frequency pass of its ``len(v_t) - 1`` halo
+    frames, so it stays long where the grid is full anyway."""
+    r = SMOOTH_BINS_PER_THREAD
+    pieces = -(-bins // SMOOTH_MAX_TILE)
+    tile = -(-(-(-bins // pieces)) // r) * r
+    strip, shortest = SMOOTH_STRIPS
+    while strip > shortest and groups * -(-frames // strip) * pieces \
+            < SMOOTH_BLOCKS_PER_SM * sms:
+        strip //= 2
+    return strip, tile
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _err(name: str, err: int) -> None:
@@ -107,7 +143,8 @@ def launch_smooth_mask(mask: torch.Tensor, v_f: torch.Tensor,
                        v_t: torch.Tensor) -> torch.Tensor:
     """``mask (G, T, K)`` contiguous float32 on the card, taps ``v_f``
     (odd length) and ``v_t`` (odd length) float32 on the same device ->
-    the smoothed ``(G, T, K)``."""
+    the smoothed ``(G, T, K)``.  Taps of 33 and 7 stream on
+    ``smooth_plan``'s grid; any other odd pair runs the generic kernel."""
     if mask.ndim != 3 or not mask.is_contiguous() \
             or mask.dtype != torch.float32:
         raise ValueError(f"smooth_mask: a contiguous float32 (G, T, K) mask "
@@ -115,8 +152,9 @@ def launch_smooth_mask(mask: torch.Tensor, v_f: torch.Tensor,
     G, T, K = mask.shape
     out = torch.empty_like(mask)
     if mask.numel():
+        strip, tile = smooth_plan(G, T, K, _sm_count(mask.get_device()))
         _launch("smooth_mask", mask,
                 cuda_library("denoise").smooth_mask_launch, mask.data_ptr(),
                 out.data_ptr(), G, T, K, v_f.data_ptr(), len(v_f),
-                v_t.data_ptr(), len(v_t), SMOOTH_TILE_T)
+                v_t.data_ptr(), len(v_t), strip, tile)
     return out

@@ -15,8 +15,8 @@ A window has at most 85 frames, so the single-window collector is a Python
 loop on the host; only the compaction of the kept frames touches the
 window's device.  The batched form (``vad_collect_rows``, ``vad_trim_batch``)
 keeps the whole chain on the device: for CUDA tensors its keep masks come
-from W2, the kernel of ``csrc/webrtc_vad.cu`` (one thread a row), and for
-CPU tensors from ``collect_mask`` once per row.
+from W2, the kernel of ``csrc/webrtc_vad.cu`` (one warp a row over 32-frame
+bitmasks), and for CPU tensors from ``collect_mask`` once per row.
 """
 
 from __future__ import annotations
@@ -149,12 +149,14 @@ def vad_collect_rows(decisions: torch.Tensor, n_valid: torch.Tensor,
 
     _check_rows(decisions, n_valid)
     B, T = decisions.shape
-    dec = decisions.to(torch.uint8).contiguous()
+    # a bool tensor is 0/1 bytes: its uint8 view needs no kernel of its own
+    dec = (decisions.view(torch.uint8) if decisions.dtype == torch.bool
+           else decisions).contiguous()
     nv = n_valid.to(torch.int32).contiguous()
     keep = torch.empty((B, T), dtype=torch.uint8, device=dec.device)
     kept = torch.empty((B,), dtype=torch.int32, device=dec.device)
     if B == 0:
-        return keep.bool(), kept
+        return keep.view(torch.bool), kept
     launch = cuda_library("webrtc_vad").vad_collect_launch
     with torch.cuda.device(dec.device):
         stream = torch.cuda.current_stream(dec.device).cuda_stream
@@ -164,7 +166,8 @@ def vad_collect_rows(decisions: torch.Tensor, n_valid: torch.Tensor,
         raise RuntimeError(f"vad_collect kernel launch failed (cudaError "
                            f"{err})")
     vad_collect_rows.launches += 1
-    return keep.bool(), kept
+    # W2 writes 0 or 1 a byte: the bool view is the same bits
+    return keep.view(torch.bool), kept
 
 
 vad_collect_rows.launches = 0

@@ -341,23 +341,66 @@ def test_webrtc_rows_kernel_refuses_shared_rows(device):
                         torch.tensor([0, 1], device=device))
 
 
-def test_collect_rows_kernel_matches_plain(device):
-    """W2 against collect_mask per row, bool and uint8 decisions."""
+@pytest.mark.parametrize("frames", [1, 31, 32, 33, 85, 1000])
+def test_collect_rows_kernel_matches_plain(device, frames):
+    """W2 against collect_mask per row, bool and uint8 decisions, at n_valid
+    negative, 0, 1, T, past T and random, B up to 4,096 (the largest batch
+    at T = 85, a live window's frames), rings of 10 (the warp kernel) and
+    40 frames (the thread-a-row kernel)."""
     from mmla_audio_torch.vad.collector import (vad_collect_rows,
                                                 vad_collect_rows_plain)
 
-    rng = np.random.RandomState(0)
-    dec = torch.from_numpy(rng.rand(96, 85) < rng.uniform(0.1, 0.95, (96, 1)))
-    n_valid = torch.from_numpy(rng.randint(0, 86, 96).astype(np.int32))
-    ref_keep, ref_kept = vad_collect_rows_plain(dec, n_valid)
-    for d in (dec, dec.to(torch.uint8)):
-        before = vad_collect_rows.launches
-        keep, kept = vad_collect_rows(d.to(device), n_valid.to(device))
+    rng = np.random.RandomState(frames)
+    for batch in (1, 7, 96, 4096 if frames == 85 else 512):
+        dec = torch.from_numpy(rng.rand(batch, frames)
+                               < rng.uniform(0.1, 0.97, (batch, 1)))
+        dec[::5] = torch.arange(frames) % 2 == 0
+        cases = np.stack([np.full(batch, -3), np.zeros(batch, int),
+                          np.ones(batch, int), np.full(batch, frames),
+                          np.full(batch, frames + 4),
+                          rng.randint(0, frames + 1, batch)])
+        n_valid = torch.from_numpy(
+            cases[np.arange(batch) % 6, np.arange(batch)].astype(np.int32))
+        for ring in (10, 40):
+            ref_keep, ref_kept = vad_collect_rows_plain(dec, n_valid, ring)
+            for d in (dec, dec.to(torch.uint8)):
+                before = vad_collect_rows.launches
+                keep, kept = vad_collect_rows(d.to(device),
+                                              n_valid.to(device), ring)
+                torch.cuda.synchronize()
+                assert vad_collect_rows.launches == before + 1
+                assert torch.equal(keep.cpu(), ref_keep)
+                assert torch.equal(kept.cpu(), ref_kept)
+            if ring == 10 and batch >= 96 and frames >= 31:
+                assert ref_keep.any() and not ref_keep.all()
+
+
+def test_collect_rows_one_launch_bool_view(device):
+    """One ``vad_collect_rows`` call is one launch and runs one kernel on
+    the card, W2's: the keep mask is the kernel's own uint8 output viewed
+    as bool (its storage is the B x T bytes W2 wrote), with no conversion
+    kernel for bool decisions or for the result."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmla_audio_torch.vad.collector import vad_collect_rows
+
+    dec = torch.from_numpy(np.random.RandomState(3).rand(64, 85) < 0.8)
+    n_valid = torch.full((64,), 85, dtype=torch.int32, device=device)
+    for d in (dec.to(device), dec.to(device, torch.uint8)):
         torch.cuda.synchronize()
+        before = vad_collect_rows.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            keep, kept = vad_collect_rows(d, n_valid)
+            torch.cuda.synchronize()
         assert vad_collect_rows.launches == before + 1
-        assert torch.equal(keep.cpu(), ref_keep)
-        assert torch.equal(kept.cpu(), ref_kept)
-    assert ref_keep.any() and not ref_keep.all()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation]
+        assert len(kernels) == 1 and "vad_collect" in kernels[0], kernels
+        assert keep.dtype == torch.bool and keep.shape == (64, 85)
+        assert keep.untyped_storage().nbytes() == 64 * 85
+        assert set(keep.view(torch.uint8).unique().tolist()) <= {0, 1}
+        assert kept.dtype == torch.int32 and bool(keep.any())
 
 
 def test_vad_trim_batch_card_matches_cpu(device):
@@ -547,7 +590,7 @@ def test_d1_fft_matches_plain(device, batch):
             1e-7 * float(ref.abs().max())
 
 
-@pytest.mark.parametrize("frames", [1, 15, 183, 1000])
+@pytest.mark.parametrize("frames", [1, 6, 7, 15, 64, 65, 183, 1000])
 def test_smooth_mask_matches_dense(device, frames):
     from mmla_audio_torch.core.config import DenoiseConfig
     from mmla_audio_torch.ops import denoise as dn
@@ -559,6 +602,45 @@ def test_smooth_mask_matches_dense(device, frames):
     assert dn.smooth_mask.launches == before + 1
     ref = dn.smooth_mask_plain(mask, DenoiseConfig(), 16000)
     assert float((got - ref).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("frames", [1, 65, 183])
+def test_smooth_mask_other_taps_match_dense(device, frames):
+    """Odd tap counts other than (33, 7) (here (19, 13)) take the generic
+    kernel: one launch, within 1e-6 of the dense pair."""
+    from mmla_audio_torch.core.config import DenoiseConfig
+    from mmla_audio_torch.ops import denoise as dn
+
+    cfg = DenoiseConfig(freq_mask_smooth_hz=300.0, time_mask_smooth_ms=100.0)
+    assert tuple(map(len, dn._smoothing_taps(cfg, 16000, device))) == (19, 13)
+    mask = torch.from_numpy(np.random.RandomState(frames).rand(
+        3, frames, 513).astype(np.float32)).to(device)
+    before = dn.smooth_mask.launches
+    got = dn.smooth_mask(mask, cfg, 16000)
+    assert dn.smooth_mask.launches == before + 1
+    ref = dn.smooth_mask_plain(mask, cfg, 16000)
+    assert float((got - ref).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("groups", [1, 3, 64, 512])
+def test_smooth_mask_batch_equals_alone(device, groups):
+    """D2 of a batch equals each window smoothed alone bit for bit, at T =
+    183 (a live window, no multiple of any strip), though the plan picks
+    other strips and tiles for the batch and for one window."""
+    from mmla_audio_torch.core.config import DenoiseConfig
+    from mmla_audio_torch.ops import denoise as dn
+    from mmla_audio_torch.ops.cuda_denoise import smooth_plan
+
+    mask = torch.from_numpy(np.random.RandomState(groups).rand(
+        groups, 183, 513).astype(np.float32)).to(device)
+    got = dn.smooth_mask(mask, DenoiseConfig(), 16000)
+    picks = sorted({0, groups // 2, groups - 1})
+    for g in picks:
+        alone = dn.smooth_mask(mask[g:g + 1], DenoiseConfig(), 16000)
+        assert torch.equal(alone[0].view(torch.int32),
+                           got[g].view(torch.int32))
+    if groups >= 64:
+        assert smooth_plan(groups, 183, 513) != smooth_plan(1, 183, 513)
 
 
 def test_card_denoise_never_reaches_the_plain_versions(device, monkeypatch):

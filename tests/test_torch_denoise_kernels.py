@@ -6,8 +6,9 @@ pass by pass at 1, 3 and 4 passes; a batch equal to each window alone;
 and numpy models of the kernels' algorithms (D1's strided, windowed frame
 rows through its FFT plan: the float64 twiddle table the wrapper hands the
 kernel, three radix-8 Stockham stages and the real split, in float64 with
-each output rounded once to float32; D2's banded passes over ascending
-taps with the halo tiles of ``SMOOTH_TILE_T`` frames) against numpy's
+each output rounded once to float32; D2's streaming passes, strip by
+strip and bin tile by bin tile with their halos, through a register ring
+of time-band rows, each output over ascending taps) against numpy's
 float64 FFT and the plain versions.
 
 Tolerances: the port vs JAX within 1 int16 step on <= 0.5 % of samples
@@ -15,7 +16,8 @@ Tolerances: the port vs JAX within 1 int16 step on <= 0.5 % of samples
 ``tests/test_torch_denoise.py``); D1's model within 1e-7 of max |ref| of
 numpy's float64 FFT (one rounding to float32 is at most 2^-24 of it) and
 within 1e-5 of the plain float32 products (whose sums err near 1e-6 of the
-max); D2's float64 model within 1e-6 (mask values in [0, 1]).
+max); D2's model within 1e-6 of the dense pair (mask values in [0, 1]),
+and bit for bit equal under every grid it is given.
 """
 
 import jax.numpy as jnp
@@ -27,7 +29,8 @@ import torch.nn.functional as F
 from mmla_audio_tpu.ops import denoise as jax_denoise
 from mmla_audio_torch.core.config import DenoiseConfig
 from mmla_audio_torch.ops import denoise
-from mmla_audio_torch.ops.cuda_denoise import SMOOTH_TILE_T
+from mmla_audio_torch.ops.cuda_denoise import (SMOOTH_BINS_PER_THREAD,
+                                               SMOOTH_MAX_TILE, smooth_plan)
 from mmla_audio_torch.ops.spectral import frame_signal, pad_last
 from tests.conftest import synth_speech_i16
 
@@ -299,31 +302,103 @@ def test_d1_refuses_other_fft_sizes():
     assert re.shape == im.shape == (24, 257)
 
 
-@pytest.mark.parametrize("frames", [1, 7, 183])
-def test_d2_banded_passes_model(frames):
-    """D2 as the kernel computes it: per tile of ``SMOOTH_TILE_T`` frames
-    and ``len(v_t) - 1`` halo frames (zero outside the window), the
-    frequency band then the time band, each over ascending taps."""
-    mask = np.random.RandomState(frames).rand(2, frames, 513).astype(
+def _fma(a, b, c):
+    """fmaf(a, b, c) on float32 operands: the product is exact in float64,
+    then one sum rounded to float64 and to float32."""
+    return (np.float64(a) * b.astype(np.float64) + c).astype(np.float32)
+
+
+def _d2_stream_model(mask, v_f, v_t, strip, tile):
+    """``smooth_mask_stream_kernel`` on ``(G, T, K)`` float32: block (strip
+    of frames, tile of bins) at a time, input rows t0 - ct ... t0 + n_out +
+    ct - 1 staged with a halo of cf bins a side (zeros outside [0, K)), the
+    frequency pass of each row into slot i % nt of the threads' register
+    rings (6 bins a thread, side by side), the time pass once the ring is
+    full; each output over ascending taps."""
+    G, T, K = mask.shape
+    nf, nt = len(v_f), len(v_t)
+    cf, ct, r = nf // 2, nt // 2, SMOOTH_BINS_PER_THREAD
+    width = tile + 2 * cf
+    out = np.full(mask.shape, np.nan, np.float32)
+    for g in range(G):
+        for t0 in range(0, T, strip):
+            n_out = min(strip, T - t0)
+            for k0 in range(0, K, tile):
+                n_tile = min(tile, K - k0)
+                bins = -(-n_tile // r) * r          # the active threads'
+                lo, hi = max(k0 - cf, 0), min(k0 + tile + cf, K)
+                ring = np.zeros((nt, bins), np.float32)
+                for i in range(n_out + 2 * ct):
+                    t = t0 - ct + i
+                    ring[i % nt] = 0
+                    if 0 <= t < T:
+                        stage = np.zeros(width, np.float32)
+                        stage[lo - k0 + cf: hi - k0 + cf] = mask[g, t, lo:hi]
+                        s = np.zeros(bins, np.float32)
+                        for d in range(nf):       # bin j + cf - d
+                            s = _fma(v_f[d], stage[2 * cf - d:
+                                                   2 * cf - d + bins], s)
+                        ring[i % nt] = s
+                    if i >= 2 * ct:
+                        s = np.zeros(bins, np.float32)
+                        for d in range(nt):       # row i - d
+                            s = _fma(v_t[d], ring[(i - d) % nt], s)
+                        out[g, t - ct, k0: k0 + n_tile] = s[:n_tile]
+    return out
+
+
+OTHER_SMOOTHING = DenoiseConfig(freq_mask_smooth_hz=300.0,
+                                time_mask_smooth_ms=100.0)
+
+
+@pytest.mark.parametrize("frames,cfg", [
+    (1, CFG), (6, CFG), (7, CFG), (64, CFG), (65, CFG), (183, CFG),
+    (1000, CFG), (183, OTHER_SMOOTHING)])
+def test_d2_banded_passes_model(frames, cfg):
+    """D2 as the kernel computes it, 3 windows a mask, under the plan of
+    the batch, the plans of each window alone, one strip of 64 frames over
+    whole rows and strips of 8 over three bin tiles of 192 with their
+    halos: the same bits under every grid (each output's
+    sequence of operations depends on the taps alone), within 1e-6 of the
+    dense pair.  ``OTHER_SMOOTHING`` has (19, 13) taps, which the card runs
+    through the generic kernel in the same order."""
+    mask = np.random.RandomState(frames).rand(3, frames, 513).astype(
         np.float32)
-    v_f, v_t = (v.numpy().astype(np.float64) for v in
-                denoise._smoothing_taps(CFG, 16000, torch.device("cpu")))
-    cf, ct = len(v_f) // 2, len(v_t) // 2
-    out = np.zeros(mask.shape)
-    for g in range(2):
-        for t0 in range(0, frames, SMOOTH_TILE_T):
-            rows = SMOOTH_TILE_T + 2 * ct
-            tile = np.zeros((rows, 513))
-            for r in range(rows):
-                if 0 <= t0 - ct + r < frames:
-                    tile[r] = mask[g, t0 - ct + r]
-            padded = np.pad(tile, ((0, 0), (cf, cf)))
-            fr = np.zeros_like(tile)
-            for d in range(len(v_f)):
-                # x[j + cf - d] sits at padded column j + 2 cf - d
-                fr += v_f[d] * padded[:, 2 * cf - d: 2 * cf - d + 513]
-            for r in range(min(SMOOTH_TILE_T, frames - t0)):
-                out[g, t0 + r] = sum(v_t[d] * fr[r + 2 * ct - d]
-                                     for d in range(len(v_t)))
-    ref = denoise.smooth_mask_plain(torch.from_numpy(mask), CFG, 16000)
+    v_f, v_t = (v.numpy() for v in
+                denoise._smoothing_taps(cfg, 16000, torch.device("cpu")))
+    if cfg is OTHER_SMOOTHING:
+        assert (len(v_f), len(v_t)) == (19, 13)
+    out = _d2_stream_model(mask, v_f, v_t, *smooth_plan(3, frames, 513))
+    assert not np.isnan(out).any()
+    alone = np.concatenate([
+        _d2_stream_model(mask[g:g + 1], v_f, v_t,
+                         *smooth_plan(1, frames, 513)) for g in range(3)])
+    whole = _d2_stream_model(mask, v_f, v_t, 64, 516)
+    split = _d2_stream_model(mask, v_f, v_t, 8, 192)   # 3 bin tiles
+    assert np.array_equal(out, alone) and np.array_equal(out, whole)
+    assert np.array_equal(out, split)
+    ref = denoise.smooth_mask_plain(torch.from_numpy(mask), cfg, 16000)
     assert np.abs(out - ref.numpy()).max() <= 1e-6
+
+
+@pytest.mark.parametrize("groups,frames,bins", [
+    (1, 183, 513), (8, 183, 513), (64, 183, 513), (512, 183, 513),
+    (1, 45023, 513), (3, 1, 513), (1, 183, 2049), (2, 50, 7)])
+def test_d2_plan(groups, frames, bins):
+    """``smooth_plan``: tiles of whole threads' bins within the block's
+    limit that cover every bin, strips of 4 to 64 frames, and a grid that
+    fills the SMs wherever the mask allows (the single live window runs on
+    46 blocks, not the 3 of a 64-frame strip)."""
+    strip, tile = smooth_plan(groups, frames, bins)
+    assert tile % SMOOTH_BINS_PER_THREAD == 0 and tile <= SMOOTH_MAX_TILE
+    assert -(-bins // tile) * tile >= bins and strip in (4, 8, 16, 32, 64)
+    tiles = -(-bins // tile)
+    assert tiles == -(-bins // SMOOTH_MAX_TILE)
+    blocks = groups * -(-frames // strip) * tiles
+    if groups * frames >= 528 * 64:
+        assert strip == 64
+    elif (groups, frames, bins) == (1, 183, 513):
+        assert (strip, tile, blocks) == (4, 516, 46)
+    assert blocks >= min(528, groups * -(-frames // 4) * tiles)
+    if strip < 64:      # a strip twice as long would not fill the card
+        assert groups * -(-frames // (2 * strip)) * tiles < 528

@@ -5,7 +5,11 @@ package: decisions and every state slot bit for bit against the JAX engine
 gathered and scattered by index as the JAX multiplexer does, and against
 the transcription golden.  On the CPU the wrappers run their plain versions
 (the native host engine per row, ``collect_mask`` per row); the kernels W1
-and W2 are held against those on the card (``tests/test_torch_cuda.py``)."""
+and W2 are held against those on the card (``tests/test_torch_cuda.py``).
+A Python model of W2's warp kernel (32-frame ballot words, the ring's count
+as a popcount of the last two words, the trigger machine, the keep bitmask
+written a word at a time) is held equal to ``collect_mask``, and the plain
+version to the independent golden ``tests/golden/vad_ref.py``."""
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +24,7 @@ from mmla_audio_torch import _build
 from mmla_audio_torch.vad import collector, webrtc
 from mmla_audio_torch.vad.native import NativeWebRtcVad
 from tests.conftest import synth_speech_i16
+from tests.golden.vad_ref import vad_collector_indices
 from tests.golden.webrtc_vad_ref import WebRtcVadRef
 
 torch.set_num_threads(1)
@@ -221,3 +226,129 @@ def test_vad_trim_batch_matches_jax_per_row(n):
             jnp.asarray(buf[b]), jnp.asarray(counts[b]), jnp.asarray(dec[b]))
         assert int(got_n[b]) == int(ref_n)
         np.testing.assert_array_equal(got[b].numpy(), np.asarray(ref))
+
+
+def _w2_warp_model(row, n_valid: int, ring: int = 10) -> np.ndarray:
+    """``vad_collect_warp_kernel`` on one row of decisions (a ring of 1 ...
+    32 frames): word w is the ballot of frames 32 w ... 32 w + 31 that are
+    voiced and exist; bits 0-31 of ``dbits``/``kbits`` hold word w - 1 and
+    bits 32-63 word w; the ring's voiced count is the popcount of the two
+    words masked to frames [max(start, i - ring + 1), i]; a trigger sets
+    the ring's keep bits at once; a word's keep bits are final once the
+    machine has left it.  Returns keep ``(T,)`` bool."""
+    T = len(row)
+    nv = min(max(int(n_valid), 0), T)
+    keep = np.zeros(T, bool)
+    dbits = kbits = 0
+    triggered, start = False, 0
+    thresh = 0.9 * ring
+
+    def flush(word: int, bits: int) -> None:
+        for lane in range(32):
+            if 32 * word + lane < T:
+                keep[32 * word + lane] = bool(bits >> lane & 1)
+
+    words = -(-T // 32)
+    for w in range(words):
+        base = 32 * w
+        ballot = sum(1 << lane for lane in range(32)
+                     if base + lane < nv and row[base + lane])
+        dbits |= ballot << 32
+        for i in range(base, min(base + 32, nv)):
+            p = i - base + 32
+            q = max(start, i - ring + 1) - base + 32
+            assert 1 <= q <= p <= 63
+            win = ((1 << (p + 1)) - 1) & ~((1 << q) - 1)
+            voiced = bin(dbits & win).count("1")
+            if not triggered:
+                if voiced > thresh:
+                    triggered, start = True, i + 1
+                    kbits |= win
+            else:
+                kbits |= 1 << p
+                if (p - q + 1 - voiced) > thresh:
+                    triggered, start = False, i + 1
+        if w > 0:
+            flush(w - 1, kbits & 0xFFFFFFFF)
+        dbits >>= 32
+        kbits >>= 32
+    if words:
+        flush(words - 1, kbits & 0xFFFFFFFF)
+    return keep
+
+
+def _collect_ref(row, n_valid: int, ring: int = 10) -> np.ndarray:
+    T = len(row)
+    return collector.collect_mask(torch.from_numpy(np.asarray(row, bool)),
+                                  torch.arange(T) < int(n_valid),
+                                  ring).numpy()
+
+
+def _valid_cases(T: int) -> tuple:
+    """n_valid: negative, 0, 1, T and past T."""
+    return (-3, 0, 1, T, T + 7)
+
+
+@pytest.mark.parametrize("frames", [1, 31, 32, 33, 85, 1000])
+def test_w2_warp_model_matches_collect_mask(frames):
+    """The warp kernel's bitmask algorithm equals ``collect_mask`` at every
+    n_valid case, on random rows of several densities, runs, alternation,
+    all voiced and none, at rings of 1, 10 and 32 frames."""
+    rng = np.random.RandomState(frames)
+    runs = np.repeat(rng.rand(200) < 0.6, rng.randint(1, 25, 200))
+    rows = [rng.rand(frames) < p for p in (0.2, 0.5, 0.8, 0.95)] + [
+        np.resize(runs, frames), np.arange(frames) % 2 == 0,
+        np.ones(frames, bool), np.zeros(frames, bool)]
+    kept = 0
+    for row in rows:
+        for nv in _valid_cases(frames) + (int(rng.randint(0, frames + 1)),):
+            for ring in (1, 10, 32):
+                got = _w2_warp_model(row, nv, ring)
+                np.testing.assert_array_equal(got, _collect_ref(row, nv,
+                                                                ring))
+                kept += int(got.sum())
+    assert kept > 0
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_w2_warp_model_random_patterns(seed):
+    """The IID patterns of ``tests/test_exactness_extra.py``'s
+    ``test_collect_mask_pure_random_patterns``, through the warp kernel's
+    model, against ``collect_mask`` and the golden."""
+    rng = np.random.RandomState(100 + seed)
+    T = rng.randint(10, 200)
+    is_speech = rng.rand(T) < rng.choice([0.2, 0.5, 0.8, 0.95])
+    expect = np.zeros(T, bool)
+    expect[vad_collector_indices(list(is_speech))] = True
+    np.testing.assert_array_equal(_w2_warp_model(is_speech, T), expect)
+    np.testing.assert_array_equal(_collect_ref(is_speech, T), expect)
+
+
+def test_w2_warp_model_alternating_edge():
+    pattern = np.array([True, False] * 40)
+    expect = np.zeros(80, bool)
+    expect[vad_collector_indices(list(pattern))] = True
+    np.testing.assert_array_equal(_w2_warp_model(pattern, 80), expect)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_collect_rows_plain_matches_golden(seed):
+    """``vad_collect_rows_plain`` against the independent transcription of
+    the reference's collector (``tests/golden/vad_ref.py``): the random
+    patterns of ``tests/test_exactness_extra.py`` and the alternating edge,
+    each row cut at its n_valid (the golden sees only the frames that
+    exist)."""
+    rng = np.random.RandomState(200 + seed)
+    T = int(rng.randint(10, 200))
+    rows = [rng.rand(T) < p for p in (0.2, 0.5, 0.8, 0.95)] + [
+        np.arange(T) % 2 == 0]
+    n_valid = [T, int(rng.randint(0, T + 1)), 0, T + 3, -1]
+    keep, kept = collector.vad_collect_rows_plain(
+        torch.from_numpy(np.stack(rows)),
+        torch.tensor(n_valid, dtype=torch.int32))
+    for b, (row, nv) in enumerate(zip(rows, n_valid)):
+        expect = np.zeros(T, bool)
+        expect[vad_collector_indices(list(row[:max(nv, 0)]))] = True
+        np.testing.assert_array_equal(keep[b].numpy(), expect)
+        assert int(kept[b]) == int(expect.sum())
+    assert int(kept.sum()) > 0
