@@ -139,13 +139,34 @@ per source, all at once), then:
    8 windows, then 512 ``PrefilledCapture`` streams x 4 windows: windows/s,
    ms a window, realtime-stream equivalents, the phase times a window, the
    kernels' launches, every window logged once and in order; one warm tick
-   at bucket 64 under ``torch.profiler`` (device busy, idle share,
-   launches, D1's and D2's kernels by name), then D1's two kernels and D2
+   at bucket 64 traced by the port's ``utils.timers.device_trace`` (device
+   busy, idle share, launches, D1's and D2's kernels by name; the Chrome
+   trace it writes must name W1's kernel), then D1's two kernels and D2
    at the tick's shape timed by CUDA events, on the card alone and by the
-   profiler over the same calls; churn: 16 streams, 8 retired with
-   ``archive=False`` and 8 added on recycled rows that start fresh and end
-   equal to a fresh multiplexer's.  The multiplexer's runs are the fourth main path whose
-   launches are counted (W1, W2, the featurizer, the fused block, D1, D2);
+   profiler over the same calls; the log appends (``resolve_log`` a
+   window) with the handle LRU and with a copy of the earlier
+   open-per-write log, in turns, at 64 prefilled streams x 8 windows and
+   512 x 4, the descriptors an LRU run leaves open within the cap of 128;
+   churn: 16 streams, 8 retired with ``archive=False`` (their log handles
+   closed, the open descriptors within the baseline + 128) and 8 added on
+   recycled rows that start fresh and end equal to a fresh multiplexer's.
+   The multiplexer's runs are the fourth main path whose launches are
+   counted (W1, W2, the featurizer, the fused block, D1, D2);
+10b. the mesh (``Multiplexer(mesh=)``): 64 prefilled streams x 4 windows
+   at bucket 64 and full width through ``mesh=None``, ``make_mesh()`` (one
+   card) and a mesh listing the card twice (each batch split in two), in
+   turns: labels and the stacked webrtcvad rows equal across all three,
+   the one-card mesh the same launches as ``mesh=None``, the split mesh
+   exactly twice each kernel's, windows/s of each (its launches join the
+   counted main path's);
+10c. distributed: ``parallel.distributed.initialize`` with NCCL at world
+   size 1 (``process_info() == (0, 1)``), ``Trainer.fit(mesh=
+   global_mesh())`` for one epoch at the full width of
+   ``SpeakerModelConfig()`` (3-way head, batch 8, SGD) against
+   ``mesh=None`` from the same weights, history and every parameter and
+   statistic within rtol 1e-4 / atol 1e-5 (the CPU test's), each step
+   timed by CUDA events with and without the mesh; the group destroyed
+   after;
 11. edge, export and weights: ``EdgeOverlapSession.run`` over 8 windows
    (3 noise-only, where the SSIM gate fires) on the card and the CPU,
    labels equal where the CPU's top-2 margin is above 1e-3 and its SSIM
@@ -244,6 +265,25 @@ MUX_LABEL_STREAMS, MUX_SPEAKER_STREAMS, MUX_LABEL_WINDOWS = 8, 4, 4
 MUX_THREADED, MUX_THREADED_WINDOWS = 64, 8
 MUX_PREFILLED, MUX_PREFILLED_WINDOWS = 512, 4
 MUX_CHURN = 16
+# phase 10's log appends: resolve_log a window at 64 streams (which fit in
+# the handle LRU) and 512 (which cycle through it), the handle LRU against
+# a log that opens its file on every write, in turns; open descriptors at
+# most the LRU's cap over the baseline, plus FD_SLACK
+LOG_CASES = ((64, 8), (512, 4))
+LOG_TURNS = ("lru", "open per write", "open per write", "lru")
+MAX_OPEN_HANDLES, FD_SLACK = 128, 16
+# phase 10b, the mesh: MESH_STREAMS x MESH_WINDOWS through mesh=None, a
+# one-card mesh and a mesh listing the card twice, at bucket MESH_BUCKET,
+# in turns
+MESH_STREAMS, MESH_WINDOWS, MESH_BUCKET = 64, 4, 64
+MESH_TURNS = ("mesh=None", "make_mesh()", "card twice", "card twice",
+              "make_mesh()", "mesh=None")
+# phase 10c, distributed: Trainer.fit at world size 1 (NCCL) against
+# mesh=None, one epoch of DIST_ROWS seeded rows at the registration's
+# phase-2 batch with a DIST_SPEAKERS-way head, SGD at DIST_LR (no
+# preconditioner to amplify rounding), held at the CPU test's rtol/atol
+DIST_ROWS, DIST_BATCH, DIST_SPEAKERS, DIST_LR = 64, 8, 3, 1e-3
+DIST_RTOL, DIST_ATOL = 1e-4, 1e-5
 # phase 0: the denoise kernels at live windows (T = 183 frames) of these
 # batches and on the 12-minute file; D1 of max |ref| (fp32 sums of 1,024 or
 # 1,026 terms in two orders), D2 absolute (mask values in [0, 1], sums of
@@ -1769,13 +1809,16 @@ def phase_training(device, cfg, noise, tmp: Path) -> None:
         f"{no_launches('the training path')}")
 
 
-def profile_steps(run, steps: int) -> dict:
+def profile_steps(run, steps: int, trace_dir=None) -> dict:
     """Warm ``run`` (which does ``steps`` steps) up, time it on the host
     clock (synchronized), then trace it with ``torch.profiler``: the
     device's busy time a step (the union of its kernels' and copies'
     intervals, user annotations left out), the idle share (1 - busy /
     host time), the launches a step and the five kernels of most device
-    time.  ``busy_ms`` is None when the trace holds no device events."""
+    time.  ``busy_ms`` is None when the trace holds no device events.
+    With ``trace_dir`` the traced run goes through the port's
+    ``utils.timers.device_trace``, which also writes the Chrome trace
+    there."""
     from collections import Counter
 
     from torch.autograd import DeviceType
@@ -1787,8 +1830,14 @@ def profile_steps(run, steps: int) -> dict:
     run()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) / steps * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    if trace_dir is None:
+        tracer = profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA])
+    else:
+        from mmla_audio_torch.utils.timers import device_trace
+
+        tracer = device_trace(trace_dir)
+    with tracer as prof:
         run()
         torch.cuda.synchronize()
     spans, names, kinds, denoise = [], Counter(), Counter(), Counter()
@@ -1825,6 +1874,7 @@ DENOISE_KERNELS = ("stft_rfft_kernel", "istft_irfft_kernel", "smooth_mask")
 # names neither
 KERNEL_KINDS = (("denoise D1/D2", ("stft_rfft", "istft_irfft",
                                    "smooth_mask")),
+                ("NCCL", ("nccl",)),
                 ("convolution", ("conv", "fprop", "dgrad", "wgrad",
                                  "implicit")),
                 ("LSTM", ("lstm", "rnn", "LSTM", "RNN")),
@@ -2606,7 +2656,14 @@ def phase_mux_serving(device, pred, cfg, tmp: Path, total: dict) -> dict:
     def run():
         if mux.tick() != 0 or mux.flush() != 64:
             raise AssertionError("the profiled tick did not resolve 64")
-    prof = profile_steps(run, 1)
+    trace_dir = tmp / "tick_trace"
+    prof = profile_steps(run, 1, trace_dir)
+    traces = list(trace_dir.glob("trace-*.json"))
+    if len(traces) != 1 or "webrtc_vad_kernel" not in traces[0].read_text():
+        raise AssertionError(f"device_trace wrote {traces}, without W1's "
+                             f"kernel")
+    log(f"[mux] device_trace wrote {traces[0].name} "
+        f"({traces[0].stat().st_size} bytes), naming webrtc_vad_kernel")
     busy = "not measured (no device events in the trace)" \
         if prof["busy_ms"] is None else \
         (f"device busy {prof['busy_ms']:.3f} ms (idle share "
@@ -2666,6 +2723,92 @@ def denoise_profile_vs_events(device, cfg) -> None:
         f"three clocks on the same calls: " + "; ".join(parts))
 
 
+def open_fds() -> int:
+    """This process's open file descriptors."""
+    return len(list(Path("/proc/self/fd").iterdir()))
+
+
+class OpenPerWriteLog:
+    """The port's ``SessionLog`` row write as it was before the handle LRU:
+    the file opened and closed on every append (the same bytes).  Kept here
+    only to time it beside the LRU in one run."""
+
+    def __init__(self, log):
+        self.path, self.index = log.path, log.index
+        self.timestamps, self.header = log.timestamps, log.header
+        self._wrote_header = self.path.exists() and \
+            self.path.stat().st_size > 0
+
+    def append(self, label: str, timestamp=None) -> int:
+        ts = timestamp if timestamp is not None else datetime.today()
+        with open(self.path, "a") as f:
+            if not self._wrote_header:
+                f.write(self.header + "\n")
+                self._wrote_header = True
+            f.write(f"{self.index}\t{label}\t{ts}\n" if self.timestamps
+                    else f"{self.index}\t{label}\n")
+        self.index += 1
+        return self.index - 1
+
+    def close(self) -> None:
+        pass
+
+
+def phase_mux_logs(device, pred, cfg, tmp: Path, total: dict) -> dict:
+    """``resolve_log`` a window (the multiplexer's log appends) with the
+    handle LRU and with a log that opens its file on every write, in turns
+    (``LOG_TURNS``), at 64 prefilled streams x 8 windows (every handle
+    stays open) and 512 x 4 (round-robin gather cycles all 512 every 8
+    ticks through 128 handles: a miss on every append); the open
+    descriptors after an LRU run at most ``MAX_OPEN_HANDLES`` +
+    ``FD_SLACK`` over the baseline."""
+    from mmla_audio_torch.analyze import logs as logs_mod
+    from mmla_audio_torch.streaming.capture import PrefilledCapture
+    from mmla_audio_torch.streaming.multiplex import Multiplexer
+
+    if logs_mod._MAX_OPEN_HANDLES != MAX_OPEN_HANDLES:
+        raise AssertionError(f"the handle cap is "
+                             f"{logs_mod._MAX_OPEN_HANDLES}")
+    out = {}
+    for n_streams, windows in LOG_CASES:
+        convs = [vad_windows(windows, seed=800 + s).ravel()
+                 for s in range(64)]
+        per = {variant: [] for variant in LOG_TURNS}
+        peak = 0
+        for turn, variant in enumerate(LOG_TURNS):
+            fds = open_fds()
+            mux = Multiplexer(pred, tmp / f"logs_{n_streams}_{turn}",
+                              cfg=cfg, device=device)
+            for s in range(n_streams):
+                stream = mux.add_stream(f"l{s}", PrefilledCapture(
+                    convs[s % 64]), ambient(900 + s % 4))
+                if variant != "lru":
+                    stream.log = OpenPerWriteLog(stream.log)
+            got, _, launches = serve(mux, [])
+            add_launches(total, launches)
+            if got != n_streams * windows:
+                raise AssertionError(f"logs {n_streams}: {got} windows")
+            check_logs(mux, windows, f"logs {n_streams} {variant}")
+            per[variant].append(mux.phase_seconds["resolve_log"] / got * 1e3)
+            if variant == "lru":
+                peak = max(peak, open_fds() - fds)
+                if peak > MAX_OPEN_HANDLES + FD_SLACK:
+                    raise AssertionError(f"logs {n_streams}: {peak} "
+                                         f"descriptors opened")
+            for stream in mux.streams:
+                stream.log.close()
+        out[n_streams] = {k: statistics.mean(v) for k, v in per.items()}
+        log(f"[mux] resolve_log at {n_streams} streams x {windows} windows "
+            f"(ms a window, mean of {LOG_TURNS.count('lru')} runs each, in "
+            f"turns): handle LRU {out[n_streams]['lru']:.4f} "
+            f"({', '.join(f'{v:.4f}' for v in per['lru'])}), open per write "
+            f"{out[n_streams]['open per write']:.4f} "
+            f"({', '.join(f'{v:.4f}' for v in per['open per write'])}); "
+            f"descriptors opened by an LRU run at most {peak} (cap "
+            f"{MAX_OPEN_HANDLES})")
+    return out
+
+
 def phase_mux_churn(device, pred, cfg, tmp: Path, total: dict) -> None:
     """16 streams, 8 retired with ``archive=False`` and 8 added: the rows
     are recycled (the stacked state stays at 16 rows), a recycled row
@@ -2675,14 +2818,25 @@ def phase_mux_churn(device, pred, cfg, tmp: Path, total: dict) -> None:
     from mmla_audio_torch.streaming.multiplex import Multiplexer
     from mmla_audio_torch.vad.webrtc import webrtc_init
 
+    from mmla_audio_torch.analyze import logs as logs_mod
+
     fresh = webrtc_init(1, device)[0]
+    fds_start = open_fds()
     mux = Multiplexer(pred, tmp / "churn", cfg=cfg, device=device)
     first = vad_windows(MUX_CHURN, seed=600)
     for s in range(MUX_CHURN):
         mux.add_stream(f"c{s}", PrefilledCapture(first[s]), ambient(600))
     add_launches(total, serve(mux, [])[2])
-    for s in list(mux.streams[: MUX_CHURN // 2]):
+    fds = open_fds()
+    retired = list(mux.streams[: MUX_CHURN // 2])
+    for s in retired:
         mux.remove_stream(s, archive=False)
+    if open_fds() > fds or open_fds() > fds_start + MAX_OPEN_HANDLES \
+            + FD_SLACK or any(id(s.log) in logs_mod._OPEN_HANDLES
+                              for s in retired):
+        raise AssertionError(f"churn: {open_fds()} descriptors open after "
+                             f"remove_stream ({fds} before, {fds_start} at "
+                             f"the start), or a retired log still open")
     late = vad_windows(MUX_CHURN // 2, seed=700)
     added = [mux.add_stream(f"late{s}", PrefilledCapture(late[s]),
                             ambient(700)) for s in range(MUX_CHURN // 2)]
@@ -2711,7 +2865,9 @@ def phase_mux_churn(device, pred, cfg, tmp: Path, total: dict) -> None:
     log(f"[mux] churn: {MUX_CHURN} streams, {MUX_CHURN // 2} retired "
         f"(archive=False) and {MUX_CHURN // 2} added on recycled rows "
         f"(stacked state stays {MUX_CHURN} rows, nothing archived); "
-        f"recycled rows == a fresh multiplexer's bit for bit, labels equal")
+        f"recycled rows == a fresh multiplexer's bit for bit, labels "
+        f"equal; remove_stream closed the retired logs' handles "
+        f"({open_fds() - fds_start} descriptors over the phase's start)")
 
 
 def phase_multiplexer(device, cfg, state_dict, tmp: Path) -> dict:
@@ -2741,6 +2897,7 @@ def phase_multiplexer(device, cfg, state_dict, tmp: Path) -> dict:
     mux_vs_sessions(device, speaker, SpeakerSession, "speaker", cfg, tmp,
                     MUX_SPEAKER_STREAMS, total)
     phase_mux_serving(device, pred, cfg, tmp, total)
+    logs = phase_mux_logs(device, pred, cfg, tmp, total)
     phase_mux_churn(device, pred, cfg, tmp, total)
     if min(total.values()) <= 0:
         raise AssertionError(f"the multiplexer launched {total}")
@@ -2748,7 +2905,170 @@ def phase_multiplexer(device, cfg, state_dict, tmp: Path) -> dict:
         f"W2 {total['w2']}, B1 {total['b1']}, B3 {total['b3']}, D1 "
         f"{total['d1']}, D2 {total['d2']}; phase wall time "
         f"{time.perf_counter() - t_phase:.1f} s")
-    return dict(w1=w1, w2=w2, launches=total)
+    return dict(w1=w1, w2=w2, launches=total, logs=logs, pred=pred)
+
+
+# -- phase 10b: the mesh multiplexer; 10c: distributed training -------------
+
+def phase_mesh(device, pred, cfg, tmp: Path) -> dict:
+    """The overlap multiplexer at full width, ``MESH_STREAMS`` prefilled
+    streams x ``MESH_WINDOWS`` windows at bucket ``MESH_BUCKET``, through
+    ``mesh=None``, a one-card ``make_mesh()`` and a mesh that lists the
+    card twice (each batch split in two blocks), in turns: labels and the
+    stacked webrtcvad rows equal across all, the one-card mesh the unsplit
+    launches, the two-block mesh exactly twice them.  Returns the launches
+    of all the runs."""
+    from mmla_audio_torch.parallel import make_mesh
+    from mmla_audio_torch.streaming.capture import PrefilledCapture
+    from mmla_audio_torch.streaming.multiplex import Multiplexer
+
+    meshes = {"mesh=None": None, "make_mesh()": make_mesh(),
+              "card twice": make_mesh(devices=[device, device])}
+    convs = [vad_windows(MESH_WINDOWS, seed=1000 + s).ravel()
+             for s in range(MESH_STREAMS)]
+    total: dict = {}
+    runs = {name: [] for name in meshes}
+    for turn, name in enumerate(MESH_TURNS):
+        mux = Multiplexer(pred, tmp / f"mesh_{turn}", bucket=MESH_BUCKET,
+                          cfg=cfg, device=device, mesh=meshes[name])
+        streams = [mux.add_stream(f"m{s}", PrefilledCapture(convs[s]),
+                                  ambient(1100 + s % 4))
+                   for s in range(MESH_STREAMS)]
+        got, seconds, launches = serve(mux, [])
+        add_launches(total, launches)
+        if got != MESH_STREAMS * MESH_WINDOWS:
+            raise AssertionError(f"mesh {name}: {got} windows")
+        check_logs(mux, MESH_WINDOWS, f"mesh {name}")
+        runs[name].append(([[r[1] for r in s.results] for s in streams],
+                           mux._webrtc_states.cpu(), launches, got / seconds))
+        for s in streams:
+            s.log.close()
+    labels, rows, base, _ = runs["mesh=None"][0]
+    for name, results in runs.items():
+        for got_labels, got_rows, launches, _ in results:
+            want = {k: 2 * v for k, v in base.items()} \
+                if name == "card twice" else base
+            if got_labels != labels or not torch.equal(got_rows, rows) \
+                    or launches != want:
+                raise AssertionError(f"mesh {name}: labels, detector rows "
+                                     f"or launches {launches} differ from "
+                                     f"mesh=None's ({base})")
+    if min(base.values()) <= 0:
+        raise AssertionError(f"mesh: launches {base}")
+    log(f"[mesh] {MESH_STREAMS} streams x {MESH_WINDOWS} windows at bucket "
+        f"{MESH_BUCKET}, full width: labels and webrtcvad rows equal across "
+        f"mesh=None, make_mesh() and the card listed twice; windows/s "
+        + ", ".join(f"{name} {statistics.mean(r[3] for r in res):.1f} ("
+                    + ", ".join(f"{r[3]:.1f}" for r in res) + ")"
+                    for name, res in runs.items())
+        + "; launches of a run: " + "; ".join(
+            f"{name} " + ", ".join(f"{k.upper()} {v}"
+                                   for k, v in res[0][2].items())
+            for name, res in runs.items()))
+    return total
+
+
+def phase_distributed(device, cfg) -> None:
+    """``initialize`` with NCCL at world size 1, then ``Trainer.fit(mesh=
+    global_mesh())`` for one epoch at the full width of
+    ``SpeakerModelConfig()`` (a ``DIST_SPEAKERS``-way head, batch
+    ``DIST_BATCH``, SGD) against ``mesh=None`` from the same initial
+    weights: history and every parameter and statistic within DIST_RTOL /
+    DIST_ATOL; each step timed by CUDA events with and without the mesh."""
+    import socket
+
+    import torch.distributed as tdist
+
+    from mmla_audio_torch.models.layers import keras_init_
+    from mmla_audio_torch.models.speaker import SpeakerResBLSTM, l2_penalty
+    from mmla_audio_torch.parallel import distributed as dist
+    from mmla_audio_torch.train.losses import keras_categorical_crossentropy
+    from mmla_audio_torch.train.trainer import Trainer
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.initialize(f"127.0.0.1:{port}", 1, 0)
+    try:
+        if dist.process_info() != (0, 1) or tdist.get_backend() != "nccl":
+            raise AssertionError(f"distributed: {dist.process_info()}, "
+                                 f"{tdist.get_backend()}")
+        mesh = dist.global_mesh()
+        mcfg = cfg.speaker_model
+        init = keras_init_(SpeakerResBLSTM(mcfg, DIST_SPEAKERS),
+                           torch.Generator().manual_seed(41)).state_dict()
+        rng = np.random.RandomState(42)
+        labels = np.arange(DIST_ROWS) % DIST_SPEAKERS
+        x = rng.randn(DIST_ROWS, 256, 39).astype(np.float32)
+        for c in range(DIST_SPEAKERS):
+            x[labels == c, :, 10 * c:10 * (c + 1)] += 1.0
+        y = np.eye(DIST_SPEAKERS, dtype=np.float32)[labels]
+        runs = {}
+        train_step = Trainer.train_step
+        for name, m in (("mesh=None", None), ("global_mesh()", mesh)):
+            model = SpeakerResBLSTM(mcfg, DIST_SPEAKERS)
+            model.load_state_dict(init)
+            tr = Trainer(model, lambda p: torch.optim.SGD(p, lr=DIST_LR),
+                         keras_categorical_crossentropy,
+                         extra_penalty_fn=lambda mm: l2_penalty(mm, mcfg),
+                         device=device, seed=3)
+            steps = []
+
+            def timed_step(self, *args):
+                events = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)]
+                events[0].record()
+                out = train_step(self, *args)
+                events[1].record()
+                steps.append(events)
+                return out
+
+            Trainer.train_step = timed_step
+            try:
+                hist = tr.fit(x, y, epochs=1, batch_size=DIST_BATCH, mesh=m)
+            finally:
+                Trainer.train_step = train_step
+            torch.cuda.synchronize()
+            ms = [a.elapsed_time(b) for a, b in steps]
+            runs[name] = (hist, tr.variables_of(), ms, tr, m)
+        (h0, sd0, ms0, *_), (h1, sd1, ms1, *_) = runs.values()
+        worst = 0.0
+        for key in ("loss", "acc"):
+            np.testing.assert_allclose(h1[key], h0[key], rtol=DIST_RTOL,
+                                       atol=DIST_ATOL, err_msg=key)
+        for k in sd0:
+            a, b = sd1[k].double(), sd0[k].double()
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=DIST_RTOL,
+                                       atol=DIST_ATOL, err_msg=k)
+            worst = max(worst, float((a - b).abs().max()))
+        moved = max(float((sd0[k].double() - init[k].double()).abs().max())
+                    for k in sd0)
+        log(f"[distributed] NCCL world of 1, process_info (0, 1); "
+            f"Trainer.fit one epoch of {DIST_ROWS} rows at b{DIST_BATCH}, "
+            f"full-width SpeakerModelConfig() with a {DIST_SPEAKERS}-way "
+            f"head, SGD {DIST_LR}: global_mesh() == mesh=None (loss "
+            f"{h1['loss'][0]:.6f} vs {h0['loss'][0]:.6f}; parameters and "
+            f"statistics within rtol {DIST_RTOL} / atol {DIST_ATOL}, largest "
+            f"difference {worst:.3g}, largest move from the initial weights "
+            f"{moved:.3g}); step ms (CUDA events, median of steps 2-"
+            f"{len(ms0)}): mesh=None {statistics.median(ms0[1:]):.3f}, "
+            f"global_mesh() {statistics.median(ms1[1:]):.3f}")
+        steps = DIST_ROWS // DIST_BATCH
+        for name, (_, _, _, tr, m) in runs.items():
+            prof = profile_steps(lambda: tr.fit(x, y, epochs=1,
+                                                batch_size=DIST_BATCH,
+                                                mesh=m), steps)
+            busy = "not measured (no device events in the trace)" \
+                if prof["busy_ms"] is None else \
+                (f"device busy {prof['busy_ms']:.3f} ms (idle share "
+                 f"{prof['idle']:.3f}); by kind (ms): " + ", ".join(
+                     f"{k} {v:.3f}" for k, v in prof["kinds"]))
+            log(f"[distributed] profile of a fit epoch, {name}, a step: "
+                f"host {prof['host_ms']:.3f} ms; {busy}; "
+                f"{prof['launches']:.0f} launches")
+    finally:
+        tdist.destroy_process_group()
+        dist._initialized = False
 
 
 # -- phase 11: edge, export and weights ------------------------------------
@@ -3216,6 +3536,8 @@ def main() -> int:
         phase_training(device, cfg, noise, Path(tmp))
         overlap = phase_overlap_training(device, cfg, noise, Path(tmp), clips)
         mux = phase_multiplexer(device, cfg, state_dict, Path(tmp))
+        mesh = phase_mesh(device, mux["pred"], cfg, Path(tmp))
+        phase_distributed(device, cfg)
         edge = phase_edge(device, cfg, state_dict, noise, Path(tmp), clips)
 
     def entry(name, source, replaces, n, measured):
@@ -3224,34 +3546,35 @@ def main() -> int:
                 "replaces": replaces, "launches": n, **measured}
 
     # launches: the session's, the post-time pass's, overlap training's,
-    # the multiplexer's and the edge sessions' runs, each counted from 0
+    # the multiplexer's (with and without a mesh) and the edge sessions'
+    # runs, each counted from 0
     log(json.dumps({"kernels": [
         entry("overlap_features", "overlap_features.cu",
               "mmla_audio_tpu/ops/pallas_features.py:44",
               launches + post["launches"][0] + overlap["featurizer"]
-              + mux["launches"]["b1"] + edge["b1"], feat[1]),
+              + mux["launches"]["b1"] + mesh["b1"] + edge["b1"], feat[1]),
         entry("overlap_features_grouped", "overlap_features.cu",
               "mmla_audio_tpu/ops/pallas_features.py:90",
               post["launches"][1], grouped),
         entry("fused_resblock", "fused_resblock.cu",
               "benchmarks/fused_block_probe.py:64",
               block_launches + post["launches"][2] + overlap["block"]
-              + mux["launches"]["b3"] + edge["b3"], block),
+              + mux["launches"]["b3"] + mesh["b3"] + edge["b3"], block),
         entry("webrtc_vad", "webrtc_vad.cu",
-              "mmla_audio_tpu/vad/webrtc.py:580", mux["launches"]["w1"],
-              mux["w1"]),
+              "mmla_audio_tpu/vad/webrtc.py:580",
+              mux["launches"]["w1"] + mesh["w1"], mux["w1"]),
         entry("vad_collect", "webrtc_vad.cu",
-              "mmla_audio_tpu/vad/collector.py:48", mux["launches"]["w2"],
-              mux["w2"]),
+              "mmla_audio_tpu/vad/collector.py:48",
+              mux["launches"]["w2"] + mesh["w2"], mux["w2"]),
         entry("stft_rfft+istft_irfft", "denoise.cu",
               "mmla_audio_tpu/ops/denoise.py:139",
               session_dn["d1"] + post["launches"][3] + mux["launches"]["d1"]
-              + edge["d1"],
+              + mesh["d1"] + edge["d1"],
               denoise["d1"]),
         entry("smooth_mask", "denoise.cu",
               "mmla_audio_tpu/ops/denoise.py:381",
               session_dn["d2"] + post["launches"][4] + mux["launches"]["d2"]
-              + edge["d2"],
+              + mesh["d2"] + edge["d2"],
               denoise["d2"]),
     ]}))
     log(json.dumps({"ok": True, "device": {

@@ -20,5 +20,11 @@ synthesis, the image dataset, pyramid rebalancing and ``OverlapTrainer``;
 the accuracy sweep; and the CLI's ``setup``, ``overlap-live``/
 ``speaker-live --fake`` (``--register``), ``overlap-run``,
 ``overlap-post``, ``speaker-post``, ``speaker-pretrain``,
-``synth-corpus``, ``overlap-train`` and ``charts``.
+``synth-corpus``, ``overlap-train`` and ``charts``; data parallelism
+(``parallel``: one process's cards for serving, ``torch.distributed`` for
+training); stage timers and ``torch.profiler`` traces (``utils.timers``).
 """
+
+from mmla_audio_torch.version import __version__
+
+__all__ = ["__version__"]

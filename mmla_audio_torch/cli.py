@@ -278,6 +278,7 @@ def cmd_overlap_run(args):
     card) against the eager one, argmax per window."""
     from mmla_audio_torch.analyze.logs import OVERLAP_LABELS
     from mmla_audio_torch.data.wavio import read_wav
+    from mmla_audio_torch.utils.timers import StageTimer
 
     if not args.file and not args.dir:
         raise SystemExit("overlap-run: pass -f FILE or --dir DIR")
@@ -286,35 +287,33 @@ def cmd_overlap_run(args):
         sorted(Path(args.dir).glob("*.wav"))
     if not paths:
         raise SystemExit(f"overlap-run: no .wav files under {args.dir}")
-    times = {}
-    t0 = time.perf_counter()
-    pred = _overlap_predictor(args, cfg)
-    times["model_load"] = time.perf_counter() - t0
+    timer = StageTimer()
+    with timer.stage("model_load"):
+        pred = _overlap_predictor(args, cfg)
 
-    t0 = time.perf_counter()
-    bufs = np.zeros((len(paths), cfg.audio.window_samples), np.int16)
-    counts = np.zeros(len(paths), np.int32)
-    for i, p in enumerate(paths):
-        sig, _ = read_wav(p)
-        k = min(len(sig), bufs.shape[1])
-        bufs[i, :k] = sig[:k]
-        counts[i] = k
-    times["wav_load"] = time.perf_counter() - t0
+    with timer.stage("wav_load"):
+        bufs = np.zeros((len(paths), cfg.audio.window_samples), np.int16)
+        counts = np.zeros(len(paths), np.int32)
+        for i, p in enumerate(paths):
+            sig, _ = read_wav(p)
+            k = min(len(sig), bufs.shape[1])
+            bufs[i, :k] = sig[:k]
+            counts[i] = k
 
-    for stage in ("predict_first", "predict_steady"):
-        t0 = time.perf_counter()
-        labels, _ = pred.predict(bufs, counts)
-        labels = labels.cpu().numpy()
-        times[stage] = time.perf_counter() - t0
+    # the first call also builds the card's kernels and plans (JAX's
+    # stage name: its first call compiles)
+    for stage in ("predict_compile_and_run", "predict_steady"):
+        with timer.stage(stage):
+            labels, _ = pred.predict(bufs, counts)
+            labels = labels.cpu().numpy()
 
     if args.parity:
         from mmla_audio_torch.export import aot_compile, parity_check
 
         operands = (torch.from_numpy(bufs).to(pred.device),
                     torch.from_numpy(counts).to(pred.device))
-        t0 = time.perf_counter()
-        compiled = aot_compile(pred.predict, *operands)
-        times["aot_compile"] = time.perf_counter() - t0
+        with timer.stage("aot_compile"):
+            compiled = aot_compile(pred.predict, *operands)
         parity_check(lambda b, n: pred.predict(b, n)[1],
                      lambda b, n: compiled(b, n)[1], operands)
         print("[INFO] AOT parity check passed")
@@ -322,8 +321,8 @@ def cmd_overlap_run(args):
     for p, lab in zip(paths, labels):
         name = "silent" if lab < 0 else OVERLAP_LABELS[str(int(lab))]
         print(f"[RESULT] {p.name}: {name}")
-    for stage, s in times.items():
-        print(f"[TIME] {stage}: {s * 1e3:.1f} ms")
+    for stage, s in timer.summary().items():
+        print(f"[TIME] {stage}: {s['mean_ms']:.1f} ms")
 
 
 def cmd_overlap_post(args):

@@ -5,7 +5,7 @@ The port runs where the JAX package cannot be imported, so it carries its own
 copy of the configuration it uses.  Every class here has the same fields and
 defaults as its JAX counterpart (pinned by ``tests/test_torch_inference.py``);
 ``PipelineConfig`` holds only the parts the overlap and speaker serving
-paths and the two models' training read.
+paths, the two models' training and the device mesh read.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from typing import Optional, Tuple
 __all__ = ["AudioConfig", "OverlapFeatureConfig", "SpeakerFeatureConfig",
            "VadConfig", "DenoiseConfig", "OverlapModelConfig",
            "SpeakerModelConfig", "OverlapTrainConfig", "SpeakerTrainConfig",
-           "TransferConfig", "PipelineConfig"]
+           "TransferConfig", "MeshConfig", "PipelineConfig", "DEFAULT"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -234,9 +234,21 @@ class TransferConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout (``parallel.make_mesh``).  Windows are
+    independent, so the ``data`` axis is pure data parallelism; ``model``
+    stays 1 (the port has no tensor parallelism)."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    data_parallel: int = -1            # -1 -> all devices
+    model_parallel: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """What an overlap or speaker session, and the training of either
-    model, need."""
+    """What an overlap or speaker session, the training of either model,
+    and a mesh need."""
 
     audio: AudioConfig = AudioConfig()
     overlap_feature: OverlapFeatureConfig = OverlapFeatureConfig()
@@ -248,3 +260,7 @@ class PipelineConfig:
     overlap_train: OverlapTrainConfig = OverlapTrainConfig()
     speaker_train: SpeakerTrainConfig = SpeakerTrainConfig()
     transfer: TransferConfig = TransferConfig()
+    mesh: MeshConfig = MeshConfig()
+
+
+DEFAULT = PipelineConfig()

@@ -8,7 +8,7 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["read_wav", "write_wav"]
+__all__ = ["read_wav", "read_wav_float", "write_wav"]
 
 VALID_RATES = (8000, 16000, 32000, 48000)
 
@@ -29,6 +29,13 @@ def read_wav(path) -> tuple[np.ndarray, int]:
     if n_ch > 1:
         data = data.reshape(-1, n_ch)[:, 0]
     return data.copy(), rate
+
+
+def read_wav_float(path) -> tuple[np.ndarray, int]:
+    """``librosa.load(sr=None)``'s convention: the int16 samples as float32
+    in [-1, 1) (/ 32768), and the file's rate."""
+    data, rate = read_wav(path)
+    return data.astype(np.float32) / 32768.0, rate
 
 
 def write_wav(path, samples: np.ndarray, sample_rate: int = 16000) -> None:

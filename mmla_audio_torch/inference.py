@@ -120,11 +120,30 @@ class OverlapPredictor:
         self.matmul_precision = matmul_precision
         self.silent_threshold = silent_threshold
 
-    def apply_model(self, x: torch.Tensor) -> torch.Tensor:
-        """Model forward under this predictor's numerics policy; float32
+    def apply_model(self, x: torch.Tensor, model=None) -> torch.Tensor:
+        """Model forward (``model``: a replica on ``x``'s device, default
+        this predictor's) under this predictor's numerics policy; float32
         logits."""
-        return _apply(self.model, x, self.device, self.compute_dtype,
-                      self.matmul_precision)
+        return _apply(self.model if model is None else model, x, x.device,
+                      self.compute_dtype, self.matmul_precision)
+
+    def _forward(self, model, buf: torch.Tensor, n: torch.Tensor):
+        y = _masked_prefix(buf.to(torch.float32), n,
+                           self.feat_cfg.n_samples) / 32768.0
+        img = overlap_model_input_cuda(y, self.feat_cfg)   # (B, 128, 151, 3)
+        probs = torch.softmax(self.apply_model(img, model), dim=-1)
+        labels = torch.argmax(probs, dim=-1).to(torch.int32)
+        labels = torch.where(n < self.silent_threshold,
+                             torch.full_like(labels, SILENT), labels)
+        return labels, probs
+
+    def lower_fn(self):
+        """``fn(model, buf, n) -> (labels, probs)``: the batch forward of
+        ``predict`` with the model passed in and ``buf (B, >=24000)``,
+        ``n (B,)`` int32 already on the model's device, for wrappers that
+        place both (``parallel.DataParallel(pred.lower_fn(), mesh)(
+        pred.model, buf, n)``)."""
+        return torch.no_grad()(self._forward)
 
     @torch.no_grad()
     def predict(self, buf, n):
@@ -133,14 +152,7 @@ class OverlapPredictor:
         if buf.ndim == 1:
             labels, probs = self.predict(buf[None], n.reshape(1))
             return labels[0], probs[0]
-        y = _masked_prefix(buf.to(torch.float32), n,
-                           self.feat_cfg.n_samples) / 32768.0
-        img = overlap_model_input_cuda(y, self.feat_cfg)   # (B, 128, 151, 3)
-        probs = torch.softmax(self.apply_model(img), dim=-1)
-        labels = torch.argmax(probs, dim=-1).to(torch.int32)
-        labels = torch.where(n < self.silent_threshold,
-                             torch.full_like(labels, SILENT), labels)
-        return labels, probs
+        return self._forward(self.model, buf, n)
 
 
 class SpeakerPredictor:
@@ -178,11 +190,12 @@ class SpeakerPredictor:
         self.sigmoid_head = sigmoid_head
         self.compute_dtype = compute_dtype
 
-    def apply_model(self, x: torch.Tensor) -> torch.Tensor:
-        """Model forward on MFCC-39 rows ``(B, 256, 39)`` under this
+    def apply_model(self, x: torch.Tensor, model=None) -> torch.Tensor:
+        """Model forward on MFCC-39 rows ``(B, 256, 39)`` (``model``: a
+        replica on ``x``'s device, default this predictor's) under this
         predictor's numerics policy; float32 logits."""
-        return _apply(self.model, x, self.device, self.compute_dtype,
-                      self.matmul_precision)
+        return _apply(self.model if model is None else model, x, x.device,
+                      self.compute_dtype, self.matmul_precision)
 
     @torch.no_grad()
     def logits_from_features(self, feats) -> torch.Tensor:
@@ -191,6 +204,14 @@ class SpeakerPredictor:
         return self.apply_model(torch.as_tensor(feats).to(self.device,
                                                           torch.float32))
 
+    def _score(self, model, buf: torch.Tensor, n: torch.Tensor):
+        feats, _ = speaker_feature_batch(buf.to(torch.float32), n,
+                                         self.feat_cfg)
+        logits = self.apply_model(feats, model)
+        probs = torch.sigmoid(logits) if self.sigmoid_head else \
+            torch.softmax(logits, dim=-1)
+        return logits, probs
+
     @torch.no_grad()
     def score(self, buf, n) -> tuple[torch.Tensor, torch.Tensor]:
         """``(logits, probs)`` of ``(B, max_samples)`` windows, no gate:
@@ -198,12 +219,20 @@ class SpeakerPredictor:
         (`speaker_identification.py:409`), the base model's a softmax."""
         buf = _as_pcm(buf, self.device)
         n = torch.as_tensor(n).to(self.device, torch.int32)
-        feats, _ = speaker_feature_batch(buf.to(torch.float32), n,
-                                         self.feat_cfg)
-        logits = self.apply_model(feats)
-        probs = torch.sigmoid(logits) if self.sigmoid_head else \
-            torch.softmax(logits, dim=-1)
-        return logits, probs
+        return self._score(self.model, buf, n)
+
+    def _forward(self, model, buf: torch.Tensor, n: torch.Tensor):
+        logits, probs = self._score(model, buf, n)
+        labels = torch.argmax(logits, dim=-1).to(torch.int32)
+        labels = torch.where(n < self.feat_cfg.silent_samples,
+                             torch.full_like(labels, SILENT), labels)
+        return labels, probs
+
+    def lower_fn(self):
+        """``fn(model, buf, n) -> (labels, probs)``: ``predict``'s batch
+        forward with the model passed in, its inputs already on the
+        model's device (see ``OverlapPredictor.lower_fn``)."""
+        return torch.no_grad()(self._forward)
 
     @torch.no_grad()
     def predict(self, buf, n):
@@ -212,8 +241,4 @@ class SpeakerPredictor:
         if buf.ndim == 1:
             labels, probs = self.predict(buf[None], n.reshape(1))
             return labels[0], probs[0]
-        logits, probs = self.score(buf, n)
-        labels = torch.argmax(logits, dim=-1).to(torch.int32)
-        labels = torch.where(n < self.feat_cfg.silent_samples,
-                             torch.full_like(labels, SILENT), labels)
-        return labels, probs
+        return self._forward(self.model, buf, n)

@@ -16,6 +16,13 @@ Training keeps the JAX package's numerics where torch's differ:
   trained, each would get the full gradient and their sum, the Keras bias,
   would move twice per step;
 * ``SeededDropout`` draws its mask from an explicit generator.
+
+Data-parallel training across processes (``Trainer.fit(mesh=)``) sets two
+attributes for the length of the fit: a BatchNorm's ``group`` makes its
+train-mode statistics those of the global batch (``Σx``, ``Σx²`` and the
+count all-reduced through autograd), and a dropout's ``shard = (rank,
+world)`` makes it draw the global batch's mask and keep its own rows, so
+the fit equals the one-process fit of the whole batch.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 __all__ = ["leaky_relu", "KerasBatchNorm", "KerasBatchNorm1d", "BiLSTM",
@@ -42,8 +50,11 @@ def _train_batch_norm(bn: nn.modules.batchnorm._BatchNorm,
     ``running = m * running + (1 - m) * batch`` for both statistics."""
     dims = [0] + list(range(2, x.ndim))
     shape = [1, -1] + [1] * (x.ndim - 2)
-    mean = x.mean(dims)
-    var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+    if bn.group is None:
+        mean = x.mean(dims)
+        var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+    else:
+        mean, var = _global_moments(x, dims, bn.group)
     with torch.no_grad():
         m = bn.keras_momentum
         bn.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
@@ -54,9 +65,34 @@ def _train_batch_norm(bn: nn.modules.batchnorm._BatchNorm,
         bn.bias.reshape(shape)
 
 
+def _global_moments(x: torch.Tensor, dims, group) -> tuple:
+    """Mean and biased variance over ``dims`` of the batch every rank of
+    ``group`` holds a block of: one autograd-aware all-reduce of ``(Σx,
+    Σx², count)``, whose backward all-reduces the gradient, so each rank's
+    rows get the gradient through the global statistics."""
+    import warnings
+
+    from torch.distributed.nn.functional import all_reduce
+
+    C = x.shape[1]
+    count = x.new_full((1,), x.numel() // C)
+    local = torch.cat([x.sum(dims), (x * x).sum(dims), count])
+    with warnings.catch_warnings():
+        # deprecated for _functional_collectives.all_reduce, which has no
+        # backward
+        warnings.simplefilter("ignore", FutureWarning)
+        total = all_reduce(local, op=dist.ReduceOp.SUM, group=group)
+    n = total[2 * C]
+    mean = total[:C] / n
+    var = torch.clamp(total[C:2 * C] / n - mean * mean, min=0.0)
+    return mean, var
+
+
 class KerasBatchNorm(nn.BatchNorm2d):
     """BatchNorm over the channel axis of NCHW input, Keras defaults; train
     mode as the JAX package's (``_train_batch_norm``)."""
+
+    group = None            # a process group: global-batch statistics
 
     def __init__(self, num_features: int, momentum: float = 0.99,
                  eps: float = 1e-3):
@@ -72,6 +108,8 @@ class KerasBatchNorm(nn.BatchNorm2d):
 class KerasBatchNorm1d(nn.BatchNorm1d):
     """BatchNorm over the channel axis of ``(B, C, T)`` input, Keras
     defaults; train mode as the JAX package's (``_train_batch_norm``)."""
+
+    group = None            # a process group: global-batch statistics
 
     def __init__(self, num_features: int, momentum: float = 0.99,
                  eps: float = 1e-3):
@@ -106,15 +144,23 @@ class SeededDropout(nn.Dropout):
     """Dropout whose train-mode keep mask is drawn from ``generator`` (a
     ``torch.Generator`` on the input's device, set by the trainer), scaled
     by 1 / keep as the JAX package's; without a generator it is
-    ``nn.Dropout``."""
+    ``nn.Dropout``.  With ``shard = (rank, world)`` the mask is drawn for
+    the ``world`` blocks of the global batch and this rank's block kept."""
 
     generator: torch.Generator | None = None
+    shard: tuple | None = None      # (rank, world): keep a global mask's rows
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0 or self.generator is None:
             return super().forward(x)
-        keep = torch.empty_like(x).bernoulli_(1.0 - self.p,
-                                              generator=self.generator)
+        if self.shard is None:
+            keep = torch.empty_like(x).bernoulli_(1.0 - self.p,
+                                                  generator=self.generator)
+        else:
+            rank, world = self.shard
+            B = x.shape[0]
+            keep = x.new_empty((world * B,) + tuple(x.shape[1:])).bernoulli_(
+                1.0 - self.p, generator=self.generator)[rank * B:(rank + 1) * B]
         return x * keep / (1.0 - self.p)
 
 

@@ -11,6 +11,7 @@ from mmla_audio_torch.streaming.native import (
     BatchGather,
     NativeRingBuffer,
     PyRingBuffer,
+    load_native,
     make_ring,
 )
 from mmla_audio_torch.streaming.session import (
@@ -32,6 +33,7 @@ __all__ = [
     "BatchGather",
     "NativeRingBuffer",
     "PyRingBuffer",
+    "load_native",
     "make_ring",
     "OverlapSession",
     "SpeakerSession",

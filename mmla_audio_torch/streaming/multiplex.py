@@ -32,12 +32,23 @@ sends each label back to its stream's log.
   in place.  A stream never contributes two windows to one batch (the
   busy-guard), so no two rows of a launch share a state row; padding rows
   pass an index past the last stream and touch no state.
+* **Data parallelism** (``mesh=``, one process's devices,
+  ``parallel.make_mesh``): a batch splits into the data axis's equal row
+  blocks; each runs the whole program on its device with that device's
+  replica of the model.  The stacked detector state stays on the first
+  device: a block gathers its rows, advances them on its device and writes
+  them back (the blocks' rows are disjoint); the labels come back to the
+  first device for the one blocking fetch.  A one-device mesh is the
+  unsplit path, launch for launch.  A split batch's labels and detector
+  rows equal the unsplit batch's: every stage of the program is
+  row-independent, the denoise included (D1 and D2 are batch-invariant).
 
 Retention (a long-lived host must stay bounded; the TSV logs are always
 the complete record): ``results_cap`` bounds each stream's in-memory
 ``results`` tail (None keeps everything, 0 keeps nothing), and
 ``remove_stream(stream, archive=False)`` drops a finished conversation's
-``Stream`` when its row is recycled instead of keeping it in ``retired``.
+``Stream`` when its row is recycled instead of keeping it in ``retired``,
+and closes its log's append handle (``close_log=True``, the default).
 The defaults (``results_cap=None``, ``archive=True``) are the JAX
 package's.
 """
@@ -58,6 +69,7 @@ from mmla_audio_torch.core.config import PipelineConfig
 from mmla_audio_torch.ops.cuda_features import overlap_model_input_cuda
 from mmla_audio_torch.ops.denoise import noise_threshold
 from mmla_audio_torch.ops.features import speaker_feature_batch
+from mmla_audio_torch.parallel.mesh import canonical_device, replicate_tree
 from mmla_audio_torch.streaming.native import BatchGather, NativeRingBuffer
 from mmla_audio_torch.streaming.session import (preprocess_windows,
                                                 session_stamp)
@@ -103,7 +115,9 @@ class Multiplexer:
     the ascending ladder (a tick rounds its ready count up to the smallest
     sufficient bucket).  ``min_fill``: None is 0.75 once there are as many
     streams as the top bucket, else 0 (dispatch every tick).  ``device``
-    must be the predictor's."""
+    must be the predictor's.  ``mesh``: a one-process mesh whose first
+    device is ``device`` and whose data axis divides every bucket; each
+    batch splits over its data axis (the module docstring)."""
 
     def __init__(self, predictor, dirs: ExperimentDirs | str, *,
                  kind: str = "overlap", bucket: int | None = None,
@@ -112,7 +126,7 @@ class Multiplexer:
                  max_pending_ticks: int = 4,
                  results_cap: int | None = None,
                  cfg: PipelineConfig = PipelineConfig(),
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", mesh=None):
         if kind not in ("overlap", "speaker"):
             raise ValueError(f"kind must be 'overlap' or 'speaker': {kind!r}")
         self.device = torch.device(device)
@@ -135,6 +149,12 @@ class Multiplexer:
         if min_fill is not None and not 0.0 <= min_fill <= 1.0:
             raise ValueError(f"min_fill must be in [0, 1]: {min_fill}")
         self.min_fill = min_fill
+        self.mesh = mesh
+        self._replicas = None               # device -> model, a split mesh
+        if mesh is not None:
+            self._check_mesh(mesh)
+            if mesh.devices.shape[0] > 1:
+                self._replicas = replicate_tree(predictor.model, mesh)
         self.max_pending_ticks = int(max_pending_ticks)
         self.results_cap = results_cap
         self.cfg = cfg
@@ -177,6 +197,20 @@ class Multiplexer:
                               "resolve_fetch": 0.0, "resolve_log": 0.0}
         self.windows_resolved = 0
 
+    def _check_mesh(self, mesh) -> None:
+        if mesh.group is not None:
+            raise ValueError("Multiplexer: the mesh spans processes; each "
+                             "process serves its own streams on a mesh of "
+                             "its own devices")
+        first = mesh.local_devices[0]
+        if first != canonical_device(self.device):
+            raise ValueError(f"Multiplexer: the mesh's first device is "
+                             f"{first}, the multiplexer's {self.device}")
+        n = mesh.devices.shape[0]
+        if any(b % n for b in self.buckets):
+            raise ValueError(f"Multiplexer: every bucket must divide by the "
+                             f"mesh's data axis ({n}): {self.buckets}")
+
     def reset_phase_counters(self) -> None:
         for k in self.phase_seconds:
             self.phase_seconds[k] = 0.0
@@ -192,26 +226,59 @@ class Multiplexer:
     # -- the device program ---------------------------------------------------
     @torch.no_grad()
     def _program(self, raws: torch.Tensor, nts: torch.Tensor,
-                 vts: torch.Tensor, idx) -> torch.Tensor:
-        """One batch: the pre-decision chain, then the head; labels (B,)
-        int32 on the device, -1 where the trimmed window is silent."""
+                 vts: torch.Tensor, idx, states: Optional[torch.Tensor],
+                 model=None) -> torch.Tensor:
+        """One batch: the pre-decision chain (``states``: the detector rows
+        ``idx`` names, advanced in place), then the head (``model``: the
+        replica on the batch's device, default the predictor's); labels
+        (B,) int32 on the device, -1 where the trimmed window is silent."""
         cfg = self.cfg
         trimmed, n_out = preprocess_windows(
-            raws, nts, vts, cfg, states=self._webrtc_states, idx=idx)
+            raws, nts, vts, cfg, states=states, idx=idx)
         if self.kind == "speaker":
             feats, _ = speaker_feature_batch(trimmed, n_out,
                                              cfg.speaker_feature)
-            logits = self.predictor.apply_model(feats)
+            logits = self.predictor.apply_model(feats, model)
             silent = n_out < cfg.speaker_feature.silent_samples
         else:
             # trimmed is zero beyond n_out
             img = overlap_model_input_cuda(
                 trimmed[:, : cfg.overlap_feature.n_samples] / 32768.0,
                 cfg.overlap_feature)
-            logits = self.predictor.apply_model(img)
+            logits = self.predictor.apply_model(img, model)
             silent = n_out < cfg.vad.silent_samples
         labels = torch.argmax(logits, dim=-1).to(torch.int32)
         return torch.where(silent, torch.full_like(labels, -1), labels)
+
+    def _program_split(self, raws: torch.Tensor, nts: torch.Tensor,
+                       vts: torch.Tensor, idx) -> torch.Tensor:
+        """``_program`` over the mesh's data axis: one row block a device,
+        its detector rows gathered from the stacked state (which stays on
+        the first device) and written back; the labels on the first
+        device."""
+        devices = self.mesh.local_devices
+        rows = raws.shape[0] // len(devices)
+        states = self._webrtc_states
+        parts = []
+        for i, d in enumerate(devices):
+            blk = slice(i * rows, (i + 1) * rows)
+            local, local_idx, real = None, None, None
+            if idx is not None:
+                own = idx[blk] < self._webrtc_n
+                # pageable source: staged before the call returns
+                real = torch.from_numpy(idx[blk][own].astype(np.int64)).to(
+                    states.device, non_blocking=True)
+                local = states.index_select(0, real).to(d)
+                # this block's stream rows first, padding past them
+                local_idx = np.full(rows, len(real), np.int32)
+                local_idx[own] = np.arange(len(real), dtype=np.int32)
+            labels = self._program(raws[blk].to(d), nts[blk].to(d),
+                                   vts[blk].to(d), local_idx, local,
+                                   self._replicas[d])
+            if real is not None and len(real):
+                states.index_copy_(0, real, local.to(states.device))
+            parts.append(labels.to(devices[0]))
+        return torch.cat(parts)
 
     def _calibrate(self, noise_clip_i16: np.ndarray) -> tuple:
         """(noise_thresh, vad_threshold_db) of an ambient clip, cached by
@@ -251,19 +318,23 @@ class Multiplexer:
         self._gather_dirty = True
         return stream
 
-    def remove_stream(self, stream: Stream, archive: bool = True) -> None:
+    def remove_stream(self, stream: Stream, close_log: bool = True,
+                      archive: bool = True) -> None:
         """Retire a finished conversation: it is no longer gathered, and its
         row is recycled by a later ``add_stream`` once none of its windows
-        is pending or in flight (those still resolve to its log).
+        is pending or in flight (those still resolve to its log, which
+        reopens in append mode).  ``close_log`` closes the log's append
+        handle now instead of leaving it to the handle LRU.
         ``archive=False`` drops the ``Stream`` at recycling instead of
-        keeping it in ``retired``.  The capture is the caller's to stop (the
-        port's ``SessionLog`` holds no open file).  Idempotent (the first
-        call's ``archive`` holds)."""
+        keeping it in ``retired``.  The capture is the caller's to stop.
+        Idempotent (the first call's ``archive`` holds)."""
         if stream.retiring:
             return
         stream.retiring = True
         stream.archive = archive
         self._mark_done(stream)
+        if close_log:
+            stream.log.close()
         self._retiring.append(stream)
         self._gather_dirty = True
 
@@ -442,7 +513,9 @@ class Multiplexer:
         if self.device.type == "cuda":
             self._copied[f] = torch.cuda.Event()
             self._copied[f].record()
-        labels = self._program(raws, nts, vts, idx)
+        labels = self._program(raws, nts, vts, idx, self._webrtc_states) \
+            if self._replicas is None else \
+            self._program_split(raws, nts, vts, idx)
         self.phase_seconds["dispatch"] += time.perf_counter() - t1
         self._pending_streams = []
         self._pending_ticks = 0

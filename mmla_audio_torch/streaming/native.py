@@ -1,5 +1,9 @@
-"""Capture rings and the multiplexer's one-call window gather (counterpart
-of ``mmla_audio_tpu.streaming.native``).
+"""Capture rings, the multiplexer's one-call window gather and the host
+library's WAV IO (counterpart of ``mmla_audio_tpu.streaming.native``).
+
+``load_native()`` is the port's ``libmmla_host.so`` with its ring and WAV
+functions typed (``wav_read``, ``wav_free``, ``wav_write`` from
+``csrc/host/wavio.cpp``), or None where it cannot be built or loaded.
 
 ``NativeRingBuffer`` is the lock-free SPSC int16 ring of
 ``csrc/host/ringbuffer.cpp`` in the port's ``libmmla_host.so``
@@ -20,15 +24,16 @@ import numpy as np
 
 from mmla_audio_torch._build import host_library
 
-__all__ = ["NativeRingBuffer", "PyRingBuffer", "BatchGather", "make_ring"]
+__all__ = ["load_native", "NativeRingBuffer", "PyRingBuffer", "BatchGather",
+           "make_ring"]
 
 _I16P = ctypes.POINTER(ctypes.c_int16)
 
 
 @functools.lru_cache(maxsize=None)
-def _lib():
-    """The host library with its ring functions typed, or None when it
-    cannot be built or loaded."""
+def load_native():
+    """The host library with its ring and WAV functions typed, or None when
+    it cannot be built or loaded."""
     try:
         lib = host_library()
     except (OSError, RuntimeError, subprocess.SubprocessError):
@@ -51,6 +56,16 @@ def _lib():
         ctypes.POINTER(ctypes.c_void_p), ctypes.c_uint64, ctypes.c_uint64,
         ctypes.POINTER(ctypes.c_uint8), ctypes.c_uint64, ctypes.c_uint64,
         _I16P, ctypes.c_uint64, ctypes.POINTER(ctypes.c_int32)]
+    # wav_read(path, &samples, &rate) -> count (< 0 on any error); the
+    # samples are the library's to free with wav_free
+    lib.wav_read.restype = ctypes.c_int64
+    lib.wav_read.argtypes = [ctypes.c_char_p, ctypes.POINTER(_I16P),
+                             ctypes.POINTER(ctypes.c_int32)]
+    lib.wav_free.restype = None
+    lib.wav_free.argtypes = [_I16P]
+    lib.wav_write.restype = ctypes.c_int32
+    lib.wav_write.argtypes = [ctypes.c_char_p, _I16P, ctypes.c_int64,
+                              ctypes.c_int32]
     return lib
 
 
@@ -59,7 +74,7 @@ class NativeRingBuffer:
     C++ implementation."""
 
     def __init__(self, capacity: int):
-        self._lib = _lib()
+        self._lib = load_native()
         if self._lib is None:
             raise RuntimeError("native ring buffer unavailable "
                                "(libmmla_host.so failed to build or load)")
@@ -179,7 +194,7 @@ class BatchGather:
     def __init__(self, rings):
         if not all(isinstance(r, NativeRingBuffer) for r in rings):
             raise RuntimeError("all rings must be native")
-        self._lib = _lib()
+        self._lib = load_native()
         self._rings = list(rings)            # keep refs: prevents rb_destroy
         n = len(rings)
         self._ptrs = (ctypes.c_void_p * n)(*[r._ptr for r in rings])

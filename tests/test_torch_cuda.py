@@ -707,3 +707,92 @@ def test_aot_compile_captures_the_predictor(device):
         torch.testing.assert_close(probs, ref[1], rtol=0, atol=1e-6)
     with pytest.raises(ValueError, match="compiled for"):
         compiled(bufs[:2], counts[:2])
+
+
+# -- data parallelism: the mesh multiplexer, NCCL at world size 1 -----------
+
+def test_make_mesh_without_a_card_raises(monkeypatch):
+    """``make_mesh()`` spans this process's cards and has no CPU fallback
+    (runs without a card too)."""
+    from mmla_audio_torch.parallel import make_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+
+
+def test_mesh_multiplexer_one_card_equals_unsplit(device, tmp_path):
+    """On the card: a one-device mesh is the ``mesh=None`` path (the same
+    launches, labels and detector rows), and a mesh that lists the card
+    twice splits each batch in two (twice the launches of every kernel)
+    with the same labels and rows, D1 and D2 being batch-invariant."""
+    import dataclasses
+
+    from mmla_audio_torch.core.config import PipelineConfig
+    from mmla_audio_torch.ops.denoise import smooth_mask
+    from mmla_audio_torch.parallel import make_mesh
+    from mmla_audio_torch.streaming.capture import PrefilledCapture
+    from mmla_audio_torch.streaming.multiplex import Multiplexer
+    from mmla_audio_torch.vad.collector import vad_collect_rows
+    from mmla_audio_torch.vad.webrtc import webrtc_vad_rows
+
+    mcfg = OverlapModelConfig(stage_filters=(8, 8, 8), lstm_units=8,
+                              input_scale=1 / 255)
+    cfg = dataclasses.replace(PipelineConfig(), overlap_model=mcfg)
+    sd = keras_init_(OverlapResBLSTM(mcfg),
+                     torch.Generator().manual_seed(0)).state_dict()
+    pred = OverlapPredictor(sd, mcfg, device=device,
+                            matmul_precision="highest")
+    noise = (np.random.RandomState(3).randn(160000) * 15).astype(np.int16)
+    counters = (webrtc_vad_rows, vad_collect_rows, overlap_model_input_cuda,
+                smooth_mask)
+    runs = {}
+    for name, mesh in (("none", None), ("one", make_mesh()),
+                       ("twice", make_mesh(devices=[device, device]))):
+        mux = Multiplexer(pred, tmp_path / name, bucket=4, cfg=cfg,
+                          device=device, mesh=mesh)
+        streams = [mux.add_stream(f"s{i}", PrefilledCapture(
+            (_audio(1, 3 * 40960, seed=i)[0] * 20000).astype(np.int16)),
+            noise) for i in range(4)]
+        before = [c.launches for c in counters] + \
+            [fused_resblock_cuda.launches_mma]
+        assert mux.run_until_exhausted() == 12
+        after = [c.launches for c in counters] + \
+            [fused_resblock_cuda.launches_mma]
+        runs[name] = ([[r[1] for r in s.results] for s in streams],
+                      mux._webrtc_states.cpu(),
+                      [a - b for a, b in zip(after, before)])
+    for name in ("one", "twice"):
+        assert runs[name][0] == runs["none"][0], name
+        assert torch.equal(runs[name][1], runs["none"][1]), name
+    assert runs["one"][2] == runs["none"][2]
+    assert runs["twice"][2] == [2 * n for n in runs["none"][2]]
+    assert min(runs["none"][2]) > 0
+
+
+def test_initialize_nccl_world_of_one(device):
+    """``initialize`` with NCCL at world size 1 (this machine's one card),
+    ``global_mesh`` carrying the group, an all-reduce through it."""
+    import socket
+
+    import torch.distributed as tdist
+
+    from mmla_audio_torch.parallel import distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.initialize(f"127.0.0.1:{port}", 1, 0)
+    try:
+        assert dist.process_info() == (0, 1)
+        assert tdist.get_backend() == "nccl"
+        mesh = dist.global_mesh()
+        assert mesh.group is not None and mesh.devices.shape == (1, 1)
+        x = torch.arange(4.0, device=device)
+        tdist.all_reduce(x, group=mesh.group)
+        assert x.tolist() == [0.0, 1.0, 2.0, 3.0]
+        xg = dist.host_local_batch_to_global(x, mesh)
+        assert torch.equal(xg.gather(), x)
+    finally:
+        tdist.destroy_process_group()
+        dist._initialized = False

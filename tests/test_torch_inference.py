@@ -165,7 +165,7 @@ def test_cli_overlap_live_fake(tmp_path, capsys):
                                   "SpeakerFeatureConfig",
                                   "SpeakerModelConfig",
                                   "OverlapTrainConfig", "SpeakerTrainConfig",
-                                  "TransferConfig"])
+                                  "TransferConfig", "MeshConfig"])
 def test_config_copy_matches_jax_package(name):
     ours, theirs = getattr(port_config, name), getattr(jax_config, name)
     assert [f.name for f in dataclasses.fields(ours)] == \
