@@ -208,6 +208,7 @@ stops before doing anything.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -284,6 +285,27 @@ MESH_TURNS = ("mesh=None", "make_mesh()", "card twice", "card twice",
 # preconditioner to amplify rounding), held at the CPU test's rtol/atol
 DIST_ROWS, DIST_BATCH, DIST_SPEAKERS, DIST_LR = 64, 8, 3, 1e-3
 DIST_RTOL, DIST_ATOL = 1e-4, 1e-5
+# phase 10d, tensor parallelism: two gloo processes on the one card, a (1,
+# 2) mesh, TP_EPOCHS epochs of phase 10c's fit with SGD's momentum (so that
+# the optimizer has a state to split) against mesh=None (cuDNN in its
+# deterministic algorithms in both, so that the runs differ only by the
+# split), held at TP_RTOL / TP_ATOL
+TP_EPOCHS, TP_RTOL, TP_ATOL, TP_TIMEOUT = 3, 1e-5, 1e-6, 600
+TP_MOMENTUM = 0.9                          # SGD's state: a buffer a value
+# phase 12, the GMM VAD: G1 against the plain frame loop at GMM_BATCHES rows
+# of VAD_T frames (decisions equal where the plain run's margins exceed
+# GMM_MARGIN, final states within GMM_STATE_ATOL on rows whose decisions
+# all agree); preprocess_window(gmm_state=) over GMM_WINDOWS windows at
+# B=1 in turns with the webrtc and energy decisions; GMM_CHECK of them
+# through gmm_vad on the card against the plain loop on the CPU.  G1's
+# chain bound: VAD_T frames x G1_FRAME_OPS dependent operations (read from
+# csrc/gmm_vad.cu, g1_chain_ms) of FP32_LATENCY cycles; its operations
+# bound at the CUDA cores' fp32 rate (no tensor-core form), G1_BAND_OPS a
+# band a frame
+GMM_BATCHES, GMM_WINDOWS, GMM_CHECK = (1, 8, 64), 60, 8
+GMM_MARGIN, GMM_STATE_ATOL = 1e-3, 1e-5
+G1_FRAME_OPS, FP32_LATENCY, G1_BAND_OPS = 37, 4, 100
+FP32_CORE_FLOP_S = 67e12
 # phase 0: the denoise kernels at live windows (T = 183 frames) of these
 # batches and on the 12-minute file; D1 of max |ref| (fp32 sums of 1,024 or
 # 1,026 terms in two orders), D2 absolute (mask values in [0, 1], sums of
@@ -402,6 +424,32 @@ def time_ms(fn, *args, reps: int = 20, rounds: int = 5) -> float:
         torch.cuda.synchronize()
         samples.append(start.elapsed_time(end) / reps)
     return statistics.median(samples)
+
+
+@contextlib.contextmanager
+def timed_steps():
+    """Within the block every ``Trainer.train_step`` is timed by CUDA
+    events; yields a list that receives each step's ms when the block
+    ends (synchronized)."""
+    from mmla_audio_torch.train.trainer import Trainer
+
+    events, ms, train_step = [], [], Trainer.train_step
+
+    def timed_step(self, *args):
+        pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        pair[0].record()
+        out = train_step(self, *args)
+        pair[1].record()
+        events.append(pair)
+        return out
+
+    Trainer.train_step = timed_step
+    try:
+        yield ms
+    finally:
+        Trainer.train_step = train_step
+    torch.cuda.synchronize()
+    ms.extend(a.elapsed_time(b) for a, b in events)
 
 
 def queued_ms(fn, *args, reps: int = 20, rounds: int = 3) -> float:
@@ -1469,6 +1517,7 @@ def launch_counters():
     from mmla_audio_torch.ops.cuda_features import overlap_model_input_cuda
     from mmla_audio_torch.ops.cuda_resblock import fused_resblock_cuda
     from mmla_audio_torch.vad.collector import vad_collect_rows
+    from mmla_audio_torch.vad.gmm import gmm_vad_rows
     from mmla_audio_torch.vad.webrtc import webrtc_vad_rows
 
     return ((overlap_model_input_cuda, "launches"),
@@ -1476,7 +1525,8 @@ def launch_counters():
             (fused_resblock_cuda, "launches"),
             (fused_resblock_cuda, "launches_mma"),
             (webrtc_vad_rows, "launches"),
-            (vad_collect_rows, "launches")) + denoise_counters()
+            (vad_collect_rows, "launches"),
+            (gmm_vad_rows, "launches")) + denoise_counters()
 
 
 def denoise_counters():
@@ -2156,7 +2206,6 @@ def phase_overlap_training(device, cfg, noise, tmp: Path, clips) -> dict:
     from mmla_audio_torch.ops.cuda_resblock import fused_resblock_cuda
     from mmla_audio_torch.ops.features import overlap_model_input
     from mmla_audio_torch.train.overlap_trainer import OverlapTrainer
-    from mmla_audio_torch.train.trainer import Trainer
 
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
@@ -2172,17 +2221,6 @@ def phase_overlap_training(device, cfg, noise, tmp: Path, clips) -> dict:
         f"{time.perf_counter() - t0:.1f} s (host)")
     tcfg = dataclasses.replace(cfg.overlap_train, epochs=OVERLAP_EPOCHS)
     trainer = OverlapTrainer(cfg.overlap_model, tcfg, device=device)
-    steps = []
-    train_step = Trainer.train_step
-
-    def timed_step(self, *args):
-        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        events[0].record()
-        out = train_step(self, *args)
-        events[1].record()
-        steps.append(events)
-        return out
-
     zero_launch_counters()
     y_dev = torch.from_numpy(audio).to(device)
     torch.cuda.reset_peak_memory_stats(device)
@@ -2190,12 +2228,9 @@ def phase_overlap_training(device, cfg, noise, tmp: Path, clips) -> dict:
     events[0].record()
     feats = overlap_model_input_cuda(y_dev, cfg.overlap_feature)
     events[1].record()
-    Trainer.train_step = timed_step
-    try:
+    with timed_steps() as steps:
         _, hist, (x_test, _) = trainer.train(feats, y, weighted=True,
                                              augmented=False, seed=0)
-    finally:
-        Trainer.train_step = train_step
     launches = (overlap_model_input_cuda.launches,
                 fused_resblock_cuda.launches_mma)
     trained = trainer.trainer.variables_of()
@@ -2216,8 +2251,7 @@ def phase_overlap_training(device, cfg, noise, tmp: Path, clips) -> dict:
                              f"block) {launches}, want {want}; history "
                              f"{hist}")
     per_epoch = len(steps) // OVERLAP_EPOCHS
-    step_ms = statistics.median(a.elapsed_time(b)
-                                for a, b in steps[per_epoch:])
+    step_ms = statistics.median(steps[per_epoch:])
     r = trainer.report
     log(f"[overlap] featurizer kernel over all {len(audio)} windows in one "
         f"call: {featurize_ms:.3f} ms (CUDA events; warm "
@@ -2314,18 +2348,22 @@ def w1_bound(batch: int, rows: int) -> dict:
                  + 2 * rows * 265 * 4)
 
 
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock, as ``nvidia-smi`` reads it."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+
+
 def w1_chain_ms() -> float:
     """W1's serial floor: the decimator's chain, ``VAD_T * VAD_FRAME / 2``
     dependent steps a window (20,400), each ``W1_STEP_OPS`` dependent
     integer operations of ``INT_LATENCY`` cycles (read from the source,
     not from its SASS: shift, add, the int16 truncation, multiply, shift,
     subtract), at the card's highest SM clock as ``nvidia-smi`` reads it."""
-    mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.split()[0])
     steps = VAD_T * VAD_FRAME // 2
-    return steps * W1_STEP_OPS * INT_LATENCY / (mhz * 1e6) * 1e3
+    return steps * W1_STEP_OPS * INT_LATENCY / (sm_clock_mhz() * 1e6) * 1e3
 
 
 def w2_bound(batch: int) -> dict:
@@ -3004,7 +3042,6 @@ def phase_distributed(device, cfg) -> None:
             x[labels == c, :, 10 * c:10 * (c + 1)] += 1.0
         y = np.eye(DIST_SPEAKERS, dtype=np.float32)[labels]
         runs = {}
-        train_step = Trainer.train_step
         for name, m in (("mesh=None", None), ("global_mesh()", mesh)):
             model = SpeakerResBLSTM(mcfg, DIST_SPEAKERS)
             model.load_state_dict(init)
@@ -3012,24 +3049,8 @@ def phase_distributed(device, cfg) -> None:
                          keras_categorical_crossentropy,
                          extra_penalty_fn=lambda mm: l2_penalty(mm, mcfg),
                          device=device, seed=3)
-            steps = []
-
-            def timed_step(self, *args):
-                events = [torch.cuda.Event(enable_timing=True)
-                          for _ in range(2)]
-                events[0].record()
-                out = train_step(self, *args)
-                events[1].record()
-                steps.append(events)
-                return out
-
-            Trainer.train_step = timed_step
-            try:
+            with timed_steps() as ms:
                 hist = tr.fit(x, y, epochs=1, batch_size=DIST_BATCH, mesh=m)
-            finally:
-                Trainer.train_step = train_step
-            torch.cuda.synchronize()
-            ms = [a.elapsed_time(b) for a, b in steps]
             runs[name] = (hist, tr.variables_of(), ms, tr, m)
         (h0, sd0, ms0, *_), (h1, sd1, ms1, *_) = runs.values()
         worst = 0.0
@@ -3069,6 +3090,173 @@ def phase_distributed(device, cfg) -> None:
     finally:
         tdist.destroy_process_group()
         dist._initialized = False
+
+
+# -- phase 10d: tensor parallelism ------------------------------------------
+
+TP_WORKER = r"""
+import sys
+import time
+
+import torch
+
+coord, pid, inp, out = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4]
+torch.backends.cudnn.deterministic = True
+
+from chip_smoke import timed_steps
+from mmla_audio_torch.core.config import SpeakerModelConfig
+from mmla_audio_torch.models.speaker import SpeakerResBLSTM, l2_penalty
+from mmla_audio_torch.parallel import distributed as dist
+from mmla_audio_torch.train.losses import keras_categorical_crossentropy
+from mmla_audio_torch.train.trainer import Trainer
+
+data = torch.load(inp, weights_only=False)
+dist.initialize(coord, 2, pid, device="cpu")            # gloo
+mesh = dist.global_mesh(n_model=2)                      # both on cuda:0
+assert mesh.devices.shape == (1, 2) and mesh.model_group is not None
+cfg = SpeakerModelConfig(**data["cfg"])
+model = SpeakerResBLSTM(cfg, data["speakers"])
+model.load_state_dict(data["init"])
+tr = Trainer(model, lambda p: torch.optim.SGD(p, lr=data["lr"],
+                                              momentum=data["momentum"]),
+             keras_categorical_crossentropy,
+             extra_penalty_fn=lambda m: l2_penalty(m, cfg),
+             device=mesh.local_devices[0], seed=3)
+t0 = time.perf_counter()
+with timed_steps() as ms:
+    hist = tr.fit(data["x"], data["y"], epochs=data["epochs"],
+                  batch_size=data["batch"], mesh=mesh)
+wall = time.perf_counter() - t0
+blocks = {id(b) for _, b in tr._blocks.pairs}
+state = [(tuple(m.shape), id(m) in blocks,
+          [tuple(v.shape) for v in tr.optimizer.state[m].values()
+           if isinstance(v, torch.Tensor)])
+         for m in tr._blocks.masters]
+torch.save({"hist": hist, "sd": tr.variables_of(), "wall": wall,
+            "ms": ms, "state": state,
+            "split": len(tr._blocks.pairs)}, out)
+torch.distributed.destroy_process_group()
+"""
+
+
+def phase_tensor_parallel(device, cfg, tmp: Path) -> None:
+    """Two processes on the one card (NCCL refuses two ranks on a card:
+    gloo, which takes CUDA tensors) with a (1, 2) mesh, ``global_mesh(
+    n_model=2)``: phase 10c's fit (full-width ``SpeakerModelConfig()``,
+    ``DIST_SPEAKERS``-way head, SGD, batch ``DIST_BATCH``) for
+    ``TP_EPOCHS`` epochs, each rank holding half of every split parameter
+    and of its optimizer state; against ``mesh=None`` on the same data
+    after it, history and every parameter and statistic within TP_RTOL /
+    TP_ATOL, both ranks equal bit for bit; both step times by CUDA
+    events.  A failure raises."""
+    import dataclasses
+    import os
+    import socket
+
+    from mmla_audio_torch.models.layers import keras_init_
+    from mmla_audio_torch.models.speaker import SpeakerResBLSTM, l2_penalty
+    from mmla_audio_torch.parallel import make_mesh, param_shardings
+    from mmla_audio_torch.train.losses import keras_categorical_crossentropy
+    from mmla_audio_torch.train.trainer import Trainer
+
+    mcfg = cfg.speaker_model
+    init = keras_init_(SpeakerResBLSTM(mcfg, DIST_SPEAKERS),
+                       torch.Generator().manual_seed(43)).state_dict()
+    rng = np.random.RandomState(44)
+    labels = np.arange(DIST_ROWS) % DIST_SPEAKERS
+    x = rng.randn(DIST_ROWS, 256, 39).astype(np.float32)
+    for c in range(DIST_SPEAKERS):
+        x[labels == c, :, 10 * c:10 * (c + 1)] += 1.0
+    y = np.eye(DIST_SPEAKERS, dtype=np.float32)[labels]
+    inp, worker = tmp / "tp_inputs.pt", tmp / "tp_worker.py"
+    torch.save(dict(cfg=dataclasses.asdict(mcfg), speakers=DIST_SPEAKERS,
+                    init=init, x=x, y=y, lr=DIST_LR, momentum=TP_MOMENTUM,
+                    epochs=TP_EPOCHS, batch=DIST_BATCH), inp)
+    worker.write_text(TP_WORKER)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    for var in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(var, None)
+    procs = [subprocess.Popen(
+        [sys.executable, str(worker), f"127.0.0.1:{port}", str(pid),
+         str(inp), str(tmp / f"tp_out{pid}.pt")], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE) for pid in range(2)]
+    try:
+        errs = [p.communicate(timeout=TP_TIMEOUT)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    if any(p.returncode for p in procs):
+        raise AssertionError("tensor parallel workers failed: " + "\n---\n".join(
+            e.decode(errors="replace")[-3000:] for e in errs))
+    outs = [torch.load(tmp / f"tp_out{pid}.pt", weights_only=False)
+            for pid in range(2)]
+    # the reference after the workers, so that the step times are alone
+    model = SpeakerResBLSTM(mcfg, DIST_SPEAKERS)
+    model.load_state_dict(init)
+    tr = Trainer(model, lambda p: torch.optim.SGD(p, lr=DIST_LR,
+                                                  momentum=TP_MOMENTUM),
+                 keras_categorical_crossentropy,
+                 extra_penalty_fn=lambda mm: l2_penalty(mm, mcfg),
+                 device=device, seed=3)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        with timed_steps() as ref_ms:
+            hist = tr.fit(x, y, epochs=TP_EPOCHS, batch_size=DIST_BATCH)
+        wall = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    ref = tr.variables_of()
+    worst = 0.0
+    for out in outs:
+        for key in ("loss", "acc"):
+            np.testing.assert_allclose(out["hist"][key], hist[key],
+                                       rtol=TP_RTOL, atol=TP_ATOL,
+                                       err_msg=key)
+        for k, v in ref.items():
+            got = out["sd"][k].double().numpy()
+            np.testing.assert_allclose(got, v.double().numpy(), rtol=TP_RTOL,
+                                       atol=TP_ATOL, err_msg=k)
+            worst = max(worst, float(np.abs(got - v.double().numpy()).max()))
+    for k in ref:
+        if not torch.equal(outs[0]["sd"][k], outs[1]["sd"][k]):
+            raise AssertionError(f"tensor parallel: ranks differ in {k}")
+    split = param_shardings(model, make_mesh(1, 2, devices=[device] * 2))
+    n_split = sum(d is not None for d in split.values())
+    for out in outs:
+        blocks = [s for s in out["state"] if s[1]]
+        if out["split"] != n_split or len(blocks) != n_split or not all(
+                len(shapes) == 1 and shapes[0] == shape
+                for shape, _, shapes in out["state"]):
+            raise AssertionError(f"tensor parallel: {out['split']} split "
+                                 f"parameters of {n_split}, or an optimizer "
+                                 f"state not its block's shape")
+    held = sum(int(np.prod(s[0])) for s in outs[0]["state"])
+    whole = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    moved = max(float((ref[k].double() - init[k].double()).abs().max())
+                for k in ref)
+    tp_ms = [statistics.median(out["ms"][1:]) for out in outs]
+    log(f"[tensor parallel] two gloo processes on {device}, a (1, 2) mesh: "
+        f"{TP_EPOCHS} epochs of {DIST_ROWS} rows at b{DIST_BATCH}, "
+        f"full-width SpeakerModelConfig() with a {DIST_SPEAKERS}-way head, "
+        f"SGD {DIST_LR} momentum {TP_MOMENTUM}: == mesh=None (loss "
+        f"{outs[0]['hist']['loss'][-1]:.6f}"
+        f" vs {hist['loss'][-1]:.6f}; every parameter and statistic within "
+        f"rtol {TP_RTOL} / atol {TP_ATOL}, largest difference {worst:.3g}, "
+        f"largest move from the start {moved:.3g}; both ranks bit for bit); "
+        f"{n_split} of {len(split)} parameters split, each rank's master "
+        f"weights and optimizer state {held:,} of {whole:,} values; step ms "
+        f"(CUDA events, median of steps 2-{len(ref_ms)}): mesh=None "
+        f"{statistics.median(ref_ms[1:]):.3f}, (1, 2) mesh rank 0 "
+        f"{tp_ms[0]:.3f}, rank 1 {tp_ms[1]:.3f}; fit wall s: mesh=None "
+        f"{wall:.2f}, ranks {outs[0]['wall']:.2f} and {outs[1]['wall']:.2f}")
 
 
 # -- phase 11: edge, export and weights ------------------------------------
@@ -3435,6 +3623,276 @@ def phase_edge(device, cfg, state_dict, noise, tmp: Path, clips) -> dict:
     return total
 
 
+# -- phase 12: the GMM VAD ---------------------------------------------------
+
+def g1_bound(batch: int) -> dict:
+    """G1's least time: its bytes (band and frame energies and the state
+    row read once, the state row and the decisions written once) at the
+    memory rate, or its fp32 operations (``G1_BAND_OPS`` a band a frame,
+    read from the source, a transcendental counted as one) at the CUDA
+    cores' rate (its work has no tensor-core form)."""
+    nbytes = batch * (VAD_T * (6 + 1) * 4 + 2 * 54 * 4 + VAD_T)
+    ops = batch * VAD_T * 6 * G1_BAND_OPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / FP32_CORE_FLOP_S
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def g1_chain_ms() -> float:
+    """G1's serial floor: VAD_T frames, each ``G1_FRAME_OPS`` dependent
+    operations at ``FP32_LATENCY`` cycles (read from the source, not its
+    SASS; shuffles, divisions and transcendentals take longer, so this is
+    a floor): the speech log-mixture (subtract, a division as 4, two
+    multiplies, two subtracts, an add, the partner's shuffle, a max, a
+    subtract, exp as 2, an add, log as 2, an add: 19), the log-LR and its
+    weighted sum (a subtract, a multiply, a shuffle, five adds, the
+    compare and the decision's select: 10), and the noise mean's update
+    into the next frame's speech mean (a multiply, an add, the min_track
+    clamp, the partner's shuffle, a max, an add, a max: 8); at the card's
+    highest SM clock."""
+    return VAD_T * G1_FRAME_OPS * FP32_LATENCY / (sm_clock_mhz() * 1e6) * 1e3
+
+
+def gmm_rows(device, cfg, batch: int, seed: int) -> tuple:
+    """``batch`` denoised live windows' band and frame energies ``(B,
+    VAD_T, 6)``, ``(B, VAD_T)`` on the card and their state rows: each
+    row's mixtures calibrated on its own ambient noise."""
+    from mmla_audio_torch.vad import gmm
+
+    raw = vad_windows(batch, seed)
+    rows = []
+    for b in range(batch):
+        noise = ambient(seed + 1 + b % 8)
+        if b < 8:
+            rows.append(gmm.state_rows(gmm.gmm_init_from_noise(
+                noise, device=device)))
+        else:
+            rows.append(rows[b % 8])
+    i16 = denoised_i16(device, cfg, raw, ambient(seed + 1)).float()
+    return (gmm.band_log_energies(i16), gmm.total_db(i16),
+            torch.stack(rows).contiguous())
+
+
+def check_g1(e, tot, rows, mode: int, adapt: bool) -> tuple:
+    """G1 against the plain loop on the same card tensors.  Returns (its
+    decisions, its states, the largest state difference on rows whose
+    decisions all agree, the frames under the margin, the rows left out
+    of the state comparison)."""
+    from mmla_audio_torch.vad import gmm
+
+    dec, out = gmm.gmm_vad_rows(e, tot, rows, mode, adapt)
+    ref_dec, ref_out, margins = gmm.gmm_vad_rows_plain(
+        e, tot, rows, mode, adapt, with_margins=True)
+    clear = (margins > GMM_MARGIN).all(-1)
+    if not torch.equal(dec[clear], ref_dec[clear]):
+        raise AssertionError(f"G1 B={len(e)} mode {mode}: decisions differ "
+                             f"from the plain loop's where the margins "
+                             f"exceed {GMM_MARGIN}")
+    same = (dec == ref_dec).all(1)
+    err = float((out[same] - ref_out[same]).abs().max()) if same.any() \
+        else 0.0
+    if not same.any() or err > GMM_STATE_ATOL or not torch.isfinite(out).all():
+        raise AssertionError(f"G1 B={len(e)} mode {mode}: state difference "
+                             f"{err} on {int(same.sum())} agreeing rows")
+    return dec, out, err, int((~clear).sum()), int((~same).sum())
+
+
+def gmm_latency(device, cfg, noise) -> tuple:
+    """``preprocess_window`` at B=1 over ``GMM_WINDOWS`` windows, the GMM,
+    webrtc and energy decisions in turns (the order rotates each window);
+    host clock to the trimmed window, synchronized.  Returns ({decision:
+    times}, the launches over the run, the first ``GMM_CHECK`` windows'
+    denoised int16 on the card)."""
+    from mmla_audio_torch.ops.denoise import (noise_threshold, quantize_i16,
+                                              reduce_noise)
+    from mmla_audio_torch.streaming.session import preprocess_window
+    from mmla_audio_torch.vad import gmm
+    from mmla_audio_torch.vad.collector import calibrate_threshold
+    from mmla_audio_torch.vad.native import NativeWebRtcVad
+
+    nt = noise_threshold(torch.from_numpy(noise.astype(np.float32) / 32768.0)
+                         .to(device), cfg.denoise)
+    arms = {"gmm": dict(gmm_state=gmm.gmm_init_from_noise(noise,
+                                                          device=device)),
+            "webrtc": dict(vad=NativeWebRtcVad(cfg.vad.aggressiveness)),
+            "energy": dict(vad_threshold_db=calibrate_threshold(
+                noise, cfg.vad.aggressiveness))}
+    windows = vad_windows(GMM_WINDOWS, seed=51, n=cfg.audio.window_samples)
+    for kw in arms.values():
+        preprocess_window(windows[0], nt, cfg, **kw)
+    torch.cuda.synchronize()
+    names, times = list(arms), {name: [] for name in arms}
+    kept = []
+    zero_launch_counters()
+    for i, w in enumerate(windows):
+        for name in names[i % 3:] + names[: i % 3]:
+            t0 = time.perf_counter()
+            out, n = preprocess_window(w, nt, cfg, **arms[name])
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            if name == "gmm":
+                if out.shape != (len(w),) or n % VAD_FRAME or \
+                        not torch.isfinite(out).all():
+                    raise AssertionError(f"gmm window {i}: {out.shape}, {n}")
+                kept.append(n)
+    from mmla_audio_torch.vad.gmm import gmm_vad_rows
+
+    launches = dict(g1=gmm_vad_rows.launches, **denoise_launches())
+    check = []
+    for w in windows[:GMM_CHECK]:
+        y = torch.from_numpy(w.astype(np.float32) / 32768.0).to(device)
+        check.append(quantize_i16(reduce_noise(
+            y, nt, cfg.denoise, passes=cfg.denoise.passes_live)))
+    return times, launches, torch.stack(check), arms["gmm"]["gmm_state"], \
+        kept
+
+
+def phase_gmm(device, cfg) -> dict:
+    """Phase 12: G1 against the plain frame loop on the card at
+    ``GMM_BATCHES`` rows of denoised live windows (aggressiveness 3 with
+    adaptation, and at B=64 mode 0 without), a row's bits alone and in the
+    batch; G1 timed (CUDA events and alone, beside its bounds, the chain
+    floor and the launch floor) and the plain loop timed and its launches
+    counted; then the GMM path, ``preprocess_window(gmm_state=)``, over
+    ``GMM_WINDOWS`` windows beside the webrtc and energy decisions in
+    turns (the main path whose launches are counted), and ``gmm_vad`` on
+    the card against the plain loop on the CPU over the same denoised
+    windows.  Returns the kernels-line measurements and the launches."""
+    from mmla_audio_torch.vad import gmm
+
+    e, tot, rows = gmm_rows(device, cfg, max(GMM_BATCHES), seed=40)
+    mode = cfg.vad.aggressiveness
+    full = check_g1(e, tot, rows, mode, True)
+    for batch in GMM_BATCHES[:-1]:
+        dec, out, *_ = check_g1(e[:batch], tot[:batch], rows[:batch], mode,
+                                True)
+        if not (torch.equal(dec, full[0][:batch])
+                and torch.equal(out, full[1][:batch])):
+            raise AssertionError(f"G1: rows at B={batch} differ from the "
+                                 f"same rows at B={len(e)}")
+    off = check_g1(e, tot, rows, 0, False)
+    if not torch.equal(off[1], rows):
+        raise AssertionError("G1 without adaptation changed a state row")
+    log(f"[gmm] G1 (gmm_vad) vs the plain frame loop on the card at B="
+        f"{', '.join(map(str, GMM_BATCHES))} rows of {VAD_T} frames "
+        f"(denoised live windows, mode {mode} adapting): decisions equal "
+        f"where the margins exceed {GMM_MARGIN} ({full[3]} frames under "
+        f"them), final states within {full[2]:.3g} (limit {GMM_STATE_ATOL}) "
+        f"on the {len(e) - full[4]} rows whose decisions all agree; each "
+        f"row's bits equal at B=1, 8 and 64; mode 0 without adaptation "
+        f"equal too, state rows untouched")
+    floor, chain = queued_ms(torch.cuda._sleep, 0), g1_chain_ms()
+    plain = lambda b: gmm.gmm_vad_rows_plain(   # noqa: E731
+        e[:b], tot[:b], rows[:b], mode, True)
+    times = {}
+    for batch in GMM_BATCHES:
+        args = (e[:batch], tot[:batch], rows[:batch], mode, True)
+        ms = time_ms(gmm.gmm_vad_rows, *args, reps=50)
+        alone = queued_ms(gmm.gmm_vad_rows, *args)
+        plain_ms = time_ms(plain, batch, reps=2, rounds=3)
+        times[batch] = ms, alone, plain_ms
+        b = g1_bound(batch)
+        log(f"[gmm] G1 B={batch}: time_ms {ms:.4f}, queued_ms {alone:.4f} "
+            f"(launch floor {floor:.4f}), plain loop {plain_ms:.3f} ms (CUDA "
+            f"events), bound {b['bound_ms'] * 1e3:.4f} us ({b['bound_by']}), "
+            f"the chain floor {chain:.4f} ms")
+    prof = profile_steps(lambda: plain(1), 1)
+    log(f"[gmm] the plain loop, one window at B=1: {prof['launches']:.0f} "
+        f"launches, host {prof['host_ms']:.3f} ms, device busy "
+        + ("not measured" if prof["busy_ms"] is None
+           else f"{prof['busy_ms']:.3f} ms (idle share {prof['idle']:.3f})"))
+    noise = ambient(52)
+    lat, launches, check, state, kept = gmm_latency(device, cfg, noise)
+    log(f"[gmm] preprocess_window at B=1, {GMM_WINDOWS} windows, the three "
+        f"decisions in turns, window to trimmed window ms (host clock) p50 / "
+        f"p90: " + ", ".join(
+            f"{name} {np.percentile(t, 50):.3f} / {np.percentile(t, 90):.3f}"
+            for name, t in lat.items())
+        + f"; GMM kept {sum(kept)} samples over the windows; launches in the "
+          f"run: {launches}")
+    if launches["g1"] != GMM_WINDOWS:
+        raise AssertionError(f"the GMM path launched G1 {launches['g1']} "
+                             f"times over {GMM_WINDOWS} windows")
+    cpu_state = gmm.GmmVadState(*(t.cpu() for t in state))
+    flips = under = 0
+    for x in check:
+        got, _ = gmm.gmm_vad(x, state, aggressiveness=mode)
+        xc = x.cpu()
+        ref, _, margins = gmm.gmm_vad_rows_plain(
+            gmm.band_log_energies(xc)[None], gmm.total_db(xc)[None],
+            gmm.state_rows(cpu_state)[None], mode, True, with_margins=True)
+        clear = (margins[0] > GMM_MARGIN).all(-1)
+        if not torch.equal(got.cpu()[clear], ref[0][clear]):
+            raise AssertionError("gmm_vad on the card differs from the CPU's "
+                                 "plain loop where the margins are clear")
+        flips += int((got.cpu() != ref[0]).sum())
+        under += int((~clear).sum())
+    log(f"[gmm] gmm_vad on the card (its band energies and G1) == the plain "
+        f"loop on the CPU over {GMM_CHECK} denoised windows where the "
+        f"margins exceed {GMM_MARGIN} ({under} frames under them, {flips} "
+        f"decisions differ)")
+    ms, alone, plain_ms = times[max(GMM_BATCHES)]
+    return dict(g1=dict(max_abs_err=full[2], ms=ms, plain_ms=plain_ms,
+                        **g1_bound(max(GMM_BATCHES)), library_ms=None),
+                launches=launches)
+
+
+# -- phase 13: the compile cache ---------------------------------------------
+
+CACHE_CHILD = r"""
+import json
+import time
+
+t0 = time.perf_counter()
+import torch
+
+from mmla_audio_torch import _build
+from mmla_audio_torch.utils.compile_cache import (compile_cache_dir,
+                                                  enable_compile_cache)
+
+enable_compile_cache(compile_cache_dir())
+t1 = time.perf_counter()
+lib = _build.cuda_library("gmm_vad")
+print(json.dumps({"compiles": _build.compiles, "library": lib._name,
+                  "dir": str(_build.build_dir()), "import_s": t1 - t0,
+                  "load_s": time.perf_counter() - t1}))
+"""
+
+
+def phase_compile_cache(tmp: Path) -> None:
+    """Two processes with ``MMLA_COMPILE_CACHE=<tmp>``: the first builds
+    G1's library cold into the cache (one nvcc run), the second loads it
+    from there and runs no compiler (``_build.compiles``)."""
+    import os
+
+    cache = tmp / "kernel_cache"
+    env = dict(os.environ, MMLA_COMPILE_CACHE=str(cache),
+               PYTHONPATH=str(ROOT) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", CACHE_CHILD], cwd=ROOT,
+                              env=env, capture_output=True, text=True,
+                              timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"compile cache child failed:\n"
+                                 f"{proc.stderr[-3000:]}")
+        runs.append((json.loads(proc.stdout.splitlines()[-1]), wall))
+    (cold, cold_s), (warm, warm_s) = runs
+    if cold["compiles"] != 1 or warm["compiles"] != 0 or \
+            cold["library"] != warm["library"] or \
+            Path(warm["library"]).parent != cache:
+        raise AssertionError(f"compile cache: {runs}")
+    log(f"[compile cache] MMLA_COMPILE_CACHE={cache.name}: G1's library "
+        f"built cold in one nvcc run (the build and load {cold['load_s']:.3f} "
+        f"s after importing torch in {cold['import_s']:.2f} s; the process "
+        f"{cold_s:.2f} s), then loaded by a second process with no compiler "
+        f"run ({warm['load_s']:.3f} s after {warm['import_s']:.2f} s; the "
+        f"process {warm_s:.2f} s)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -3538,7 +3996,10 @@ def main() -> int:
         mux = phase_multiplexer(device, cfg, state_dict, Path(tmp))
         mesh = phase_mesh(device, mux["pred"], cfg, Path(tmp))
         phase_distributed(device, cfg)
+        phase_tensor_parallel(device, cfg, Path(tmp))
         edge = phase_edge(device, cfg, state_dict, noise, Path(tmp), clips)
+        gmm = phase_gmm(device, cfg)
+        phase_compile_cache(Path(tmp))
 
     def entry(name, source, replaces, n, measured):
         return {"name": name, "route": "cuda",
@@ -3546,8 +4007,8 @@ def main() -> int:
                 "replaces": replaces, "launches": n, **measured}
 
     # launches: the session's, the post-time pass's, overlap training's,
-    # the multiplexer's (with and without a mesh) and the edge sessions'
-    # runs, each counted from 0
+    # the multiplexer's (with and without a mesh), the edge sessions' and
+    # the GMM path's runs, each counted from 0
     log(json.dumps({"kernels": [
         entry("overlap_features", "overlap_features.cu",
               "mmla_audio_tpu/ops/pallas_features.py:44",
@@ -3569,13 +4030,15 @@ def main() -> int:
         entry("stft_rfft+istft_irfft", "denoise.cu",
               "mmla_audio_tpu/ops/denoise.py:139",
               session_dn["d1"] + post["launches"][3] + mux["launches"]["d1"]
-              + mesh["d1"] + edge["d1"],
+              + mesh["d1"] + edge["d1"] + gmm["launches"]["d1"],
               denoise["d1"]),
         entry("smooth_mask", "denoise.cu",
               "mmla_audio_tpu/ops/denoise.py:381",
               session_dn["d2"] + post["launches"][4] + mux["launches"]["d2"]
-              + mesh["d2"] + edge["d2"],
+              + mesh["d2"] + edge["d2"] + gmm["launches"]["d2"],
               denoise["d2"]),
+        entry("gmm_vad", "gmm_vad.cu", "mmla_audio_tpu/vad/gmm.py:233",
+              gmm["launches"]["g1"], gmm["g1"]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,11 @@
 """Build-at-first-use for the port's native code.
 
-Two shared libraries, both loaded with ctypes and both built into the
-git-ignored ``mmla_audio_torch/_build/`` directory (never into the JAX
-package):
+Two kinds of shared library, all loaded with ctypes and all built into the
+build directory: by default the git-ignored ``mmla_audio_torch/_build/``
+(never the JAX package), or the directory that
+``utils.compile_cache.enable_compile_cache`` names (``--compile-cache``,
+``$MMLA_COMPILE_CACHE``), so that a read-only install or a restarted
+process keeps its built kernels where the user says:
 
 * one library per CUDA source under ``csrc/``, compiled with ``nvcc`` for
   ``sm_90a`` (``cuda_libraries`` starts every nvcc at once);
@@ -13,6 +16,8 @@ package):
 Each library's file name carries a hash of its sources and flags, so a stale
 build is never loaded.  Builds write to a temporary name and rename into
 place, so concurrent processes (test workers) never load a half-written file.
+``compiles`` counts the compiler runs of this process: a process that finds
+every library in its build directory runs none.
 """
 
 from __future__ import annotations
@@ -27,13 +32,15 @@ import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "cuda_library", "cuda_libraries", "host_library",
-           "nvcc"]
+__all__ = ["BUILD_DIR", "build_dir", "set_build_dir", "cuda_library",
+           "cuda_libraries", "host_library", "nvcc"]
 
 _PKG = Path(__file__).resolve().parent
-BUILD_DIR = _PKG / "_build"
-_P, _I, _LL, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_double)
+BUILD_DIR = _PKG / "_build"                 # the default build directory
+_build_dir = BUILD_DIR
+compiles = 0
+_P, _I, _LL, _D, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_double, ctypes.c_float)
 # library name -> (source, {launch function: its argtypes})
 CUDA_KERNELS = {
     "overlap_features": (
@@ -55,6 +62,9 @@ CUDA_KERNELS = {
          "istft_irfft_launch": [_P, _P, _I, _P, _P, _P],
          "smooth_mask_launch":
          [_P, _P, _I, _I, _I, _P, _I, _P, _I, _I, _I, _P]}),
+    "gmm_vad": (
+        _PKG / "csrc" / "gmm_vad.cu",
+        {"gmm_vad_launch": [_P, _P, _P, _I, _I, _F, _F, _I, _P, _P, _P]}),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -70,18 +80,46 @@ HOST_SOURCES = tuple(_PKG / "csrc" / "host" / f
                      for f in ("ringbuffer.cpp", "wavio.cpp", "webrtcvad.cpp"))
 
 
+def build_dir() -> Path:
+    """The directory every build of this process goes to."""
+    return _build_dir
+
+
+def _loaded() -> bool:
+    return bool(cuda_library.cache_info().currsize
+                or host_library.cache_info().currsize)
+
+
+def set_build_dir(path) -> Path:
+    """Point every later build at ``path`` (made if missing).  Raises once
+    a library has loaded from another directory: a loaded library would not
+    move."""
+    global _build_dir
+    path = Path(path)
+    if path.resolve() == _build_dir.resolve():
+        return _build_dir
+    if _loaded():
+        raise RuntimeError(f"the build directory cannot move to {path}: a "
+                           f"library already loaded from {_build_dir}")
+    path.mkdir(parents=True, exist_ok=True)
+    _build_dir = path
+    return path
+
+
 def _build(name: str, compiler: str, flags, sources) -> Path:
+    global compiles
     digest = hashlib.sha1()
     for part in (compiler, *flags):
         digest.update(part.encode())
     for src in sources:
         digest.update(src.read_bytes())
-    target = BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
+    target = _build_dir / f"{name}-{digest.hexdigest()[:12]}.so"
     if target.exists():
         return target
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    _build_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_build_dir)
     os.close(fd)
+    compiles += 1
     try:
         proc = subprocess.run([compiler, *flags, "-o", tmp,
                                *(str(s) for s in sources)],
@@ -98,11 +136,13 @@ def _build(name: str, compiler: str, flags, sources) -> Path:
 
 def nvcc() -> str:
     """The CUDA compiler: ``nvcc`` on PATH, else under ``CUDA_HOME``."""
-    from torch.utils.cpp_extension import CUDA_HOME
-
     found = shutil.which("nvcc")
     if found:
         return found
+    # torch's search (the CUDA_HOME variable, then the usual places) costs
+    # an import of torch.utils.cpp_extension: only where PATH has no nvcc
+    from torch.utils.cpp_extension import CUDA_HOME
+
     if CUDA_HOME and Path(CUDA_HOME, "bin", "nvcc").exists():
         return str(Path(CUDA_HOME, "bin", "nvcc"))
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "

@@ -45,7 +45,9 @@ timestamp-free log).  ``--host-preprocess``/``--no-host-preprocess`` force
 the host split on or off (default: on exactly when the decision is webrtc
 and the native engine builds); it is refused with ``--edge``.
 ``overlap-run --parity`` holds the compiled (CUDA-graph) predictor against
-the eager one on the run's batch.
+the eager one on the run's batch.  ``--compile-cache DIR|off`` (every
+subcommand but ``setup``; else ``$MMLA_COMPILE_CACHE``) builds the kernels
+into ``DIR`` and loads them from there (``utils/compile_cache.py``).
 """
 
 from __future__ import annotations
@@ -60,6 +62,20 @@ import numpy as np
 import torch
 
 from mmla_audio_torch.core.config import PipelineConfig, VadConfig
+
+
+def _setup_compile_cache(args) -> None:
+    """Point the kernel builds at the compile cache before any is built.
+    Precedence: ``--compile-cache DIR|off`` > ``MMLA_COMPILE_CACHE=DIR|off``
+    > the package's own ``_build/`` (``utils/compile_cache.py``)."""
+    from mmla_audio_torch.utils import compile_cache as cc
+
+    flag = getattr(args, "compile_cache", None)
+    if flag == "off":
+        return
+    path = Path(flag) if flag else cc.compile_cache_dir(None)
+    if path is not None:
+        cc.enable_compile_cache(path)
 
 
 def _device(args) -> torch.device:
@@ -493,7 +509,16 @@ def main(argv=None):
     ap = argparse.ArgumentParser(prog="mmla_audio_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
+    def cache_flag(p):
+        p.add_argument("--compile-cache", default=None, metavar="DIR|off",
+                       help="directory the CUDA kernels and the host library "
+                            "are built into and loaded from, so that a "
+                            "restarted process runs no compiler (default: "
+                            "$MMLA_COMPILE_CACHE, else the package's own "
+                            "_build/); 'off' keeps the default")
+
     def common(p):
+        cache_flag(p)
         p.add_argument("--seed", type=int, default=0,
                        help="seed of the random-init weights (and of the "
                             "fake source)")
@@ -592,6 +617,7 @@ def main(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; pass cpu to run "
                         "without a card)")
+    cache_flag(p)
     p.set_defaults(fn=cmd_speaker_pretrain)
 
     p = sub.add_parser("synth-corpus")
@@ -600,6 +626,7 @@ def main(argv=None):
     p.add_argument("--out-dir", required=True)
     p.add_argument("--n-mixtures", type=int, default=6300)
     p.add_argument("--seed", type=int, default=0)
+    cache_flag(p)
     p.set_defaults(fn=cmd_synth_corpus)
 
     p = sub.add_parser("overlap-train")
@@ -615,14 +642,17 @@ def main(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; pass cpu to run "
                         "without a card)")
+    cache_flag(p)
     p.set_defaults(fn=cmd_overlap_train)
 
     p = sub.add_parser("charts")
     p.add_argument("--root", default="experiment")
     p.add_argument("--kind", default="overlap", choices=["overlap", "speaker"])
+    cache_flag(p)
     p.set_defaults(fn=cmd_charts)
 
     args = ap.parse_args(argv)
+    _setup_compile_cache(args)
     return args.fn(args)
 
 

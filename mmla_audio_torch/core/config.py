@@ -116,7 +116,8 @@ class SpeakerFeatureConfig:
 class VadConfig:
     """WebRTC-VAD gating geometry.  ``decision``: "webrtc" is the bit-exact
     webrtcvad engine (the reference's ``Vad(3)``), "energy" the calibrated
-    log-energy detector."""
+    log-energy detector.  The float GMM approximation (``vad/gmm.py``) is a
+    probe, not a serving option: ``preprocess_window(gmm_state=)`` only."""
 
     frame_ms: int = 30                 # decision frame
     padding_ms: int = 300              # hysteresis ring buffer
@@ -127,8 +128,11 @@ class VadConfig:
 
     def __post_init__(self):
         if self.decision not in ("energy", "webrtc"):
-            raise ValueError(f"VadConfig.decision must be 'energy' or "
-                             f"'webrtc': {self.decision!r}")
+            extra = " ('gmm' was demoted to a benchmark probe in round 4; " \
+                    "see vad/gmm.py)" if self.decision == "gmm" else ""
+            raise ValueError(
+                f"VadConfig.decision must be 'energy' or 'webrtc'"
+                f"{extra}: {self.decision!r}")
 
     @property
     def ring_frames(self) -> int:

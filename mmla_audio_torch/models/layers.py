@@ -22,7 +22,9 @@ attributes for the length of the fit: a BatchNorm's ``group`` makes its
 train-mode statistics those of the global batch (``Σx``, ``Σx²`` and the
 count all-reduced through autograd), and a dropout's ``shard = (rank,
 world)`` makes it draw the global batch's mask and keep its own rows, so
-the fit equals the one-process fit of the whole batch.
+the fit equals the one-process fit of the whole batch.  A group of one
+process (a data axis of 1, as on a (1, k) tensor-parallel mesh) computes
+both as the one-process fit does, so that fit is the same bits.
 """
 
 from __future__ import annotations
@@ -50,7 +52,9 @@ def _train_batch_norm(bn: nn.modules.batchnorm._BatchNorm,
     ``running = m * running + (1 - m) * batch`` for both statistics."""
     dims = [0] + list(range(2, x.ndim))
     shape = [1, -1] + [1] * (x.ndim - 2)
-    if bn.group is None:
+    # a group of one holds the whole batch: its statistics are the local
+    # ones, computed as the one-process fit computes them
+    if bn.group is None or dist.get_world_size(bn.group) == 1:
         mean = x.mean(dims)
         var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
     else:
@@ -153,7 +157,7 @@ class SeededDropout(nn.Dropout):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0 or self.generator is None:
             return super().forward(x)
-        if self.shard is None:
+        if self.shard is None or self.shard[1] == 1:
             keep = torch.empty_like(x).bernoulli_(1.0 - self.p,
                                                   generator=self.generator)
         else:

@@ -1,5 +1,7 @@
 """See the counterpart subpackage of ``mmla_audio_tpu``: data parallelism
-only (no ``param_shardings``/``shard_params``)."""
+(one process's cards, or ``torch.distributed``) and, for training across
+processes, parameters and optimizer state split over the mesh's model axis
+(``param_shardings``, ``shard_params``, ``distributed.global_mesh(n_model=)``)."""
 
 from mmla_audio_torch.parallel import distributed
 from mmla_audio_torch.parallel.mesh import (
@@ -9,9 +11,11 @@ from mmla_audio_torch.parallel.mesh import (
     Sharding,
     batch_sharding,
     make_mesh,
+    param_shardings,
     replicate_tree,
     replicated,
     shard_batch,
+    shard_params,
 )
 
 __all__ = [
@@ -22,7 +26,9 @@ __all__ = [
     "batch_sharding",
     "distributed",
     "make_mesh",
+    "param_shardings",
     "replicate_tree",
     "replicated",
     "shard_batch",
+    "shard_params",
 ]

@@ -1,11 +1,12 @@
-"""Multi-process data parallelism over ``torch.distributed`` (counterpart
-of ``mmla_audio_tpu.parallel.distributed``).
+"""Multi-process data and tensor parallelism over ``torch.distributed``
+(counterpart of ``mmla_audio_tpu.parallel.distributed``).
 
 PyTorch's idiom is one process a card: each process captures or ingests
 its own windows and holds its own batch, and the only traffic between
 processes is the training's (the corpus gathered once, the gradients and
-BatchNorm's batch sums each step; ``Trainer.fit(mesh=)``).  Serving sends
-nothing between processes.
+BatchNorm's batch sums each step, and with a model axis the parameters'
+all-gather; ``Trainer.fit(mesh=)``).  Serving sends nothing between
+processes.
 
 ``initialize()`` is a no-op unless a multi-process run is configured, and
 ``host_local_batch_to_global`` is ``shard_batch`` in one process, so the
@@ -19,6 +20,8 @@ same program runs in one process or many::
 
 Launch: ``torchrun --nproc_per_node=<cards> train.py`` (NCCL, one card a
 process), or ``initialize("host:port", world, rank)`` in each process.
+``global_mesh(n_model=k)`` lays the ranks out as a (world / k, k) grid
+whose model axis splits the parameters and their optimizer state.
 NCCL refuses two ranks on one card; on one card it runs at world size 1,
 and several processes on one machine without cards use gloo
 (``device="cpu"``).
@@ -108,23 +111,38 @@ def process_info() -> tuple[int, int]:
 
 def global_mesh(n_model: int = 1, device: str = "cuda") -> Mesh:
     """In one process, ``make_mesh`` over its cards (``device="cpu"``: the
-    CPU).  Once a process group exists (at any world size), a data axis of
-    one device a rank, in rank order (rank r's card is r modulo the cards
-    of a host, torchrun's layout), carrying the default group."""
+    CPU).  Once a process group exists (at any world size), a ``(world /
+    n_model, n_model)`` grid of one device a rank: rank ``r`` at ``(r //
+    n_model, r % n_model)``, its device card ``r`` modulo the cards of a
+    host (torchrun's layout).  With ``n_model == 1`` the data axis carries
+    the default group; otherwise every rank creates, in the same order, the
+    group of each model coordinate (a column of the grid: the ranks that
+    split the batch) and of each data coordinate (a row: the ranks that
+    split the parameters), and the mesh carries its own two."""
     if not (dist.is_available() and dist.is_initialized()):
         devices = None if device == "cuda" else [torch.device(device)]
         return make_mesh(n_model=n_model, devices=devices)
-    if n_model != 1:
-        raise ValueError("global_mesh: a model axis across processes is "
-                         "tensor parallelism, which the port does not have")
     world = dist.get_world_size()
-    grid = np.empty((world, 1), dtype=object)
+    if n_model < 1 or world % n_model:
+        raise ValueError(f"global_mesh: a model axis of {n_model} does not "
+                         f"divide the {world} processes")
+    n_data = world // n_model
+    grid = np.empty((n_data, n_model), dtype=object)
     for r in range(world):
-        grid[r, 0] = torch.device("cuda", r % torch.cuda.device_count()) \
+        grid[r // n_model, r % n_model] = \
+            torch.device("cuda", r % torch.cuda.device_count()) \
             if device == "cuda" else torch.device(device)
     cfg = MeshConfig()
-    return Mesh(grid, (cfg.data_axis, cfg.model_axis),
-                group=dist.group.WORLD)
+    axes = (cfg.data_axis, cfg.model_axis)
+    if n_model == 1:
+        return Mesh(grid, axes, group=dist.group.WORLD)
+    rank = dist.get_rank()
+    columns = [dist.new_group([i * n_model + j for i in range(n_data)])
+               for j in range(n_model)]
+    rows = [dist.new_group([i * n_model + j for j in range(n_model)])
+            for i in range(n_data)]
+    return Mesh(grid, axes, group=columns[rank % n_model],
+                model_group=rows[rank // n_model])
 
 
 def host_local_batch_to_global(x, mesh: Mesh) -> ShardedBatch:

@@ -1,12 +1,12 @@
-"""Device meshes and data parallelism (counterpart of
-``mmla_audio_tpu.parallel.mesh``).
+"""Device meshes, data parallelism and the tensor-parallel parameter rule
+(counterpart of ``mmla_audio_tpu.parallel.mesh``).
 
-Conversation windows are independent, so the port scales by data
-parallelism alone: a window batch splits into equal row blocks along its
-first axis, one block a device of the mesh's ``data`` axis, and the model
-is replicated.  There is no tensor parallelism (``param_shardings`` and
-``shard_params`` are not ported; the ``model`` axis exists so that a mesh
-has JAX's shape, and stays 1).
+Conversation windows are independent, so serving scales by data
+parallelism: a window batch splits into equal row blocks along its first
+axis, one block a device of the mesh's ``data`` axis, and the model is
+replicated.  Training can also spread its parameters and optimizer state
+over the mesh's ``model`` axis (``param_shardings``, ``shard_params``,
+``Trainer.fit`` on a ``distributed.global_mesh(n_model=k)``).
 
 Two kinds of mesh:
 
@@ -16,9 +16,12 @@ Two kinds of mesh:
   more than once: that is how a many-shard mesh is built on one card or on
   the CPU.
 * a **multi-process** mesh (``distributed.global_mesh``) has one device a
-  rank on its data axis and carries the process group: each process holds
-  only its own shard, and the reductions over the batch are the trainer's
-  (``Trainer.fit(mesh=)``), through the group.
+  rank and carries the process groups: ``group``, the ranks of this
+  process's model coordinate (they split the batch), and, with a model axis
+  over 1, ``model_group``, the ranks of its data coordinate (they split the
+  parameters).  Each process holds only its own shard; the reductions over
+  the batch and the gathers of the parameters are the trainer's
+  (``Trainer.fit(mesh=)``), through the groups.
 
 Why not ``torch.distributed.device_mesh.DeviceMesh``: it puts one device on
 each rank and needs a process group even at world size 1, while a JAX mesh
@@ -39,19 +42,22 @@ from mmla_audio_torch.core.config import MeshConfig
 
 __all__ = ["Mesh", "Sharding", "ShardedBatch", "canonical_device", "make_mesh",
            "replicated", "batch_sharding", "shard_batch", "replicate_tree",
-           "DataParallel"]
+           "param_shardings", "shard_params", "DataParallel"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
     """``devices``: an object array of ``torch.device``, shape ``(n_data,
     n_model)``; ``axis_names``: the data axis first; ``group``: the process
-    group when the data axis spans processes (one device a rank, in rank
-    order), else None."""
+    group of the data axis when it spans processes (the ranks that share
+    this process's model coordinate, in data order), else None;
+    ``model_group``: the ranks that share this process's data coordinate,
+    in model order, when the model axis spans processes, else None."""
 
     devices: np.ndarray
     axis_names: tuple
     group: Any = None
+    model_group: Any = None
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -61,17 +67,19 @@ class Mesh:
     @property
     def local_devices(self) -> List[torch.device]:
         """The data-axis devices whose shards this process holds, in axis
-        order: all of them in one process, this rank's across processes."""
-        data = list(self.devices[:, 0])
+        order: all of them in one process (the model axis's first column),
+        this rank's own across processes."""
         if self.group is None:
-            return data
+            return list(self.devices[:, 0])
         import torch.distributed as dist
 
-        return [data[dist.get_rank(self.group)]]
+        j = 0 if self.model_group is None else \
+            dist.get_rank(self.model_group)
+        return [self.devices[dist.get_rank(self.group), j]]
 
     def _key(self) -> tuple:
         return (tuple(self.devices.ravel().tolist()), self.devices.shape,
-                tuple(self.axis_names), self.group)
+                tuple(self.axis_names), self.group, self.model_group)
 
     def __eq__(self, other) -> bool:
         return isinstance(other, Mesh) and self._key() == other._key()
@@ -173,13 +181,13 @@ def shard_batch(x, mesh: Mesh) -> ShardedBatch:
         raise ValueError(f"shard_batch: {tuple(x.shape)} rows do not divide "
                          f"by the data axis ({n})")
     rows = x.shape[0] // n
-    data = list(mesh.devices[:, 0])
     picks = range(n)
     if mesh.group is not None:
         import torch.distributed as dist
 
         picks = [dist.get_rank(mesh.group)]
-    shards = [x[i * rows:(i + 1) * rows].to(data[i]) for i in picks]
+    shards = [x[i * rows:(i + 1) * rows].to(d)
+              for i, d in zip(picks, mesh.local_devices)]
     return ShardedBatch(shards, batch_sharding(mesh), tuple(x.shape))
 
 
@@ -205,6 +213,57 @@ def replicate_tree(tree: Any, mesh: Mesh) -> Dict[torch.device, Any]:
     for d in mesh.local_devices:
         if d not in out:
             out[d] = _copy_to(tree, d)
+    return out
+
+
+def param_shardings(tree, mesh: Mesh, axis: Optional[str] = None
+                    ) -> Dict[str, Optional[int]]:
+    """The tensor-parallel rule of the JAX package, per tensor of ``tree``
+    (an ``nn.Module``'s parameters, or a state dict): split along its
+    output-feature dimension over ``axis`` (default the model axis, the
+    mesh's last) every tensor of at least 2 dimensions whose output-feature
+    dimension divides by the axis's size; replicate the rest (biases,
+    BatchNorm vectors and statistics, a head whose width does not divide).
+
+    The output-feature dimension is the JAX layout's last axis; in the
+    port's layouts (``params.py``) it is dim 0: OIHW and (out, in, k)
+    convolutions, (out, in) Dense and (4H, in) LSTM weights.  Returns
+    ``{name: 0 or None}`` (None: replicated); with an axis of size 1 every
+    tensor is replicated."""
+    axis = mesh.axis_names[-1] if axis is None else axis
+    n = mesh.shape[axis]
+    items = tree.named_parameters() if isinstance(tree, nn.Module) \
+        else tree.items()
+    return {name: 0 if n > 1 and t.ndim >= 2 and t.shape[0] % n == 0
+            else None for name, t in items}
+
+
+def shard_params(tree, mesh: Mesh, axis: Optional[str] = None
+                 ) -> Dict[str, List[torch.Tensor]]:
+    """``tree``'s tensors laid out by ``param_shardings``: for each name,
+    this process's blocks in model-axis order, each on its device (the
+    mesh's first data row in one process; across processes the one block
+    of this rank's model coordinate, on its device).  A replicated tensor's
+    block is the whole tensor."""
+    axis = mesh.axis_names[-1] if axis is None else axis
+    n = mesh.shape[axis]
+    split = param_shardings(tree, mesh, axis)
+    items = dict(tree.named_parameters()) if isinstance(tree, nn.Module) \
+        else dict(tree)
+    if mesh.model_group is None:
+        picks = list(enumerate(mesh.devices[0, :]))
+    else:
+        import torch.distributed as dist
+
+        picks = [(dist.get_rank(mesh.model_group), mesh.local_devices[0])]
+    out = {}
+    for name, t in items.items():
+        t = t.detach()
+        if split[name] is None:
+            out[name] = [t.to(d) for _, d in picks]
+        else:
+            size = t.shape[0] // n
+            out[name] = [t[j * size:(j + 1) * size].to(d) for j, d in picks]
     return out
 
 

@@ -20,6 +20,11 @@ in)); the Keras LSTM's single ``bias`` goes to ``bias_ih`` with ``bias_hh =
 ``overlap_tree_from_state_dict`` and ``speaker_tree_from_state_dict`` are
 the inverses, for a model the port trained: they write the LSTM's
 ``bias_ih + bias_hh`` as the Keras bias.
+
+``gmm_state_from_numpy`` carries a JAX ``GmmVadState`` (its five leaves as
+numpy arrays) into the port's ``vad.gmm.GmmVadState``, and
+``gmm_state_to_numpy`` back, so that both packages can run from one
+calibrated detector state.
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ from mmla_audio_torch.core.config import OverlapModelConfig, SpeakerModelConfig
 __all__ = ["overlap_tree_shapes", "overlap_state_dict_from_jax",
            "overlap_tree_from_state_dict", "load_overlap_npz", "save_npz",
            "speaker_tree_shapes", "speaker_state_dict_from_jax",
-           "speaker_tree_from_state_dict", "load_speaker_npz"]
+           "speaker_tree_from_state_dict", "load_speaker_npz",
+           "gmm_state_from_numpy", "gmm_state_to_numpy"]
 
 
 def _conv(kh, kw, cin, cout):
@@ -367,3 +373,22 @@ def load_speaker_npz(path, cfg: SpeakerModelConfig = SpeakerModelConfig()
                          f"model's weights") from None
     _check(tree, speaker_tree_shapes(cfg, head_units))
     return tree, head_units
+
+
+def gmm_state_from_numpy(d, device: torch.device | str = "cpu"):
+    """A GMM VAD state's leaves (a mapping, or a JAX ``GmmVadState`` or any
+    named tuple with those fields) -> the port's ``GmmVadState`` of fp32
+    tensors on ``device``."""
+    from mmla_audio_torch.vad.gmm import GmmVadState
+
+    leaves = d._asdict() if hasattr(d, "_asdict") else d
+    return GmmVadState(*(
+        torch.from_numpy(np.array(leaves[name], np.float32)).to(device)
+        for name in GmmVadState._fields))
+
+
+def gmm_state_to_numpy(state) -> Dict[str, np.ndarray]:
+    """The inverse: ``{field: float32 array}`` of a port ``GmmVadState``
+    (``GmmVadState(**d)`` in the JAX package)."""
+    return {name: t.detach().to("cpu", torch.float32).numpy()
+            for name, t in state._asdict().items()}

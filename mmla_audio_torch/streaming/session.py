@@ -86,7 +86,7 @@ def session_stamp(now: Optional[datetime] = None) -> str:
 @torch.no_grad()
 def preprocess_window(window_i16, noise_thresh: torch.Tensor,
                       cfg: PipelineConfig, *, vad=None,
-                      vad_threshold_db: float = 30.0
+                      vad_threshold_db: float = 30.0, gmm_state=None
                       ) -> tuple[torch.Tensor, int]:
     """The single-window chain on ``noise_thresh``'s device: int16 window
     -> /32768 -> denoise (``passes_live``) -> int16 re-quantization ->
@@ -95,7 +95,13 @@ def preprocess_window(window_i16, noise_thresh: torch.Tensor,
     ``vad_threshold_db``) -> ``vad_trim``.  Only the collector's ``T``
     frames (strict ``<``) reach the detector.  Returns the trimmed
     int16-scale float window on that device (zero beyond the count) and
-    the count."""
+    the count.
+
+    ``gmm_state`` (a ``vad.gmm.GmmVadState`` on that device) selects the
+    float GMM approximation instead, a probe that no serving surface
+    passes: ``gmm_vad`` over the whole window (G1 on the card), its
+    decisions cut to the collector's ``T``; the adapted state is dropped,
+    as in the JAX package."""
     sr = cfg.audio.sample_rate
     raw = torch.as_tensor(np.asarray(window_i16, np.int16))
     y = raw.to(noise_thresh.device).to(torch.float32) / 32768.0
@@ -107,6 +113,12 @@ def preprocess_window(window_i16, noise_thresh: torch.Tensor,
     if vad is not None:
         decisions = vad.decisions(i16[: T * fl].to("cpu", torch.int16).numpy(),
                                   frame_len=fl, sample_rate=sr)
+    elif gmm_state is not None:
+        from mmla_audio_torch.vad.gmm import gmm_vad
+
+        decisions = gmm_vad(i16, gmm_state,
+                            aggressiveness=cfg.vad.aggressiveness,
+                            frame_len=fl)[0][:T]
     else:
         decisions = energy_vad(i16[: T * fl].reshape(T, fl), vad_threshold_db)
     return vad_trim(i16, i16.shape[-1], decisions, fl, cfg.vad.ring_frames)

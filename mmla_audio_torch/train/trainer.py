@@ -24,7 +24,21 @@ gradients are all-reduced as a sum, the penalty counts once (rank 0's),
 BatchNorm's statistics and dropout's masks are the global batch's
 (``models.layers``), and the parameters are broadcast from rank 0 first,
 so the fit equals the one-process fit.  A one-process mesh must hold a
-single device and runs exactly as ``mesh=None``.
+single device and runs exactly as ``mesh=None``, whatever its shape.
+
+A mesh whose model axis spans processes (``distributed.global_mesh(
+n_model=k)``) also splits the parameters: parameter-sharded data
+parallelism, the storage GSPMD's layout of the JAX package gives.  Each
+rank keeps, of every parameter that ``parallel.param_shardings`` splits,
+only its block of the master weights, and the optimizer is built over
+those blocks (and the replicated parameters), so its state is split the
+same way; Keras Adadelta and RMSprop are elementwise, so a block's update
+is the full update's block.  The batch is split over the data axis alone
+(the ranks of one data coordinate see the same rows); after backward the
+gradients are all-reduced over the data group, each rank copies its block
+of every split gradient into its block's ``.grad`` and steps, and one flat
+all-gather over the model group rebuilds the module's whole working
+weights for the next step (and for evaluation and ``variables_of``).
 """
 
 from __future__ import annotations
@@ -38,7 +52,7 @@ from torch import nn
 
 from mmla_audio_torch.models.layers import (KerasBatchNorm, KerasBatchNorm1d,
                                             SeededDropout)
-from mmla_audio_torch.parallel.mesh import ShardedBatch
+from mmla_audio_torch.parallel.mesh import ShardedBatch, param_shardings
 from mmla_audio_torch.precision import fp32_policy
 
 __all__ = ["Trainer", "pad_to_batches", "masked_mean"]
@@ -66,6 +80,54 @@ def _correct(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return (torch.argmax(logits, -1) == torch.argmax(y, -1)).to(torch.float32)
 
 
+class _Blocks:
+    """A rank's blocks of the split parameters on a model axis: ``masters``
+    (what the optimizer steps: each split parameter's block along dim 0 as
+    a leaf tensor, each replicated parameter itself), the gradient copy
+    into the blocks and the all-gather back into the whole parameters."""
+
+    def __init__(self, params: List[nn.Parameter], split, group):
+        self.group = group
+        self.k, self.j = dist.get_world_size(group), dist.get_rank(group)
+        self.masters: List[torch.Tensor] = []
+        self.pairs = []                        # (parameter, its block)
+        for p, dim in zip(params, split):
+            if dim is None:
+                self.masters.append(p)
+                continue
+            rows = p.shape[0] // self.k
+            block = p.detach()[self.j * rows:(self.j + 1) * rows].clone()
+            block.requires_grad_(True)
+            self.masters.append(block)
+            self.pairs.append((p, block))
+
+    def grads_to_blocks(self) -> None:
+        """Each split parameter's gradient block into its block's ``.grad``
+        (the parameter's own gradient is then dropped: no optimizer owns
+        it)."""
+        for p, block in self.pairs:
+            if p.grad is not None:
+                rows = block.shape[0]
+                block.grad = p.grad[self.j * rows:(self.j + 1) * rows].clone()
+                p.grad = None
+
+    @torch.no_grad()
+    def gather(self) -> None:
+        """One flat all-gather of every block over the model group, each
+        parameter rebuilt from its ``k`` blocks in model order."""
+        if not self.pairs:
+            return
+        flat = torch.cat([b.reshape(-1) for _, b in self.pairs])
+        parts = [torch.empty_like(flat) for _ in range(self.k)]
+        dist.all_gather(parts, flat, group=self.group)
+        whole = torch.stack(parts)                   # (k, blocks' numel)
+        offset = 0
+        for p, block in self.pairs:
+            n = block.numel()
+            p.view(self.k, n).copy_(whole[:, offset: offset + n])
+            offset += n
+
+
 class Trainer:
     """Trains ``model`` in place.
 
@@ -82,7 +144,9 @@ class Trainer:
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self._params = [p for p in model.parameters() if p.requires_grad]
+        self._tx = tx
         self.optimizer = tx(self._params)
+        self._blocks: Optional[_Blocks] = None   # a model axis's blocks
         self.loss_fn = loss_fn
         self.extra_penalty_fn = extra_penalty_fn
         self.generator = torch.Generator().manual_seed(seed)
@@ -123,7 +187,11 @@ class Trainer:
             loss.backward()
             if group is not None:
                 self._all_reduce_grads(group)
+            if self._blocks is not None:
+                self._blocks.grads_to_blocks()
             self.optimizer.step()
+            if self._blocks is not None:
+                self._blocks.gather()
         correct = torch.sum(_correct(logits.detach(), y) * mask) / denom
         return loss.detach(), correct
 
@@ -160,18 +228,15 @@ class Trainer:
         loss, acc = stats.mean(0).tolist()
         return loss, acc
 
-    def _mesh_group(self, mesh, batch_size: int):
-        """The process group a fit on ``mesh`` reduces over (None: the
-        one-process fit), after the mesh's checks."""
+    def _mesh_groups(self, mesh, batch_size: int) -> tuple:
+        """The process groups a fit on ``mesh`` reduces over: (data group,
+        model group), each None where the fit needs none (``(None, None)``:
+        the one-process fit), after the mesh's checks."""
         if mesh is None:
-            return None
+            return None, None
         data_axis, model_axis = mesh.axis_names[0], mesh.axis_names[-1]
-        if model_axis != data_axis and mesh.shape[model_axis] > 1:
-            raise ValueError(
-                f"Trainer.fit: the mesh's model axis has "
-                f"{mesh.shape[model_axis]} devices; that is tensor "
-                f"parallelism, which the port does not have")
         n_data = mesh.shape[data_axis]
+        n_model = mesh.shape[model_axis] if model_axis != data_axis else 1
         if batch_size % n_data:
             raise ValueError(f"Trainer.fit: batch_size {batch_size} does not "
                              f"divide by the data axis ({n_data})")
@@ -189,12 +254,35 @@ class Trainer:
                     and only.index != self.device.index):
                 raise ValueError(f"Trainer.fit: the mesh is on {only}, the "
                                  f"trainer on {self.device}")
-            return None
+            return None, None
         if dist.get_world_size(mesh.group) != n_data:
             raise ValueError(f"Trainer.fit: a data axis of {n_data} over "
                              f"{dist.get_world_size(mesh.group)} processes; "
                              f"one device a rank")
-        return mesh.group
+        if n_model == 1:
+            return mesh.group, None
+        if mesh.model_group is None or \
+                dist.get_world_size(mesh.model_group) != n_model:
+            raise ValueError(f"Trainer.fit: a model axis of {n_model} needs "
+                             f"its process group (global_mesh(n_model="
+                             f"{n_model}))")
+        return mesh.group, mesh.model_group
+
+    def _split_parameters(self, mesh, group) -> None:
+        """Keep only this rank's blocks of the split parameters' master
+        weights and optimizer state (``_Blocks``); the optimizer is rebuilt
+        over them once for a model group and kept across fits on it."""
+        if self._blocks is not None and self._blocks.group is group:
+            return
+        if self._blocks is not None:
+            raise ValueError("Trainer.fit: this trainer's optimizer holds "
+                             "the blocks of another model axis")
+        names = {id(p): n for n, p in self.model.named_parameters()}
+        split = param_shardings(self.model, mesh)
+        self._blocks = _Blocks(self._params,
+                               [split[names[id(p)]] for p in self._params],
+                               group)
+        self.optimizer = self._tx(self._blocks.masters)
 
     def _shard_layers(self, group) -> None:
         """Point the model's BatchNorms and dropouts at ``group`` (None:
@@ -237,11 +325,15 @@ class Trainer:
         generator.
 
         ``mesh`` (``parallel.distributed.global_mesh()``): data-parallel
-        across the processes of its group, one device a rank (see the
-        module docstring); ``batch_size`` is global and must divide by the
-        data axis.  ``x_train``/``y_train`` may be host-local
+        across the processes of its group, one device a rank, and with a
+        model axis over 1 (``global_mesh(n_model=k)``) the parameters and
+        optimizer state split over it (see the module docstring);
+        ``batch_size`` is global and must divide by the data axis.  ``x_train``/``y_train`` may be host-local
         ``ShardedBatch``es (``host_local_batch_to_global``)."""
-        group = self._mesh_group(mesh, batch_size)
+        group, model_group = self._mesh_groups(mesh, batch_size)
+        if model_group is None and self._blocks is not None:
+            raise ValueError("Trainer.fit: this trainer's optimizer holds a "
+                             "model axis's blocks; fit it on that mesh")
         x_train, y_train = (a.gather(self.device)
                             if isinstance(a, ShardedBatch) else a
                             for a in (x_train, y_train))
@@ -249,11 +341,14 @@ class Trainer:
                                     self._tensor(y_train), batch_size)
         if x_val is not None:
             x_val, y_val = self._tensor(x_val), self._tensor(y_val)
-        if group is not None:
-            src = dist.get_global_rank(group, 0)
-            with torch.no_grad():
-                for t in self.model.state_dict().values():
-                    dist.broadcast(t, src=src, group=group)
+        with torch.no_grad():
+            for g in (group, model_group):
+                if g is not None:
+                    src = dist.get_global_rank(g, 0)
+                    for t in self.model.state_dict().values():
+                        dist.broadcast(t, src=src, group=g)
+        if model_group is not None:
+            self._split_parameters(mesh, model_group)
         self._shard_layers(group)
         try:
             history: Dict[str, List[float]] = {"loss": [], "acc": [],

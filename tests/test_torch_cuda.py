@@ -1,6 +1,7 @@
 """Tests that need the card: the CUDA kernels (featurizer, one window and
 grouped, on speech, silence and a clipped sine; fused residual block; the
-batched webrtcvad engine W1 and the collector W2; the denoise's D1 and D2)
+batched webrtcvad engine W1 and the collector W2; the denoise's D1 and D2;
+the GMM VAD's adaptation scan G1)
 against their plain versions, the block's dispatch rule, the predictor on
 the card against the CPU, the multiplexer's launches, the denoise of a
 window equal in a batch and alone, and the predictor captured as a CUDA
@@ -796,3 +797,80 @@ def test_initialize_nccl_world_of_one(device):
     finally:
         tdist.destroy_process_group()
         dist._initialized = False
+
+
+def _gmm_rows(batch, seed=0, frames=85):
+    """Band and frame energies of ``batch`` speech windows with silences
+    (int16 scale, ``frames`` frames) and their state rows: the mixtures
+    calibrated on seeded noise, each row's means shifted by a seeded
+    offset."""
+    from mmla_audio_torch.vad import gmm
+
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(_vad_windows(batch, seed=seed, n=frames * 480)
+                         .astype(np.float32))
+    st = gmm.gmm_init_from_noise((rng.randn(160000) * 300).astype(np.int16),
+                                 device="cpu")
+    rows = gmm.state_rows(st).expand(batch, -1).clone()
+    shift = torch.from_numpy(rng.uniform(-3, 3, (batch, 1)).astype(np.float32))
+    rows[:, 0:12] += shift                  # noise means
+    rows[:, 24:36] += shift                 # speech means
+    return gmm.band_log_energies(x), gmm.total_db(x), rows
+
+
+@pytest.mark.parametrize("adapt", [True, False])
+@pytest.mark.parametrize("batch,frames", [(1, 85), (8, 85), (64, 85),
+                                          (5, 1), (3, 400)])
+def test_gmm_vad_kernel_matches_plain(device, batch, frames, adapt):
+    """G1 against the plain frame loop on the card: decisions equal where
+    the plain run's margins exceed 1e-3, final states within 1e-5 on rows
+    whose decisions all agree (the update's IEEE operations are the plain
+    loop's, in its order)."""
+    from mmla_audio_torch.vad import gmm
+
+    e, tot, rows = (a.to(device) for a in _gmm_rows(batch, 5, frames))
+    for mode in (0, 3):
+        before = gmm.gmm_vad_rows.launches
+        dec, out = gmm.gmm_vad_rows(e, tot, rows, mode, adapt)
+        torch.cuda.synchronize()
+        assert gmm.gmm_vad_rows.launches == before + 1
+        ref_dec, ref_out, margins = gmm.gmm_vad_rows_plain(
+            e, tot, rows, mode, adapt, with_margins=True)
+        clear = (margins > 1e-3).all(-1)
+        assert dec.dtype == torch.bool and dec.shape == (batch, frames)
+        assert torch.equal(dec[clear], ref_dec[clear])
+        same = (dec == ref_dec).all(1)
+        assert bool(same.any())
+        torch.testing.assert_close(out[same], ref_out[same], rtol=0,
+                                   atol=1e-5)
+
+
+def test_gmm_vad_kernel_batch_equals_alone(device):
+    """A row's decisions and state are the same bits alone and in a batch
+    of 64."""
+    from mmla_audio_torch.vad import gmm
+
+    e, tot, rows = (a.to(device) for a in _gmm_rows(64, 6))
+    dec, out = gmm.gmm_vad_rows(e, tot, rows)
+    for b in (0, 1, 31, 63):
+        d1, o1 = gmm.gmm_vad_rows(e[b:b + 1], tot[b:b + 1], rows[b:b + 1])
+        assert torch.equal(d1[0], dec[b]) and torch.equal(o1[0], out[b])
+
+
+def test_gmm_vad_on_the_card_launches_g1(device):
+    """``gmm_vad`` of a CUDA window launches G1 once and agrees with the
+    CPU's plain loop; a CPU window never reaches G1."""
+    from mmla_audio_torch.vad import gmm
+
+    rng = np.random.RandomState(2)
+    st = gmm.gmm_init_from_noise((rng.randn(160000) * 40).astype(np.int16),
+                                 device="cpu")
+    x = torch.from_numpy(_vad_windows(1, seed=9)[0].astype(np.float32))
+    before = gmm.gmm_vad_rows.launches
+    ref, ref_st = gmm.gmm_vad(x, st)
+    assert gmm.gmm_vad_rows.launches == before
+    got, got_st = gmm.gmm_vad(x.to(device),
+                              gmm.GmmVadState(*(t.to(device) for t in st)))
+    assert gmm.gmm_vad_rows.launches == before + 1
+    assert got.device.type == "cuda" and got.shape == ref.shape
+    assert float((got.cpu() == ref).float().mean()) > 0.95

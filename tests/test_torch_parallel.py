@@ -248,13 +248,21 @@ def test_fit_one_device_mesh_is_the_unsplit_fit(narrow_tree):
 
 
 def test_fit_mesh_rules(narrow_tree):
-    """A model axis over 1 (tensor parallelism) raises; so do a one-process
-    mesh of several devices, a batch that does not divide by the data axis
-    and a mesh on another device than the trainer's."""
-    tr = _trainer(narrow_tree)
+    """A one-process (data x model) mesh of one device is taken and runs as
+    ``mesh=None`` (the model axis spans processes only with
+    ``global_mesh(n_model=)``); a one-process mesh of several devices, a
+    batch that does not divide by the data axis and a mesh on another
+    device than the trainer's raise."""
     x, y = toy_data(8, seed=3)
-    cases = [(make_mesh(4, 2, devices=[CPU] * 8), 8, "tensor parallelism"),
-             (make_mesh(devices=[CPU] * 4), 6, "does not divide")]
+    runs = []
+    for mesh in (None, make_mesh(4, 2, devices=[CPU] * 8)):
+        tr = _trainer(narrow_tree)
+        runs.append((tr.fit(x, y, epochs=1, batch_size=8, mesh=mesh),
+                     tr.variables_of()))
+    assert runs[1][0] == runs[0][0]
+    assert all(torch.equal(runs[1][1][k], runs[0][1][k]) for k in runs[0][1])
+    tr = _trainer(narrow_tree)
+    cases = [(make_mesh(devices=[CPU] * 4), 6, "does not divide")]
     cuda_like = make_mesh(devices=[CPU, CPU])
     cuda_like.devices[1, 0] = torch.device("meta")
     cases.append((cuda_like, 8, "one process a card"))

@@ -223,20 +223,11 @@ def _flags(main, monkeypatch):
             for name, p in sub.choices.items()}
 
 
-# JAX flags the port does not take (ROADMAP A9), by subcommand
-CACHE = {"--compile-cache"}
-NOT_YET = {
-    "setup": set(),
-    "overlap-live": CACHE,
-    "speaker-live": CACHE,
-    "overlap-post": CACHE,
-    "speaker-post": CACHE,
-    "overlap-run": CACHE,
-    "speaker-pretrain": CACHE,
-    "synth-corpus": CACHE,
-    "overlap-train": CACHE,
-    "charts": CACHE,
-}
+# JAX flags the port does not take, by subcommand: none is left
+NOT_YET = {cmd: set() for cmd in (
+    "setup", "overlap-live", "speaker-live", "overlap-post", "speaker-post",
+    "overlap-run", "speaker-pretrain", "synth-corpus", "overlap-train",
+    "charts")}
 # the port's own: the device, the .npz weights, and the seed (random init,
 # and the order of training) where the JAX command has none
 OWN = {"setup": set(), "charts": set(),
