@@ -292,19 +292,34 @@ DIST_RTOL, DIST_ATOL = 1e-4, 1e-5
 # split), held at TP_RTOL / TP_ATOL
 TP_EPOCHS, TP_RTOL, TP_ATOL, TP_TIMEOUT = 3, 1e-5, 1e-6, 600
 TP_MOMENTUM = 0.9                          # SGD's state: a buffer a value
-# phase 12, the GMM VAD: G1 against the plain frame loop at GMM_BATCHES rows
-# of VAD_T frames (decisions equal where the plain run's margins exceed
-# GMM_MARGIN, final states within GMM_STATE_ATOL on rows whose decisions
-# all agree); preprocess_window(gmm_state=) over GMM_WINDOWS windows at
-# B=1 in turns with the webrtc and energy decisions; GMM_CHECK of them
-# through gmm_vad on the card against the plain loop on the CPU.  G1's
-# chain bound: VAD_T frames x G1_FRAME_OPS dependent operations (read from
-# csrc/gmm_vad.cu, g1_chain_ms) of FP32_LATENCY cycles; its operations
-# bound at the CUDA cores' fp32 rate (no tensor-core form), G1_BAND_OPS a
-# band a frame
-GMM_BATCHES, GMM_WINDOWS, GMM_CHECK = (1, 8, 64), 60, 8
+# phase 12, the GMM VAD: G1 from samples against the plain filterbank and
+# frame loop at GMM_BATCHES windows (frame lengths GMM_FRAME_LENS) and on
+# the 10 s calibration clip (GMM_CALIBRATION samples): band energies within
+# GMM_DB dB of the plain filterbank's, or, a band more than GMM_QUIET_DB
+# below its frame's energy, within GMM_QUIET_LIN of that energy in linear
+# terms; decisions equal where the plain run's margins exceed GMM_MARGIN;
+# final states bit for bit those of the plain loop fed G1's own energies
+# (rows whose decisions agree); each row's bits alone equal to the batch's.
+# G1's energies-in entry (the scan alone) against the plain loop, states
+# within GMM_STATE_ATOL.  preprocess_window(gmm_state=) over GMM_WINDOWS
+# windows at B=1 in turns with the webrtc and energy decisions; GMM_CHECK
+# of them through gmm_vad on the card against the plain path on the CPU.
+# G1's chain floor: T frames x G1_FRAME_OPS dependent operations (read
+# from csrc/gmm_vad.cu, g1_chain_ms) of FP32_LATENCY cycles; its
+# operations (g1_work: the FIRs' FMAs, the squares) at the CUDA cores'
+# fp32 rate (no tensor-core form).  Beside them, the earlier G1 that ran
+# the scan alone behind plain filterbank ops: its times (G1_SCAN_ONLY_MS)
+# and the GMM path's device launches a window then
+# (GMM_PATH_LAUNCHES_BEFORE), both measured on an H100 80GB HBM3 at 700 W,
+# the latter by scripts/gmm_probe.py path --root on that tree
+GMM_BATCHES, GMM_FRAME_LENS, GMM_CALIBRATION = (1, 8, 64, 512), (480, 400), \
+    160000
+GMM_WINDOWS, GMM_CHECK = 60, 8
 GMM_MARGIN, GMM_STATE_ATOL = 1e-3, 1e-5
-G1_FRAME_OPS, FP32_LATENCY, G1_BAND_OPS = 37, 4, 100
+GMM_DB, GMM_QUIET_DB, GMM_QUIET_LIN = 1e-3, 40.0, 1e-6
+G1_FRAME_OPS, FP32_LATENCY = 31, 4
+G1_SCAN_ONLY_MS = {1: 0.0655, 8: 0.0676, 64: 0.0681}
+GMM_PATH_LAUNCHES_BEFORE = 154
 FP32_CORE_FLOP_S = 67e12
 # phase 0: the denoise kernels at live windows (T = 183 frames) of these
 # batches and on the 12-minute file; D1 of max |ref| (fp32 sums of 1,024 or
@@ -1517,7 +1532,8 @@ def launch_counters():
     from mmla_audio_torch.ops.cuda_features import overlap_model_input_cuda
     from mmla_audio_torch.ops.cuda_resblock import fused_resblock_cuda
     from mmla_audio_torch.vad.collector import vad_collect_rows
-    from mmla_audio_torch.vad.gmm import gmm_vad_rows
+    from mmla_audio_torch.vad.gmm import (gmm_vad_rows, gmm_vad_windows,
+                                          window_log_energies)
     from mmla_audio_torch.vad.webrtc import webrtc_vad_rows
 
     return ((overlap_model_input_cuda, "launches"),
@@ -1526,7 +1542,8 @@ def launch_counters():
             (fused_resblock_cuda, "launches_mma"),
             (webrtc_vad_rows, "launches"),
             (vad_collect_rows, "launches"),
-            (gmm_vad_rows, "launches")) + denoise_counters()
+            (gmm_vad_rows, "launches"), (gmm_vad_windows, "launches"),
+            (window_log_energies, "launches")) + denoise_counters()
 
 
 def denoise_counters():
@@ -3625,52 +3642,127 @@ def phase_edge(device, cfg, state_dict, noise, tmp: Path, clips) -> dict:
 
 # -- phase 12: the GMM VAD ---------------------------------------------------
 
-def g1_bound(batch: int) -> dict:
-    """G1's least time: its bytes (band and frame energies and the state
-    row read once, the state row and the decisions written once) at the
-    memory rate, or its fp32 operations (``G1_BAND_OPS`` a band a frame,
-    read from the source, a transcendental counted as one) at the CUDA
-    cores' rate (its work has no tensor-core form)."""
-    nbytes = batch * (VAD_T * (6 + 1) * 4 + 2 * 54 * 4 + VAD_T)
-    ops = batch * VAD_T * 6 * G1_BAND_OPS
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / FP32_CORE_FLOP_S
+def g1_work(n: int, frame_len: int = VAD_FRAME) -> tuple:
+    """(FLOPs, bytes) of one window of ``n`` samples through G1 without
+    its energies output: each half-band split 128 FLOP an input sample (two
+    64-tap FMA chains an output, an output every two inputs) over the
+    cascade's lengths (16, 8, 4 kHz twice, 2 and 1 kHz), the 80 Hz FIR 128
+    an output, the squares of every framed sample, 2 FLOP each; the samples
+    read once, the state row read and written, a byte a decision."""
+    n2 = n // 2
+    n4 = n2 // 2
+    n8, T = n4 // 2, n // frame_len
+    n16 = n8 // 2
+    framed = T * (frame_len + 3 * (frame_len // 8) + frame_len // 16
+                  + 2 * (frame_len // 32))
+    flops = 128 * (n + n2 + 2 * n4 + n8 + n16) + 128 * (n16 // 2) \
+        + 2 * framed
+    return flops, n * 4 + 2 * 54 * 4 + T
+
+
+def g1_bound(batch: int, n: int = VAD_T * VAD_FRAME,
+             frame_len: int = VAD_FRAME) -> dict:
+    """G1's least time at ``batch`` windows: its bytes (``g1_work``) at the
+    memory rate or its fp32 operations at the CUDA cores' rate (the FIRs
+    have no tensor-core form at fp32)."""
+    flops, nbytes = g1_work(n, frame_len)
+    t_bytes = batch * nbytes / HBM_BYTES_S
+    t_ops = batch * flops / FP32_CORE_FLOP_S
     return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def g1_chain_ms() -> float:
-    """G1's serial floor: VAD_T frames, each ``G1_FRAME_OPS`` dependent
-    operations at ``FP32_LATENCY`` cycles (read from the source, not its
-    SASS; shuffles, divisions and transcendentals take longer, so this is
-    a floor): the speech log-mixture (subtract, a division as 4, two
-    multiplies, two subtracts, an add, the partner's shuffle, a max, a
-    subtract, exp as 2, an add, log as 2, an add: 19), the log-LR and its
-    weighted sum (a subtract, a multiply, a shuffle, five adds, the
-    compare and the decision's select: 10), and the noise mean's update
-    into the next frame's speech mean (a multiply, an add, the min_track
-    clamp, the partner's shuffle, a max, an add, a max: 8); at the card's
-    highest SM clock."""
-    return VAD_T * G1_FRAME_OPS * FP32_LATENCY / (sm_clock_mhz() * 1e6) * 1e3
+def g1_chain_ms(frames: int = VAD_T) -> float:
+    """G1's serial floor: ``frames`` frames of the scan, each
+    ``G1_FRAME_OPS`` dependent operations at ``FP32_LATENCY`` cycles (read
+    from the source, not its SASS; shuffles, divisions and
+    transcendentals take longer, so this is a floor): the log-mixture of
+    the lane's component (subtract, a division as 4, two multiplies, two
+    subtracts, an add, the partner's shuffle, a max, a subtract, exp as 2,
+    an add, log as 2, an add: 19), the log-LR and its weighted sum (the
+    speech/noise shuffle, a subtract, a multiply, a shuffle, five adds,
+    the compare, the or with the local ballot: 11), and the select of the successor state that the lane
+    computed for both decisions before knowing it (1); at the card's
+    highest SM clock.  The successors' own path (~27 operations: the
+    winner's division, the update, the clamps and their shuffles, the log
+    of the std) runs beside it."""
+    return frames * G1_FRAME_OPS * FP32_LATENCY / (sm_clock_mhz() * 1e6) \
+        * 1e3
 
 
-def gmm_rows(device, cfg, batch: int, seed: int) -> tuple:
-    """``batch`` denoised live windows' band and frame energies ``(B,
-    VAD_T, 6)``, ``(B, VAD_T)`` on the card and their state rows: each
-    row's mixtures calibrated on its own ambient noise."""
+def gmm_inputs(device, cfg, batch: int, seed: int) -> tuple:
+    """``batch`` denoised live windows ``(B, VAD_T * VAD_FRAME)`` (int16
+    scale, float32) on the card and their state rows: each row's mixtures
+    calibrated on its own ambient noise (eight clips, ``gmm_init_from_noise``
+    on the card, so through G1's energies launch)."""
     from mmla_audio_torch.vad import gmm
 
     raw = vad_windows(batch, seed)
-    rows = []
-    for b in range(batch):
-        noise = ambient(seed + 1 + b % 8)
-        if b < 8:
-            rows.append(gmm.state_rows(gmm.gmm_init_from_noise(
-                noise, device=device)))
-        else:
-            rows.append(rows[b % 8])
-    i16 = denoised_i16(device, cfg, raw, ambient(seed + 1)).float()
-    return (gmm.band_log_energies(i16), gmm.total_db(i16),
-            torch.stack(rows).contiguous())
+    calibrated = [gmm.state_rows(gmm.gmm_init_from_noise(
+        ambient(seed + 1 + b), device=device)) for b in range(min(batch, 8))]
+    rows = torch.stack([calibrated[b % 8] for b in range(batch)])
+    x = denoised_i16(device, cfg, raw, ambient(seed + 1)).float()
+    return x.contiguous(), rows.contiguous()
+
+
+def g1_energies_close(got, ref, tot) -> float:
+    """G1's band energies against the plain filterbank's: within ``GMM_DB``
+    dB, or, a band more than ``GMM_QUIET_DB`` below its frame's energy (the
+    FIRs' cancellation costs it relative accuracy), within ``GMM_QUIET_LIN``
+    of the frame's energy in linear terms.  Returns the largest difference
+    in dB."""
+    if got.shape != ref.shape:
+        raise AssertionError(f"G1's band energies {tuple(got.shape)}, the "
+                             f"plain filterbank's {tuple(ref.shape)}")
+    diff = (got - ref).abs()
+    quiet = ref < tot[..., None] - GMM_QUIET_DB
+    lin = lambda db: 10.0 ** (db.double() / 10.0)          # noqa: E731
+    lin_ok = (lin(got) - lin(ref)).abs() <= GMM_QUIET_LIN \
+        * lin(tot)[..., None]
+    if not bool(torch.isfinite(got).all()) or \
+            not bool(((diff <= GMM_DB) | (quiet & lin_ok)).all()):
+        raise AssertionError(f"G1's band energies: {float(diff.max())} dB "
+                             f"from the plain filterbank's")
+    return float(diff.max())
+
+
+def check_g1_windows(x, rows, frame_len: int, mode: int, adapt: bool
+                     ) -> tuple:
+    """G1 from samples (one launch) against the plain path on the same card
+    tensors: frame energies within ``GMM_DB``, band energies by
+    ``g1_energies_close``, decisions equal to the plain path's wherever its
+    margins exceed ``GMM_MARGIN``, final states bit for bit those of the
+    plain loop fed G1's own energies on rows whose decisions agree (at
+    least 90 % of them).  Returns (decisions, states, band energies, the
+    largest band energy difference in dB, the frames under the margin, the
+    rows left out of the state comparison)."""
+    from mmla_audio_torch.vad import gmm
+
+    before = gmm.gmm_vad_windows.launches
+    dec, out, e, tot = gmm.gmm_vad_windows(x, rows, mode, adapt, frame_len,
+                                           with_energies=True)
+    if gmm.gmm_vad_windows.launches != before + 1:
+        raise AssertionError("G1 from samples: not one launch")
+    ref_e, ref_tot = gmm.band_log_energies(x, frame_len), gmm.total_db(
+        x, frame_len)
+    where = f"G1 B={len(x)} n={x.shape[1]} frame_len={frame_len}"
+    if float((tot - ref_tot).abs().max()) > GMM_DB:
+        raise AssertionError(f"{where}: frame energies")
+    worst = g1_energies_close(e, ref_e, ref_tot)
+    ref_dec, _, margins = gmm.gmm_vad_rows_plain(ref_e, ref_tot, rows, mode,
+                                                 adapt, with_margins=True)
+    clear = (margins > GMM_MARGIN).all(-1)
+    if not torch.equal(dec[clear], ref_dec[clear]):
+        raise AssertionError(f"{where}: decisions differ from the plain "
+                             f"path's where the margins exceed {GMM_MARGIN}")
+    own_dec, own_out = gmm.gmm_vad_rows_plain(e, tot, rows, mode, adapt)
+    same = (dec == own_dec).all(1)
+    if float(same.float().mean()) < 0.9 or \
+            not torch.equal(out[same], own_out[same]):
+        raise AssertionError(f"{where}: final states differ from the plain "
+                             f"loop's on G1's own energies ({int(same.sum())}"
+                             f" rows agree)")
+    return dec, out, e, worst, int((~clear).sum()), int((~same).sum())
 
 
 def check_g1(e, tot, rows, mode: int, adapt: bool) -> tuple:
@@ -3702,7 +3794,9 @@ def gmm_latency(device, cfg, noise) -> tuple:
     webrtc and energy decisions in turns (the order rotates each window);
     host clock to the trimmed window, synchronized.  Returns ({decision:
     times}, the launches over the run, the first ``GMM_CHECK`` windows'
-    denoised int16 on the card)."""
+    denoised int16 on the card, the GMM state, the kept samples, and the
+    GMM path's ``profile_steps`` over ten windows: device launches a
+    window)."""
     from mmla_audio_torch.ops.denoise import (noise_threshold, quantize_i16,
                                               reduce_noise)
     from mmla_audio_torch.streaming.session import preprocess_window
@@ -3735,105 +3829,167 @@ def gmm_latency(device, cfg, noise) -> tuple:
                         not torch.isfinite(out).all():
                     raise AssertionError(f"gmm window {i}: {out.shape}, {n}")
                 kept.append(n)
-    from mmla_audio_torch.vad.gmm import gmm_vad_rows
-
-    launches = dict(g1=gmm_vad_rows.launches, **denoise_launches())
+    launches = dict(g1=gmm.gmm_vad_windows.launches,
+                    g1_rows=gmm.gmm_vad_rows.launches,
+                    g1_energies=gmm.window_log_energies.launches,
+                    **denoise_launches())
+    prof = profile_steps(lambda: [preprocess_window(w, nt, cfg, **arms["gmm"])
+                                  for w in windows[:10]], 10)
     check = []
     for w in windows[:GMM_CHECK]:
         y = torch.from_numpy(w.astype(np.float32) / 32768.0).to(device)
         check.append(quantize_i16(reduce_noise(
             y, nt, cfg.denoise, passes=cfg.denoise.passes_live)))
     return times, launches, torch.stack(check), arms["gmm"]["gmm_state"], \
-        kept
+        kept, prof
+
+
+def g1_conv_filterbank(x: torch.Tensor) -> list:
+    """The filterbank of ``band_log_energies`` through cuDNN ``conv1d`` (the
+    library yardstick of G1's filterbank; the port never calls it): each
+    split one convolution of the (even, odd) sample pairs with the (2, 2,
+    64) weight ((up, -lo), (up, lo)), the 80 Hz FIR one more.  Returns the
+    six band signals, low band first."""
+    from mmla_audio_torch.vad import gmm
+
+    up, lo, hp = (torch.from_numpy(t.copy()).to(x.device) for t in
+                  (gmm._R_UPPER, gmm._R_LOWER, gmm._R_HP80))
+    w = torch.stack([torch.stack([up, -lo]), torch.stack([up, lo])])
+    f = torch.nn.functional
+
+    def split(sig):
+        n = sig.shape[-1] // 2
+        pairs = sig[:, : 2 * n].reshape(len(sig), n, 2).transpose(1, 2)
+        y = f.conv1d(f.pad(pairs, (63, 0)), w)
+        return y[:, 0], y[:, 1]
+
+    _, x8 = split(x)
+    hp24, lp02 = split(x8)
+    b23, b34 = split(hp24)
+    b12, lp01 = split(lp02)
+    b051, lp005 = split(lp01)
+    b0205, lp0025 = split(lp005)
+    b008 = f.conv1d(f.pad(lp0025[:, None], (63, 0)), hp[None, None])[:, 0]
+    return [b008, b0205, b051, b12, b23, b34]
 
 
 def phase_gmm(device, cfg) -> dict:
-    """Phase 12: G1 against the plain frame loop on the card at
-    ``GMM_BATCHES`` rows of denoised live windows (aggressiveness 3 with
-    adaptation, and at B=64 mode 0 without), a row's bits alone and in the
-    batch; G1 timed (CUDA events and alone, beside its bounds, the chain
-    floor and the launch floor) and the plain loop timed and its launches
-    counted; then the GMM path, ``preprocess_window(gmm_state=)``, over
-    ``GMM_WINDOWS`` windows beside the webrtc and energy decisions in
-    turns (the main path whose launches are counted), and ``gmm_vad`` on
-    the card against the plain loop on the CPU over the same denoised
-    windows.  Returns the kernels-line measurements and the launches."""
+    """Phase 12: G1 from samples against the plain filterbank and frame
+    loop on the card (``check_g1_windows``) at ``GMM_BATCHES`` denoised live
+    windows, each smaller batch's rows the same bits as the largest's (every
+    cluster size), at frame length 400, on the calibration clip, and at mode
+    0 without adaptation; its energies-in entry against the plain loop; G1
+    timed (CUDA events and alone) beside its bound, its chain floor, the
+    cuDNN ``conv1d`` filterbank, the plain path and the earlier scan-only
+    G1; then the GMM path, ``preprocess_window(gmm_state=)``, over
+    ``GMM_WINDOWS`` windows beside the webrtc and energy decisions in turns
+    (the main path whose launches are counted: G1 once a window from
+    samples, no energies-in or energies-only launch), its device launches a
+    window beside the earlier path's, and ``gmm_vad`` on the card against
+    the plain path on the CPU over the same denoised windows.  Returns the
+    kernels-line measurements and the launches."""
     from mmla_audio_torch.vad import gmm
 
-    e, tot, rows = gmm_rows(device, cfg, max(GMM_BATCHES), seed=40)
-    mode = cfg.vad.aggressiveness
-    full = check_g1(e, tot, rows, mode, True)
+    mode, big = cfg.vad.aggressiveness, max(GMM_BATCHES)
+    x, rows = gmm_inputs(device, cfg, big, seed=40)
+    full = check_g1_windows(x, rows, VAD_FRAME, mode, True)
     for batch in GMM_BATCHES[:-1]:
-        dec, out, *_ = check_g1(e[:batch], tot[:batch], rows[:batch], mode,
+        part = check_g1_windows(x[:batch], rows[:batch], VAD_FRAME, mode,
                                 True)
-        if not (torch.equal(dec, full[0][:batch])
-                and torch.equal(out, full[1][:batch])):
+        if not all(torch.equal(p, f[:batch]) for p, f in zip(part[:3],
+                                                            full[:3])):
             raise AssertionError(f"G1: rows at B={batch} differ from the "
-                                 f"same rows at B={len(e)}")
-    off = check_g1(e, tot, rows, 0, False)
-    if not torch.equal(off[1], rows):
+                                 f"same rows at B={big}")
+    other_len = [check_g1_windows(x[:64], rows[:64], fl, mode, True)[3]
+                 for fl in GMM_FRAME_LENS if fl != VAD_FRAME]
+    cal = torch.from_numpy(vad_windows(8, 41, n=GMM_CALIBRATION)
+                           .astype(np.float32)).to(device)
+    cal_err = check_g1_windows(cal, rows[:8], VAD_FRAME, mode, True)[3]
+    off = check_g1_windows(x[:64], rows[:64], VAD_FRAME, 0, False)
+    if not torch.equal(off[1], rows[:64]):
         raise AssertionError("G1 without adaptation changed a state row")
-    log(f"[gmm] G1 (gmm_vad) vs the plain frame loop on the card at B="
-        f"{', '.join(map(str, GMM_BATCHES))} rows of {VAD_T} frames "
-        f"(denoised live windows, mode {mode} adapting): decisions equal "
-        f"where the margins exceed {GMM_MARGIN} ({full[3]} frames under "
-        f"them), final states within {full[2]:.3g} (limit {GMM_STATE_ATOL}) "
-        f"on the {len(e) - full[4]} rows whose decisions all agree; each "
-        f"row's bits equal at B=1, 8 and 64; mode 0 without adaptation "
-        f"equal too, state rows untouched")
+    scan = check_g1(full[2][:64], gmm.total_db(x[:64]), rows[:64], mode,
+                    True)
+    log(f"[gmm] G1 from samples vs the plain filterbank and frame loop on "
+        f"the card at B={', '.join(map(str, GMM_BATCHES))} denoised live "
+        f"windows (mode {mode} adapting; clusters of "
+        f"{', '.join(str(gmm.g1_cluster(b, VAD_T)) for b in GMM_BATCHES)} "
+        f"CTAs): band energies within {full[3]:.3g} dB (limit {GMM_DB}, or "
+        f"within {GMM_QUIET_LIN} of the frame's energy in linear terms "
+        f"{GMM_QUIET_DB} dB below it), frame length "
+        f"{', '.join(map(str, GMM_FRAME_LENS[1:]))} {max(other_len):.3g} dB, "
+        f"the {GMM_CALIBRATION}-sample clip {cal_err:.3g} dB; decisions "
+        f"equal where the margins exceed {GMM_MARGIN} ({full[4]} frames "
+        f"under them); final states bit for bit the plain loop's on G1's "
+        f"energies on the {big - full[5]} rows whose decisions agree; each "
+        f"row's bits the same at every batch; mode 0 without adaptation "
+        f"too, state rows untouched; the energies-in entry (scan alone) "
+        f"within {scan[2]:.3g} of the plain loop's states")
     floor, chain = queued_ms(torch.cuda._sleep, 0), g1_chain_ms()
-    plain = lambda b: gmm.gmm_vad_rows_plain(   # noqa: E731
-        e[:b], tot[:b], rows[:b], mode, True)
     times = {}
-    for batch in GMM_BATCHES:
-        args = (e[:batch], tot[:batch], rows[:batch], mode, True)
-        ms = time_ms(gmm.gmm_vad_rows, *args, reps=50)
-        alone = queued_ms(gmm.gmm_vad_rows, *args)
-        plain_ms = time_ms(plain, batch, reps=2, rounds=3)
-        times[batch] = ms, alone, plain_ms
-        b = g1_bound(batch)
-        log(f"[gmm] G1 B={batch}: time_ms {ms:.4f}, queued_ms {alone:.4f} "
-            f"(launch floor {floor:.4f}), plain loop {plain_ms:.3f} ms (CUDA "
-            f"events), bound {b['bound_ms'] * 1e3:.4f} us ({b['bound_by']}), "
-            f"the chain floor {chain:.4f} ms")
-    prof = profile_steps(lambda: plain(1), 1)
-    log(f"[gmm] the plain loop, one window at B=1: {prof['launches']:.0f} "
-        f"launches, host {prof['host_ms']:.3f} ms, device busy "
-        + ("not measured" if prof["busy_ms"] is None
-           else f"{prof['busy_ms']:.3f} ms (idle share {prof['idle']:.3f})"))
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for batch in GMM_BATCHES:
+            args = (x[:batch], rows[:batch], mode, True)
+            ms = time_ms(gmm.gmm_vad_windows, *args, reps=50)
+            alone = queued_ms(gmm.gmm_vad_windows, *args)
+            lib = time_ms(g1_conv_filterbank, x[:batch])
+            plain_ms = time_ms(gmm.gmm_vad_windows_plain, *args, reps=1,
+                               rounds=3)
+            times[batch] = ms, alone, plain_ms, lib
+            b = g1_bound(batch)
+            log(f"[gmm] G1 B={batch}: time_ms {ms:.4f}, queued_ms "
+                f"{alone:.4f} (launch floor {floor:.4f}; the earlier scan "
+                f"alone {G1_SCAN_ONLY_MS.get(batch, float('nan')):.4f}), "
+                f"bound "
+                f"{b['bound_ms']:.4f} ms ({b['bound_by']}), the chain floor "
+                f"{chain:.4f} ms; cuDNN conv1d filterbank (TF32 off) "
+                f"{lib:.4f} ms; the plain path {plain_ms:.3f} ms")
+    one = (cal[:1], rows[:1], mode, True)
+    cal_ms = time_ms(gmm.gmm_vad_windows, *one, reps=50)
+    cal_e = time_ms(gmm.window_log_energies, cal[:1], reps=50)
+    log(f"[gmm] G1 on the {GMM_CALIBRATION}-sample calibration clip "
+        f"(T={GMM_CALIBRATION // VAD_FRAME}) at B=1: time_ms {cal_ms:.4f}, "
+        f"without the scan (gmm_init_from_noise's launch) {cal_e:.4f}; bound "
+        f"{g1_bound(1, GMM_CALIBRATION)['bound_ms']:.4f} ms, the chain floor "
+        f"{g1_chain_ms(GMM_CALIBRATION // VAD_FRAME):.4f} ms")
     noise = ambient(52)
-    lat, launches, check, state, kept = gmm_latency(device, cfg, noise)
+    lat, launches, check, state, kept, prof = gmm_latency(device, cfg, noise)
     log(f"[gmm] preprocess_window at B=1, {GMM_WINDOWS} windows, the three "
         f"decisions in turns, window to trimmed window ms (host clock) p50 / "
         f"p90: " + ", ".join(
             f"{name} {np.percentile(t, 50):.3f} / {np.percentile(t, 90):.3f}"
             for name, t in lat.items())
         + f"; GMM kept {sum(kept)} samples over the windows; launches in the "
-          f"run: {launches}")
-    if launches["g1"] != GMM_WINDOWS:
-        raise AssertionError(f"the GMM path launched G1 {launches['g1']} "
-                             f"times over {GMM_WINDOWS} windows")
+          f"run: {launches}; the GMM path's device launches a window "
+          f"(torch.profiler) {prof['launches']:.1f}, the earlier path's "
+          f"{GMM_PATH_LAUNCHES_BEFORE} (scripts/gmm_probe.py path), device "
+          + ("busy not measured" if prof["busy_ms"] is None
+             else f"busy {prof['busy_ms']:.3f} ms a window (idle share "
+                  f"{prof['idle']:.3f})"))
+    if (launches["g1"], launches["g1_rows"], launches["g1_energies"]) != \
+            (GMM_WINDOWS, 0, 0):
+        raise AssertionError(f"the GMM path launched {launches} over "
+                             f"{GMM_WINDOWS} windows")
     cpu_state = gmm.GmmVadState(*(t.cpu() for t in state))
     flips = under = 0
-    for x in check:
-        got, _ = gmm.gmm_vad(x, state, aggressiveness=mode)
-        xc = x.cpu()
+    for xw in check:
+        got, _ = gmm.gmm_vad(xw, state, aggressiveness=mode)
+        xc = xw.cpu()
         ref, _, margins = gmm.gmm_vad_rows_plain(
             gmm.band_log_energies(xc)[None], gmm.total_db(xc)[None],
             gmm.state_rows(cpu_state)[None], mode, True, with_margins=True)
         clear = (margins[0] > GMM_MARGIN).all(-1)
         if not torch.equal(got.cpu()[clear], ref[0][clear]):
             raise AssertionError("gmm_vad on the card differs from the CPU's "
-                                 "plain loop where the margins are clear")
+                                 "plain path where the margins are clear")
         flips += int((got.cpu() != ref[0]).sum())
         under += int((~clear).sum())
-    log(f"[gmm] gmm_vad on the card (its band energies and G1) == the plain "
-        f"loop on the CPU over {GMM_CHECK} denoised windows where the "
-        f"margins exceed {GMM_MARGIN} ({under} frames under them, {flips} "
-        f"decisions differ)")
-    ms, alone, plain_ms = times[max(GMM_BATCHES)]
-    return dict(g1=dict(max_abs_err=full[2], ms=ms, plain_ms=plain_ms,
-                        **g1_bound(max(GMM_BATCHES)), library_ms=None),
+    log(f"[gmm] gmm_vad on the card (G1 from samples) == the plain path on "
+        f"the CPU over {GMM_CHECK} denoised windows where the margins exceed "
+        f"{GMM_MARGIN} ({under} frames under them, {flips} decisions differ)")
+    ms, alone, plain_ms, lib = times[big]
+    return dict(g1=dict(max_abs_err=full[3], ms=ms, plain_ms=plain_ms,
+                        **g1_bound(big), library_ms=lib),
                 launches=launches)
 
 
@@ -4037,8 +4193,9 @@ def main() -> int:
               session_dn["d2"] + post["launches"][4] + mux["launches"]["d2"]
               + mesh["d2"] + edge["d2"] + gmm["launches"]["d2"],
               denoise["d2"]),
-        entry("gmm_vad", "gmm_vad.cu", "mmla_audio_tpu/vad/gmm.py:233",
-              gmm["launches"]["g1"], gmm["g1"]),
+        entry("gmm_vad", "gmm_vad.cu", "mmla_audio_tpu/vad/gmm.py:217",
+              gmm["launches"]["g1"] + gmm["launches"]["g1_rows"]
+              + gmm["launches"]["g1_energies"], gmm["g1"]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

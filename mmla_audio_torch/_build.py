@@ -64,7 +64,10 @@ CUDA_KERNELS = {
          [_P, _P, _I, _I, _I, _P, _I, _P, _I, _I, _I, _P]}),
     "gmm_vad": (
         _PKG / "csrc" / "gmm_vad.cu",
-        {"gmm_vad_launch": [_P, _P, _P, _I, _I, _F, _F, _I, _P, _P, _P]}),
+        {"gmm_vad_launch": [_P, _P, _P, _I, _I, _F, _F, _I, _P, _P, _P],
+         "gmm_vad_windows_launch":
+         [_P, _LL, _I, _I, _I, _P, _P, _P, _I, _P, _F, _F, _I]
+         + [_P] * 5}),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

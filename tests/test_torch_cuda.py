@@ -1,7 +1,7 @@
 """Tests that need the card: the CUDA kernels (featurizer, one window and
 grouped, on speech, silence and a clipped sine; fused residual block; the
 batched webrtcvad engine W1 and the collector W2; the denoise's D1 and D2;
-the GMM VAD's adaptation scan G1)
+the GMM VAD's G1, from samples and from energies)
 against their plain versions, the block's dispatch rule, the predictor on
 the card against the CPU, the multiplexer's launches, the denoise of a
 window equal in a batch and alone, and the predictor captured as a CUDA
@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import GMM_DB, g1_energies_close
 from mmla_audio_torch.core.config import (OverlapFeatureConfig,
                                           OverlapModelConfig)
 from mmla_audio_torch.inference import OverlapPredictor
@@ -857,20 +858,141 @@ def test_gmm_vad_kernel_batch_equals_alone(device):
         assert torch.equal(d1[0], dec[b]) and torch.equal(o1[0], out[b])
 
 
-def test_gmm_vad_on_the_card_launches_g1(device):
-    """``gmm_vad`` of a CUDA window launches G1 once and agrees with the
-    CPU's plain loop; a CPU window never reaches G1."""
+def test_gmm_vad_on_the_card_launches_g1(device, monkeypatch):
+    """``gmm_vad`` of a CUDA window launches G1 once, from its samples (no
+    plain filterbank op, no energies-in launch), and agrees with the CPU's
+    plain loop; a CPU window never reaches G1."""
     from mmla_audio_torch.vad import gmm
 
     rng = np.random.RandomState(2)
     st = gmm.gmm_init_from_noise((rng.randn(160000) * 40).astype(np.int16),
                                  device="cpu")
     x = torch.from_numpy(_vad_windows(1, seed=9)[0].astype(np.float32))
-    before = gmm.gmm_vad_rows.launches
+    before = gmm.gmm_vad_windows.launches, gmm.gmm_vad_rows.launches
     ref, ref_st = gmm.gmm_vad(x, st)
-    assert gmm.gmm_vad_rows.launches == before
+    assert (gmm.gmm_vad_windows.launches, gmm.gmm_vad_rows.launches) \
+        == before
+
+    def cpu_only(fn):
+        def check(sig, *a, **kw):
+            assert sig.device.type == "cpu", "a plain filterbank op on the card"
+            return fn(sig, *a, **kw)
+        return check
+
+    for name in ("band_log_energies", "total_db"):
+        monkeypatch.setattr(gmm, name, cpu_only(getattr(gmm, name)))
     got, got_st = gmm.gmm_vad(x.to(device),
                               gmm.GmmVadState(*(t.to(device) for t in st)))
-    assert gmm.gmm_vad_rows.launches == before + 1
+    assert (gmm.gmm_vad_windows.launches, gmm.gmm_vad_rows.launches) \
+        == (before[0] + 1, before[1])
     assert got.device.type == "cuda" and got.shape == ref.shape
     assert float((got.cpu() == ref).float().mean()) > 0.95
+
+
+def _g1_windows(batch, seed, n=40960, frame_len=480):
+    """``batch`` int16-scale windows (``_vad_windows``: tones with
+    silences, noise, a square wave) and their state rows: the mixtures
+    calibrated on seeded noise, each row's means shifted by a seeded
+    offset."""
+    from mmla_audio_torch.vad import gmm
+
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(_vad_windows(batch, seed=seed, n=n)
+                         .astype(np.float32))
+    st = gmm.gmm_init_from_noise((rng.randn(160000) * 300).astype(np.int16),
+                                 frame_len, device="cpu")
+    rows = gmm.state_rows(st).expand(batch, -1).clone()
+    shift = torch.from_numpy(rng.uniform(-3, 3, (batch, 1)).astype(np.float32))
+    rows[:, 0:12] += shift                  # noise means
+    rows[:, 24:36] += shift                 # speech means
+    return x, rows
+
+
+@pytest.mark.parametrize("batch,n,frame_len", [
+    (1, 40960, 480), (8, 40960, 480), (64, 40960, 480), (3, 40960, 400),
+    (1, 160000, 480), (33, 40960 + 77, 480), (512, 40960, 480)])
+def test_g1_windows_match_plain(device, batch, n, frame_len):
+    """G1 from samples, one launch: its energies against the plain
+    filterbank on the CPU (``chip_smoke.g1_energies_close``: within 1e-3
+    dB, or a band more than 40 dB below its frame's energy, where the
+    FIRs' cancellation costs it relative accuracy, within 1e-6 of that
+    energy in linear terms), its decisions equal to
+    the plain path's wherever the plain run's margins exceed 1e-3, and its
+    final state bit for bit that of ``_scan`` fed G1's own energies (on
+    rows whose decisions agree)."""
+    from mmla_audio_torch.vad import gmm
+
+    x, rows = _g1_windows(batch, 7, n, frame_len)
+    before = gmm.gmm_vad_windows.launches
+    dec, out, e, tot = gmm.gmm_vad_windows(
+        x.to(device), rows.to(device), 3, True, frame_len,
+        with_energies=True)
+    torch.cuda.synchronize()
+    assert gmm.gmm_vad_windows.launches == before + 1
+    T = n // frame_len
+    assert dec.shape == (batch, T) and dec.dtype == torch.bool
+    ref_e, ref_tot = gmm.band_log_energies(x, frame_len), gmm.total_db(
+        x, frame_len)
+    torch.testing.assert_close(tot.cpu(), ref_tot, rtol=0, atol=GMM_DB)
+    worst = g1_energies_close(e.cpu(), ref_e, ref_tot)
+    print(f"G1 B={batch} n={n} frame_len={frame_len}: largest band "
+          f"energy difference {worst:.3g} dB")
+    ref_dec, _, margins = gmm.gmm_vad_rows_plain(ref_e, ref_tot, rows, 3,
+                                                 True, with_margins=True)
+    clear = (margins > 1e-3).all(-1)
+    assert torch.equal(dec.cpu()[clear], ref_dec[clear])
+    own_dec, own_out = gmm.gmm_vad_rows_plain(e, tot, rows.to(device), 3,
+                                              True)
+    same = (dec == own_dec).all(1)
+    assert bool(same.float().mean() > 0.9)
+    assert torch.equal(out[same], own_out[same])
+
+
+def test_g1_windows_batch_equals_alone(device):
+    """A row's decisions, state and energies are the same bits alone (a
+    cluster of 8 CTAs) and in batches of 16, 64 (clusters of 4 and 2) and
+    72 (one CTA a stream)."""
+    from mmla_audio_torch.vad import gmm
+
+    x, rows = _g1_windows(72, 8)
+    xd, rd = x.to(device), rows.to(device)
+    full = gmm.gmm_vad_windows(xd, rd, with_energies=True)
+    for b in (0, 1, 2, 3, 37, 63):
+        for lo, hi in ((b, b + 1), (b & ~15, (b & ~15) + 16), (0, 64)):
+            part = gmm.gmm_vad_windows(xd[lo:hi], rd[lo:hi],
+                                       with_energies=True)
+            for p, f in zip(part, full):
+                assert torch.equal(p[b - lo], f[b])
+
+
+def test_g1_windows_without_a_frame(device):
+    """n < frame_len: T = 0, no decision, the state rows unchanged, empty
+    energies; one launch all the same."""
+    from mmla_audio_torch.vad import gmm
+
+    x, rows = _g1_windows(3, 1, n=479)
+    before = gmm.gmm_vad_windows.launches
+    dec, out, e, tot = gmm.gmm_vad_windows(x.to(device), rows.to(device),
+                                           with_energies=True)
+    assert gmm.gmm_vad_windows.launches == before + 1
+    assert dec.shape == (3, 0) and e.shape == (3, 0, 6) and tot.shape == (3, 0)
+    assert torch.equal(out.cpu(), rows)
+
+
+def test_g1_energies_launch_and_init(device, monkeypatch):
+    """``gmm_init_from_noise`` on the card takes its energies from G1
+    without the scan (``window_log_energies``, one launch over the 10 s
+    clip, T = 333) and matches the CPU's within the energies' tolerance;
+    no plain filterbank op runs on the card."""
+    from mmla_audio_torch.vad import gmm
+
+    noise = (np.random.RandomState(4).randn(160000) * 200).astype(np.int16)
+    ref = gmm.gmm_init_from_noise(noise, device="cpu")
+    monkeypatch.setattr(gmm, "band_log_energies", None)
+    before = gmm.window_log_energies.launches, gmm.gmm_vad_windows.launches
+    got = gmm.gmm_init_from_noise(noise, device=device)
+    assert (gmm.window_log_energies.launches, gmm.gmm_vad_windows.launches) \
+        == (before[0] + 1, before[1])
+    for a, b in zip(got, ref):
+        assert a.device.type == "cuda"
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=2e-3)

@@ -30,7 +30,16 @@ Inputs are made with numpy from seeds and go through both packages:
   packages' denoise differ by one step in a few samples);
 * ``vad_trim``, which ends the GMM path, against the golden collector
   (``tests/golden/vad_ref.py``) on the random and alternating patterns of
-  ``tests/test_exactness_extra.py``.
+  ``tests/test_exactness_extra.py``;
+* G1's chunk schedule (``g1_plan``, what ``csrc/gmm_vad.cu`` runs): a torch
+  model that walks the plan's rows as the kernel does (buffers of the
+  plan's capacities filled with NaN, the carry, the halo's zeros, each
+  chunk's ranges, the energies of its frames) against
+  ``band_log_energies`` and ``total_db`` within 1e-3 dB, or in linear
+  energy within 1e-6 of the frame's where a band lies more than 40 dB
+  below it, at n = 40,960, 160,000 and a length that is no multiple of the
+  chunk, one CTA a stream and clusters; ``gmm_vad_windows`` and
+  ``window_log_energies`` on the CPU are the plain versions.
 """
 
 import jax.numpy as jnp
@@ -38,6 +47,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import GMM_DB, g1_energies_close
 from mmla_audio_tpu.core.config import PipelineConfig as JaxPipelineConfig
 from mmla_audio_tpu.ops.denoise import noise_threshold as jax_noise_threshold
 from mmla_audio_tpu.streaming.session import \
@@ -341,3 +351,124 @@ def test_vad_trim_random_patterns_match_golden(seed):
 
 def test_vad_trim_alternating_matches_golden():
     _trim_case(np.array([True, False] * 40))
+
+
+# G1's schedule, modelled on the CPU
+def _g1_model(x: np.ndarray, frame_len: int, cluster: int):
+    """The band and frame energies of one window computed as G1 walks
+    ``g1_plan``: each rank's rows in order, each buffer of the plan's
+    capacity (NaN where nothing was written, so a sample the plan fails to
+    hold or compute shows), the carry or the halo's zeros, the x load, the
+    splits and the 80 Hz FIR over each group's ``[clo, hi)``, the chunk's
+    frame energies."""
+    plan = gmm.g1_plan(len(x), frame_len, cluster)
+    G = 8
+    group = gmm._G1_BUFFER_GROUP
+    T = len(x) // frame_len
+    m = {32: frame_len // 32, 16: frame_len // 16, 8: frame_len // 8}
+    bands = torch.full((T, 6), float("nan"))
+    tot = torch.full((T,), float("nan"))
+    xt = torch.from_numpy(x)
+    taps = {k: torch.from_numpy(v) for k, v in
+            (("up", gmm._R_UPPER), ("lo", gmm._R_LOWER), ("hp", gmm._R_HP80))}
+    ranks = plan["rank_rows"]
+    for r in range(cluster):
+        bufs = [torch.full((plan["caps"][g] + gmm._G1_PAD,), float("nan"))
+                for g in group]
+        prev_keep = None
+        for row in plan["rows"][ranks[r]:ranks[r + 1]]:
+            f0, f1, start = (int(v) for v in row[:3])
+            keep, clo, hi = (row[3 + i * G: 3 + (i + 1) * G].tolist()
+                             for i in range(3))
+            for b, g in enumerate(group):
+                if start:
+                    bufs[b][:max(0, -keep[g])] = 0.0
+                elif keep[g] > prev_keep[g]:
+                    shift, n_keep = keep[g] - prev_keep[g], clo[g] - keep[g]
+                    assert n_keep <= shift
+                    bufs[b][:n_keep] = bufs[b][shift:shift + n_keep].clone()
+            prev_keep = keep
+            bufs[0][clo[0] - keep[0]:hi[0] - keep[0]] = xt[clo[0]:hi[0]]
+
+            def fir(b_in, g_in, g_out, stride, phase, h):
+                idx = stride * (torch.arange(clo[g_out], hi[g_out])[:, None]
+                                - 63 + torch.arange(64)) + phase - keep[g_in]
+                assert int(idx.min()) >= 0
+                return torch.sum(bufs[b_in][idx] * h, dim=-1)
+
+            def split(b_in, g_in, b_hi, b_lo, g_out):
+                up = fir(b_in, g_in, g_out, 2, 0, taps["up"])
+                lo = fir(b_in, g_in, g_out, 2, 1, taps["lo"])
+                at = slice(clo[g_out] - keep[g_out], hi[g_out] - keep[g_out])
+                if b_hi is not None:
+                    bufs[b_hi][at] = up - lo
+                bufs[b_lo][at] = up + lo
+
+            split(0, 0, None, 1, 1)          # x -> x8
+            split(1, 1, 2, 3, 2)             # x8 -> hp24, lp02
+            split(2, 2, 4, 5, 3)             # hp24 -> b23, b34
+            split(3, 2, 6, 7, 4)             # lp02 -> b12, lp01
+            split(7, 4, 8, 9, 5)             # lp01 -> b051, lp005
+            split(9, 5, 10, 11, 6)           # lp005 -> b0205, lp0025
+            bufs[12][clo[7] - keep[7]:hi[7] - keep[7]] = fir(
+                11, 6, 7, 1, 0, taps["hp"])  # lp0025 -> b008
+
+            def energy(sig, start_idx, g, mm):
+                s = sig[start_idx - keep[g]:][: (f1 - f0) * mm]
+                e = torch.mean(torch.square(s.reshape(f1 - f0, mm)), dim=-1)
+                return 10.0 * torch.log10(torch.clamp(e, min=1e-10))
+
+            for band, (b, d) in enumerate(((12, 32), (10, 32), (8, 16),
+                                           (6, 8), (4, 8), (5, 8))):
+                bands[f0:f1, band] = energy(bufs[b], f0 * m[d], group[b],
+                                            m[d])
+            tot[f0:f1] = energy(bufs[0], f0 * frame_len, 0, frame_len)
+    return bands, tot
+
+
+@pytest.mark.parametrize("n,frame_len,cluster", [
+    (N, 480, 1), (N, 480, 8), (160000, 480, 1), (17 * 480 + 77, 480, 1),
+    (N, 400, 8), (N + 123, 400, 2)])
+def test_g1_schedule_model_matches_filterbank(n, frame_len, cluster):
+    rng = np.random.RandomState(n % 97)
+    x = np.resize(synth_speech_i16(N, seed=4).astype(np.float32), n)
+    x[n // 3: n // 2] = rng.randn(n // 2 - n // 3).astype(np.float32) * 30
+    bands, tot = _g1_model(x, frame_len, cluster)
+    xt = torch.from_numpy(x)
+    ref_tot = gmm.total_db(xt, frame_len)
+    torch.testing.assert_close(tot, ref_tot, rtol=0, atol=GMM_DB)
+    g1_energies_close(bands, gmm.band_log_energies(xt, frame_len), ref_tot)
+    plan = gmm.g1_plan(n, frame_len, cluster)
+    assert plan["smem_bytes"] <= gmm.G1_SMEM_BYTES
+    # every frame is some chunk's, once
+    frames = [f for row in plan["rows"] for f in range(row[0], row[1])]
+    assert sorted(frames) == list(range(n // frame_len))
+
+
+def test_g1_plan_cluster_and_refusals():
+    assert [gmm.g1_cluster(b, 85) for b in (1, 8, 9, 16, 17, 64, 65, 512)] \
+        == [8, 8, 4, 4, 2, 2, 1, 1]
+    assert gmm.g1_cluster(1, 3) == 3 and gmm.g1_cluster(1, 0) == 1
+    assert gmm.g1_cluster(1, gmm.G1_CLUSTER_FRAMES + 1) == 1
+    assert len(gmm.g1_plan(479, 480)["rows"]) == 0
+    with pytest.raises(ValueError, match="frame_len >= 32"):
+        gmm.g1_plan(N, 31)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        gmm.g1_plan(10 * 24000, 24000)
+
+
+def test_gmm_vad_windows_on_the_cpu_is_the_plain_version(calibrated):
+    jstate, mix = calibrated
+    st = gmm.state_rows(gmm_state_from_numpy(jstate))
+    x = torch.from_numpy(np.stack([mix, mix[::-1].copy()]))
+    rows = st.expand(2, -1).contiguous()
+    dec, out, e, tot = gmm.gmm_vad_windows(x, rows, 3, True,
+                                           with_energies=True)
+    ref_dec, ref_out = gmm.gmm_vad_rows_plain(gmm.band_log_energies(x),
+                                              gmm.total_db(x), rows, 3, True)
+    assert torch.equal(dec, ref_dec) and torch.equal(out, ref_out)
+    be, bt = gmm.window_log_energies(x)
+    assert torch.equal(be, e) and torch.equal(bt, tot)
+    assert gmm.gmm_vad_windows.launches == 0
+    with pytest.raises(ValueError, match="states must be"):
+        gmm.gmm_vad_windows(x, rows[:1])
