@@ -17,7 +17,11 @@ Each library's file name carries a hash of its sources and flags, so a stale
 build is never loaded.  Builds write to a temporary name and rename into
 place, so concurrent processes (test workers) never load a half-written file.
 ``compiles`` counts the compiler runs of this process: a process that finds
-every library in its build directory runs none.
+every library in its build directory runs none; ``found`` counts the
+libraries it found built, and ``outcomes`` says of each library file
+looked up whether this process ``"compiled"`` it or ``"found"`` it.  A
+build or load of a library is the set-up span ``setup.kernels``
+(``utils.timers``).
 """
 
 from __future__ import annotations
@@ -29,8 +33,11 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+from mmla_audio_torch.utils.timers import setup_span
 
 __all__ = ["BUILD_DIR", "build_dir", "set_build_dir", "cuda_library",
            "cuda_libraries", "host_library", "nvcc"]
@@ -39,6 +46,9 @@ _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG / "_build"                 # the default build directory
 _build_dir = BUILD_DIR
 compiles = 0
+found = 0
+outcomes: dict = {}                         # library file -> how it came
+_counted = threading.Lock()                 # builds run in pool threads
 _P, _I, _LL, _D, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_double, ctypes.c_float)
 # library name -> (source, {launch function: its argtypes})
@@ -110,7 +120,7 @@ def set_build_dir(path) -> Path:
 
 
 def _build(name: str, compiler: str, flags, sources) -> Path:
-    global compiles
+    global compiles, found
     digest = hashlib.sha1()
     for part in (compiler, *flags):
         digest.update(part.encode())
@@ -118,11 +128,15 @@ def _build(name: str, compiler: str, flags, sources) -> Path:
         digest.update(src.read_bytes())
     target = _build_dir / f"{name}-{digest.hexdigest()[:12]}.so"
     if target.exists():
+        with _counted:
+            found += 1
+            outcomes.setdefault(target.name, "found")
         return target
     _build_dir.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_build_dir)
     os.close(fd)
-    compiles += 1
+    with _counted:
+        compiles += 1
     try:
         proc = subprocess.run([compiler, *flags, "-o", tmp,
                                *(str(s) for s in sources)],
@@ -131,6 +145,8 @@ def _build(name: str, compiler: str, flags, sources) -> Path:
             raise RuntimeError(f"{Path(compiler).name} failed building "
                                f"{name}:\n{proc.stderr}")
         os.replace(tmp, target)
+        with _counted:
+            outcomes[target.name] = "compiled"
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
@@ -156,15 +172,16 @@ def _cuda_build(name: str) -> Path:
     return _build(f"lib{name}", nvcc(), NVCC_FLAGS, (CUDA_KERNELS[name][0],))
 
 
+@setup_span("setup.kernels")
 def cuda_libraries() -> dict:
     """Build every CUDA library at once (one nvcc per source, in parallel)
     and load them: ``{name: CDLL}``."""
     with ThreadPoolExecutor(len(CUDA_KERNELS)) as pool:
-        list(pool.map(_cuda_build, CUDA_KERNELS))
-    return {name: cuda_library(name) for name in CUDA_KERNELS}
+        return dict(zip(CUDA_KERNELS, pool.map(cuda_library, CUDA_KERNELS)))
 
 
 @functools.lru_cache(maxsize=None)
+@setup_span("setup.kernels")
 def cuda_library(name: str) -> ctypes.CDLL:
     """Build (once per source hash) and load one CUDA kernel library, its
     launch functions typed."""
@@ -177,6 +194,7 @@ def cuda_library(name: str) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
+@setup_span("setup.kernels")
 def host_library() -> ctypes.CDLL:
     """Build (once per source hash) and load ``libmmla_host.so``."""
     cxx = os.environ.get("CXX") or shutil.which("g++") or "c++"

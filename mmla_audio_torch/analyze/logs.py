@@ -19,6 +19,9 @@ ulimit at the 1,024-stream scale, so at most ``_MAX_OPEN_HANDLES`` stay
 open and eviction closes the least recently written.  The next write of an
 evicted log reopens it in append mode, so eviction changes no byte.  Every
 write is flushed, so ``parse_log`` reads a live log whole.
+``handle_stats()`` counts the LRU's hits, misses (each an ``open``, inside
+the span ``logs.reopen``: ``utils.timers``) and evictions since the process
+started.
 """
 
 from __future__ import annotations
@@ -27,10 +30,12 @@ import threading
 from collections import OrderedDict
 from datetime import datetime, timedelta
 from pathlib import Path
-from typing import Iterable, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
+
+from mmla_audio_torch.utils.timers import span
 
 __all__ = ["OVERLAP_HEADER", "SPEAKER_HEADER", "OVERLAP_LABELS",
-           "OVERLAP_LABELS_3WAY", "SessionLog", "parse_log"]
+           "OVERLAP_LABELS_3WAY", "SessionLog", "parse_log", "handle_stats"]
 
 # id(log) -> (path, append handle), least recently written first
 _OPEN_HANDLES: "OrderedDict[int, tuple]" = OrderedDict()
@@ -38,6 +43,9 @@ _MAX_OPEN_HANDLES = 128
 # held across a whole write: an eviction by another thread must not close
 # a handle between its lookup and its write
 _HANDLES_LOCK = threading.RLock()
+# the LRU's lookups: a handle found open, a handle opened, a handle closed
+# to keep the cap
+_HANDLE_STATS = {"hits": 0, "misses": 0, "evictions": 0}
 
 OVERLAP_HEADER = "segment\toverlapped degree\ttimestamp"
 SPEAKER_HEADER = "segment\tspeaker\ttimestamp"
@@ -87,11 +95,15 @@ class SessionLog:
         ent = _OPEN_HANDLES.get(key)
         if ent is not None and ent[0] == self.path and not ent[1].closed:
             _OPEN_HANDLES.move_to_end(key)
+            _HANDLE_STATS["hits"] += 1
             return ent[1]
-        fh = open(self.path, "a")
+        with span("logs.reopen"):
+            fh = open(self.path, "a")
+        _HANDLE_STATS["misses"] += 1
         _OPEN_HANDLES[key] = (self.path, fh)
         while len(_OPEN_HANDLES) > _MAX_OPEN_HANDLES:
             _OPEN_HANDLES.popitem(last=False)[1][1].close()
+            _HANDLE_STATS["evictions"] += 1
         return fh
 
     def close(self) -> None:
@@ -136,6 +148,13 @@ class SessionLog:
         stride per segment."""
         self._write((label, start_time + timedelta(seconds=step_seconds * i))
                     for i, label in enumerate(labels))
+
+
+def handle_stats() -> Dict[str, int]:
+    """The append-handle LRU's hits, misses (opens) and evictions since the
+    process started."""
+    with _HANDLES_LOCK:
+        return dict(_HANDLE_STATS)
 
 
 def parse_log(path) -> List[Tuple[int, str, str]]:

@@ -17,6 +17,10 @@ Speaker identification:
 
 All of it is torch ops (cuBLAS GEMMs, cuDNN convolutions and LSTM on the
 card), as the JAX package runs it outside any Pallas kernel.
+
+A predictor's construction is the set-up span ``setup.predictor``; a batch
+spans ``model.features``, ``model.forward`` and ``model.labels``
+(``utils.timers``).
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from mmla_audio_torch.ops.cuda_features import (
 from mmla_audio_torch.ops.cuda_resblock import check_block_width
 from mmla_audio_torch.ops.features import speaker_feature_batch
 from mmla_audio_torch.precision import fp32_policy
+from mmla_audio_torch.utils.timers import setup_span, span
 
 __all__ = ["SILENT", "OverlapPredictor", "SpeakerPredictor"]
 
@@ -91,6 +96,7 @@ class OverlapPredictor:
     ``n < silent_threshold``.
     """
 
+    @setup_span("setup.predictor")
     def __init__(self, state_dict: Mapping[str, torch.Tensor],
                  model_cfg: OverlapModelConfig = OverlapModelConfig(),
                  feat_cfg: OverlapFeatureConfig = OverlapFeatureConfig(),
@@ -128,13 +134,17 @@ class OverlapPredictor:
                       self.compute_dtype, self.matmul_precision)
 
     def _forward(self, model, buf: torch.Tensor, n: torch.Tensor):
-        y = _masked_prefix(buf.to(torch.float32), n,
-                           self.feat_cfg.n_samples) / 32768.0
-        img = overlap_model_input_cuda(y, self.feat_cfg)   # (B, 128, 151, 3)
-        probs = torch.softmax(self.apply_model(img, model), dim=-1)
-        labels = torch.argmax(probs, dim=-1).to(torch.int32)
-        labels = torch.where(n < self.silent_threshold,
-                             torch.full_like(labels, SILENT), labels)
+        with span("model.features"):
+            y = _masked_prefix(buf.to(torch.float32), n,
+                               self.feat_cfg.n_samples) / 32768.0
+            img = overlap_model_input_cuda(y, self.feat_cfg)  # (B, 128, 151, 3)
+        with span("model.forward"):
+            logits = self.apply_model(img, model)
+        with span("model.labels"):
+            probs = torch.softmax(logits, dim=-1)
+            labels = torch.argmax(probs, dim=-1).to(torch.int32)
+            labels = torch.where(n < self.silent_threshold,
+                                 torch.full_like(labels, SILENT), labels)
         return labels, probs
 
     def lower_fn(self):
@@ -165,6 +175,7 @@ class SpeakerPredictor:
     ``speaker_id_dict``.
     """
 
+    @setup_span("setup.predictor")
     def __init__(self, state_dict: Mapping[str, torch.Tensor],
                  model_cfg: SpeakerModelConfig = SpeakerModelConfig(),
                  feat_cfg: SpeakerFeatureConfig = SpeakerFeatureConfig(),
@@ -205,11 +216,14 @@ class SpeakerPredictor:
                                                           torch.float32))
 
     def _score(self, model, buf: torch.Tensor, n: torch.Tensor):
-        feats, _ = speaker_feature_batch(buf.to(torch.float32), n,
-                                         self.feat_cfg)
-        logits = self.apply_model(feats, model)
-        probs = torch.sigmoid(logits) if self.sigmoid_head else \
-            torch.softmax(logits, dim=-1)
+        with span("model.features"):
+            feats, _ = speaker_feature_batch(buf.to(torch.float32), n,
+                                             self.feat_cfg)
+        with span("model.forward"):
+            logits = self.apply_model(feats, model)
+        with span("model.labels"):
+            probs = torch.sigmoid(logits) if self.sigmoid_head else \
+                torch.softmax(logits, dim=-1)
         return logits, probs
 
     @torch.no_grad()
@@ -223,9 +237,10 @@ class SpeakerPredictor:
 
     def _forward(self, model, buf: torch.Tensor, n: torch.Tensor):
         logits, probs = self._score(model, buf, n)
-        labels = torch.argmax(logits, dim=-1).to(torch.int32)
-        labels = torch.where(n < self.feat_cfg.silent_samples,
-                             torch.full_like(labels, SILENT), labels)
+        with span("model.labels"):
+            labels = torch.argmax(logits, dim=-1).to(torch.int32)
+            labels = torch.where(n < self.feat_cfg.silent_samples,
+                                 torch.full_like(labels, SILENT), labels)
         return labels, probs
 
     def lower_fn(self):

@@ -16,7 +16,8 @@ last window holding one column, as ``SAME``'s -inf padding gives).
 
 In inference on the card, each non-pooling block is one launch of the
 hand-written fused kernel (``ops/cuda_resblock.py``; the rule is in
-``ResBlock2D``'s docstring).
+``ResBlock2D``'s docstring).  A forward spans each stage (``model.stage``)
+and the mel-mean, BiLSTM and head (``model.lstm``): ``utils.timers``.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mmla_audio_torch.core.config import OverlapModelConfig
+from mmla_audio_torch.utils.timers import span
 from mmla_audio_torch.models.layers import (BiLSTM, KerasBatchNorm,
                                             SeededDropout, keras_init_,
                                             leaky_relu)
@@ -124,7 +126,13 @@ class OverlapResBLSTM(nn.Module):
         fused block refuses."""
         if self.cfg.input_scale != 1.0:
             x = x * self.cfg.input_scale
-        net = self.blocks(self.stem(x.permute(0, 3, 1, 2).contiguous()))
-        net = net.mean(dim=2).transpose(1, 2)        # mel-axis mean -> (B, T, C)
-        net = leaky_relu(self.dropout(self.bilstm(net)))
-        return self.head(net)
+        net = self.stem(x.permute(0, 3, 1, 2).contiguous())
+        blocks, n = list(self.blocks), self.cfg.blocks_per_stage
+        for i in range(0, len(blocks), n):
+            with span("model.stage"):
+                for block in blocks[i: i + n]:
+                    net = block(net)
+        with span("model.lstm"):
+            net = net.mean(dim=2).transpose(1, 2)    # mel-axis mean -> (B, T, C)
+            net = leaky_relu(self.dropout(self.bilstm(net)))
+            return self.head(net)

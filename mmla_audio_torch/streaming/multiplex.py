@@ -51,6 +51,19 @@ the complete record): ``results_cap`` bounds each stream's in-memory
 and closes its log's append handle (``close_log=True``, the default).
 The defaults (``results_cap=None``, ``archive=True``) are the JAX
 package's.
+
+Timing.  A tick's five phases are spans (``utils.timers.phase``) that also
+add their host seconds to ``phase_seconds``: ``mux.gather`` (``gather``),
+``mux.stage`` (``stage``), ``mux.dispatch`` (``dispatch``; inside it the
+program's ``chain.denoise``, ``chain.detect``, ``chain.trim``,
+``model.features``, ``model.forward`` and ``model.labels``, once a device
+block on a split mesh), ``mux.fetch`` (``resolve_fetch``) and ``mux.log``
+(``resolve_log``, with a ``logs.reopen`` span for each log handle the LRU
+reopens).  A span is recorded only while a ``torch.profiler`` runs (one
+flag check otherwise); ``phase_seconds`` always counts.  ``add_stream`` is
+the set-up span ``setup.stream``, a calibration-cache miss inside it
+``setup.calibrate``; ``calib_hits`` and ``calib_misses`` count the cache's
+lookups.
 """
 
 from __future__ import annotations
@@ -74,6 +87,7 @@ from mmla_audio_torch.streaming.native import BatchGather, NativeRingBuffer
 from mmla_audio_torch.streaming.session import (preprocess_windows,
                                                 session_stamp)
 from mmla_audio_torch.utils.experiment import ExperimentDirs, bootstrap
+from mmla_audio_torch.utils.timers import phase, setup_span, span
 from mmla_audio_torch.vad.collector import calibrate_threshold
 from mmla_audio_torch.vad.webrtc import webrtc_init
 
@@ -159,6 +173,7 @@ class Multiplexer:
         self.results_cap = results_cap
         self.cfg = cfg
         self._calib_cache: Dict[bytes, tuple] = {}
+        self.calib_hits = self.calib_misses = 0
         self.streams: List[Stream] = []
         # finished conversations: remove_stream moves a stream to
         # _retiring; add_stream recycles its row (list slot, gather ring,
@@ -236,19 +251,25 @@ class Multiplexer:
         trimmed, n_out = preprocess_windows(
             raws, nts, vts, cfg, states=states, idx=idx)
         if self.kind == "speaker":
-            feats, _ = speaker_feature_batch(trimmed, n_out,
-                                             cfg.speaker_feature)
-            logits = self.predictor.apply_model(feats, model)
-            silent = n_out < cfg.speaker_feature.silent_samples
+            with span("model.features"):
+                feats, _ = speaker_feature_batch(trimmed, n_out,
+                                                 cfg.speaker_feature)
+            with span("model.forward"):
+                logits = self.predictor.apply_model(feats, model)
+            gate = cfg.speaker_feature.silent_samples
         else:
-            # trimmed is zero beyond n_out
-            img = overlap_model_input_cuda(
-                trimmed[:, : cfg.overlap_feature.n_samples] / 32768.0,
-                cfg.overlap_feature)
-            logits = self.predictor.apply_model(img, model)
-            silent = n_out < cfg.vad.silent_samples
-        labels = torch.argmax(logits, dim=-1).to(torch.int32)
-        return torch.where(silent, torch.full_like(labels, -1), labels)
+            with span("model.features"):
+                # trimmed is zero beyond n_out
+                img = overlap_model_input_cuda(
+                    trimmed[:, : cfg.overlap_feature.n_samples] / 32768.0,
+                    cfg.overlap_feature)
+            with span("model.forward"):
+                logits = self.predictor.apply_model(img, model)
+            gate = cfg.vad.silent_samples
+        with span("model.labels"):
+            labels = torch.argmax(logits, dim=-1).to(torch.int32)
+            return torch.where(n_out < gate, torch.full_like(labels, -1),
+                               labels)
 
     def _program_split(self, raws: torch.Tensor, nts: torch.Tensor,
                        vts: torch.Tensor, idx) -> torch.Tensor:
@@ -288,17 +309,22 @@ class Multiplexer:
         key = hashlib.sha1(f"{clip.dtype.str}{clip.shape}".encode()
                            + clip.tobytes()).digest()
         hit = self._calib_cache.get(key)
-        if hit is None:
+        if hit is not None:
+            self.calib_hits += 1
+            return hit
+        self.calib_misses += 1
+        with setup_span("setup.calibrate"):
             nf = torch.from_numpy(clip.astype(np.float32) / 32768.0)
             hit = (noise_threshold(nf.to(self.device), self.cfg.denoise)
                    .cpu().numpy(),
                    calibrate_threshold(clip, self.cfg.vad.aggressiveness))
-            if len(self._calib_cache) >= CALIBRATION_CACHE:
-                self._calib_cache.pop(next(iter(self._calib_cache)))
-            self._calib_cache[key] = hit
+        if len(self._calib_cache) >= CALIBRATION_CACHE:
+            self._calib_cache.pop(next(iter(self._calib_cache)))
+        self._calib_cache[key] = hit
         return hit
 
     # -- stream management ---------------------------------------------------
+    @setup_span("setup.stream")
     def add_stream(self, name: str, capture, noise_clip_i16: np.ndarray,
                    label_names: Optional[Dict[str, str]] = None,
                    now: Optional[datetime] = None) -> Stream:
@@ -433,7 +459,10 @@ class Multiplexer:
         """Poll every stream once without waiting, from the rotating offset;
         windows land in rows ``[len(pending):]`` of the current staging
         matrix.  Returns the streams gathered."""
-        t0 = time.perf_counter()
+        with phase(self.phase_seconds, "gather", "mux.gather"):
+            return self._gather_rows(limit)
+
+    def _gather_rows(self, limit: Optional[int]) -> List[Stream]:
         self._ensure_gather()
         self._await_staging()
         n_win = self.cfg.audio.window_samples
@@ -483,40 +512,39 @@ class Multiplexer:
         if not gathered:
             self._sweep_done()
         self._rr = (self._rr + 1) % n
-        self.phase_seconds["gather"] += time.perf_counter() - t0
         return gathered
 
     def _dispatch_staged(self):
         """Enqueue the pending rows as one batch (the smallest sufficient
         bucket) without waiting, then flip the staging buffers.  Returns
         (ready streams, labels on the device)."""
-        t0 = time.perf_counter()
-        self._await_staging()
-        ready = self._pending_streams
-        k = len(ready)
-        bucket = next((b for b in self.buckets if b >= k), self.bucket)
-        f = self._flip
-        self._fill[f][k: bucket] = 0
-        self._vts[f][k: bucket] = 0.0
-        self._nts[f][k: bucket] = 0.0
-        idx = None
-        if self._use_webrtc:
-            self._ensure_webrtc_states()
-            # padding rows index one past the last stream: no state touched
-            idx = np.full((bucket,), self._webrtc_n, np.int32)
-            idx[:k] = [stream.index for stream in ready]
-        t1 = time.perf_counter()
-        self.phase_seconds["stage"] += t1 - t0
-        raws, nts, vts = (buf[:bucket].to(self.device, non_blocking=True)
-                          for buf in (self._fill[f], self._nts[f],
-                                      self._vts[f]))
-        if self.device.type == "cuda":
-            self._copied[f] = torch.cuda.Event()
-            self._copied[f].record()
-        labels = self._program(raws, nts, vts, idx, self._webrtc_states) \
-            if self._replicas is None else \
-            self._program_split(raws, nts, vts, idx)
-        self.phase_seconds["dispatch"] += time.perf_counter() - t1
+        with phase(self.phase_seconds, "stage", "mux.stage"):
+            self._await_staging()
+            ready = self._pending_streams
+            k = len(ready)
+            bucket = next((b for b in self.buckets if b >= k), self.bucket)
+            f = self._flip
+            self._fill[f][k: bucket] = 0
+            self._vts[f][k: bucket] = 0.0
+            self._nts[f][k: bucket] = 0.0
+            idx = None
+            if self._use_webrtc:
+                self._ensure_webrtc_states()
+                # padding rows index one past the last stream: no state
+                # touched
+                idx = np.full((bucket,), self._webrtc_n, np.int32)
+                idx[:k] = [stream.index for stream in ready]
+        with phase(self.phase_seconds, "dispatch", "mux.dispatch"):
+            raws, nts, vts = (buf[:bucket].to(self.device, non_blocking=True)
+                              for buf in (self._fill[f], self._nts[f],
+                                          self._vts[f]))
+            if self.device.type == "cuda":
+                self._copied[f] = torch.cuda.Event()
+                self._copied[f].record()
+            labels = self._program(raws, nts, vts, idx,
+                                   self._webrtc_states) \
+                if self._replicas is None else \
+                self._program_split(raws, nts, vts, idx)
         self._pending_streams = []
         self._pending_ticks = 0
         self._flip ^= 1
@@ -525,16 +553,14 @@ class Multiplexer:
     def _resolve(self, inflight) -> int:
         """Fetch a dispatched batch's labels and append them to the logs."""
         ready, labels = inflight
-        t0 = time.perf_counter()
-        labels = labels.cpu().numpy()           # the one blocking fetch
-        t1 = time.perf_counter()
-        self.phase_seconds["resolve_fetch"] += t1 - t0
-        ts = datetime.today()
-        for i, stream in enumerate(ready):
-            name = self._label_name(stream, int(labels[i]))
-            row = stream.log.append(name, ts)
-            stream.results.append((row, name, ts))
-        self.phase_seconds["resolve_log"] += time.perf_counter() - t1
+        with phase(self.phase_seconds, "resolve_fetch", "mux.fetch"):
+            labels = labels.cpu().numpy()       # the one blocking fetch
+        with phase(self.phase_seconds, "resolve_log", "mux.log"):
+            ts = datetime.today()
+            for i, stream in enumerate(ready):
+                name = self._label_name(stream, int(labels[i]))
+                row = stream.log.append(name, ts)
+                stream.results.append((row, name, ts))
         self.windows_resolved += len(ready)
         return len(ready)
 

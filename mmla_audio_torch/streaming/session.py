@@ -46,6 +46,19 @@ state carried on, and lands in ``experiment/corpus/<name>.wav``; then the
 corpus is featurized and the transfer fine-tune runs until its accuracy
 gate, on the session's device, and the session identifies with the new
 sigmoid head.
+
+Spans (``utils.timers``; recorded only while a ``torch.profiler`` runs,
+one flag check otherwise): ``session.window`` is one window of
+``StreamingSession.run``, which every session class shares; inside it
+``session.read`` (the capture), ``session.chain`` (``preprocess``, and in
+it ``session.vad_fetch``, the blocking copy of the denoised PCM to the
+host, ``session.vad_engine``, the detector's call, and ``session.trim``),
+``session.predict`` (with the predictor's ``model.*`` spans),
+``session.probs_fetch`` (the blocking fetch of the probabilities),
+``session.log`` (log row, telemetry, recording) and ``session.callback``
+(``on_result``).  ``preprocess_windows`` spans ``chain.denoise``,
+``chain.detect`` and ``chain.trim``.  A session's construction and
+``set_noise_profile`` are the set-up span ``setup.stream``.
 """
 
 from __future__ import annotations
@@ -64,6 +77,7 @@ from mmla_audio_torch.data.wavio import write_wav
 from mmla_audio_torch.ops.denoise import (noise_threshold, quantize_i16,
                                           reduce_noise)
 from mmla_audio_torch.utils.experiment import ExperimentDirs, bootstrap
+from mmla_audio_torch.utils.timers import setup_span, span
 from mmla_audio_torch.vad.collector import (calibrate_threshold, energy_vad,
                                             frame_count, vad_trim,
                                             vad_trim_batch)
@@ -111,17 +125,24 @@ def preprocess_window(window_i16, noise_thresh: torch.Tensor,
     fl = int(sr * cfg.vad.frame_ms / 1000)
     T = frame_count(i16.shape[-1], fl)
     if vad is not None:
-        decisions = vad.decisions(i16[: T * fl].to("cpu", torch.int16).numpy(),
-                                  frame_len=fl, sample_rate=sr)
+        with span("session.vad_fetch"):
+            pcm = i16[: T * fl].to("cpu", torch.int16).numpy()
+        with span("session.vad_engine"):
+            decisions = vad.decisions(pcm, frame_len=fl, sample_rate=sr)
     elif gmm_state is not None:
         from mmla_audio_torch.vad.gmm import gmm_vad
 
-        decisions = gmm_vad(i16, gmm_state,
-                            aggressiveness=cfg.vad.aggressiveness,
-                            frame_len=fl)[0][:T]
+        with span("session.vad_engine"):
+            decisions = gmm_vad(i16, gmm_state,
+                                aggressiveness=cfg.vad.aggressiveness,
+                                frame_len=fl)[0][:T]
     else:
-        decisions = energy_vad(i16[: T * fl].reshape(T, fl), vad_threshold_db)
-    return vad_trim(i16, i16.shape[-1], decisions, fl, cfg.vad.ring_frames)
+        with span("session.vad_engine"):
+            decisions = energy_vad(i16[: T * fl].reshape(T, fl),
+                                   vad_threshold_db)
+    with span("session.trim"):
+        return vad_trim(i16, i16.shape[-1], decisions, fl,
+                        cfg.vad.ring_frames)
 
 
 @torch.no_grad()
@@ -143,23 +164,29 @@ def preprocess_windows(raws_i16: torch.Tensor, noise_threshs: torch.Tensor,
     (trimmed int16-scale float32 ``(B, n)``, zero beyond each count; kept
     samples ``(B,)`` int32)."""
     sr = cfg.audio.sample_rate
-    y = raws_i16.to(torch.float32) / 32768.0
-    # a (B, 1, K) threshold broadcasts against the (B, frames, K) spectra
-    y = reduce_noise(y, noise_threshs[:, None, :], cfg.denoise, sr=sr,
-                     passes=cfg.denoise.passes_live)
-    i16 = quantize_i16(y)
+    with span("chain.denoise"):
+        y = raws_i16.to(torch.float32) / 32768.0
+        # a (B, 1, K) threshold broadcasts against the (B, frames, K)
+        # spectra
+        y = reduce_noise(y, noise_threshs[:, None, :], cfg.denoise, sr=sr,
+                         passes=cfg.denoise.passes_live)
+        i16 = quantize_i16(y)
     B, n = i16.shape
     fl = int(sr * cfg.vad.frame_ms / 1000)
     T = frame_count(n, fl)
-    if states is not None:
-        decisions = webrtc_vad_rows(
-            i16[:, : T * fl].to(torch.int16), states, idx,
-            mode=cfg.vad.aggressiveness, frame_len=fl, sample_rate=sr)
-    else:
-        decisions = energy_vad(i16[:, : T * fl].reshape(B, T, fl),
-                               vad_thrs[:, None])
-    n_samples = torch.full((B,), n, dtype=torch.int32, device=i16.device)
-    return vad_trim_batch(i16, n_samples, decisions, fl, cfg.vad.ring_frames)
+    with span("chain.detect"):
+        if states is not None:
+            decisions = webrtc_vad_rows(
+                i16[:, : T * fl].to(torch.int16), states, idx,
+                mode=cfg.vad.aggressiveness, frame_len=fl, sample_rate=sr)
+        else:
+            decisions = energy_vad(i16[:, : T * fl].reshape(B, T, fl),
+                                   vad_thrs[:, None])
+    with span("chain.trim"):
+        n_samples = torch.full((B,), n, dtype=torch.int32,
+                               device=i16.device)
+        return vad_trim_batch(i16, n_samples, decisions, fl,
+                              cfg.vad.ring_frames)
 
 
 class StreamingSession:
@@ -168,6 +195,7 @@ class StreamingSession:
     kind = "overlap"
     log_timestamps = True
 
+    @setup_span("setup.stream")
     def __init__(self, capture, dirs: ExperimentDirs | str,
                  cfg: PipelineConfig = PipelineConfig(),
                  device: torch.device | str = "cuda",
@@ -240,6 +268,7 @@ class StreamingSession:
         write_wav(self.dirs.noise_path, noise, sr)
         self.set_noise_profile(noise)
 
+    @setup_span("setup.stream")
     def set_noise_profile(self, noise_i16: np.ndarray) -> None:
         nf = torch.from_numpy(np.asarray(noise_i16, np.float32) / 32768.0)
         self.noise_thresh = noise_threshold(nf.to(self.device),
@@ -255,9 +284,10 @@ class StreamingSession:
         count."""
         if self.noise_thresh is None:
             raise RuntimeError("calibrate() or set_noise_profile() first")
-        return preprocess_window(window_i16, self._nt_pre, self.cfg,
-                                 vad=self._vad,
-                                 vad_threshold_db=self.vad_threshold_db)
+        with span("session.chain"):
+            return preprocess_window(window_i16, self._nt_pre, self.cfg,
+                                     vad=self._vad,
+                                     vad_threshold_db=self.vad_threshold_db)
 
     # -- the gate ---------------------------------------------------------------
     def _suspend_target(self):
@@ -299,26 +329,37 @@ class StreamingSession:
                 if suspended:
                     self._ensure_capturing()
                     suspended = False
-                window = self.capture.read_window(n_win, timeout=30.0)
-                if window is None:
-                    err = getattr(self.capture, "error", None)
-                    if err is not None:
-                        raise RuntimeError(f"capture failed: {err!r}") from err
-                    break
-                label, prob = self.process_window(window)
-                ts = datetime.today()
-                idx = self.log.append(label, ts)
-                if self.telemetry is not None:
-                    self.telemetry.send(label)
-                if self.save_recordings:
-                    write_wav(self.rec_dir / f"{idx}.wav", window,
-                              self.cfg.audio.sample_rate)
-                results.append((idx, label, ts))
-                if on_result is not None:
-                    on_result(idx, label, prob)
+                with span("session.window"):
+                    if not self._run_window(n_win, results, on_result):
+                        break
         except KeyboardInterrupt:
             pass
         return results
+
+    def _run_window(self, n_win: int, results: list, on_result) -> bool:
+        """One window of ``run``: read, decide, log, call back.  False when
+        the capture has ended."""
+        with span("session.read"):
+            window = self.capture.read_window(n_win, timeout=30.0)
+        if window is None:
+            err = getattr(self.capture, "error", None)
+            if err is not None:
+                raise RuntimeError(f"capture failed: {err!r}") from err
+            return False
+        label, prob = self.process_window(window)
+        with span("session.log"):
+            ts = datetime.today()
+            idx = self.log.append(label, ts)
+            if self.telemetry is not None:
+                self.telemetry.send(label)
+            if self.save_recordings:
+                write_wav(self.rec_dir / f"{idx}.wav", window,
+                          self.cfg.audio.sample_rate)
+            results.append((idx, label, ts))
+        if on_result is not None:
+            with span("session.callback"):
+                on_result(idx, label, prob)
+        return True
 
     def process_window(self, window_i16: np.ndarray):
         raise NotImplementedError
@@ -332,9 +373,11 @@ class OverlapSession(StreamingSession):
     def process_window(self, window_i16: np.ndarray):
         """One window -> (label name, probs as numpy)."""
         trimmed, n_out = self.preprocess(window_i16)
-        _, probs = self.predictor.predict(
-            trimmed[None], torch.tensor([n_out], dtype=torch.int32))
-        probs = probs[0].cpu().numpy()
+        with span("session.predict"):
+            _, probs = self.predictor.predict(
+                trimmed[None], torch.tensor([n_out], dtype=torch.int32))
+        with span("session.probs_fetch"):
+            probs = probs[0].cpu().numpy()
         # the session's gate (cfg.vad.silent_samples), not the predictor's
         label = -1 if n_out < self.cfg.vad.silent_samples \
             else int(np.argmax(probs))
@@ -359,11 +402,13 @@ class SpeakerSession(StreamingSession):
     def process_window(self, window_i16: np.ndarray):
         """One window -> (speaker name, probs as numpy)."""
         trimmed, n_out = self.preprocess(window_i16)
-        logits, probs = self.predictor.score(
-            trimmed[None], torch.tensor([n_out], dtype=torch.int32))
-        probs = probs[0].cpu().numpy()
-        label = -1 if n_out < self.cfg.speaker_feature.silent_samples \
-            else int(torch.argmax(logits[0]))
+        with span("session.predict"):
+            logits, probs = self.predictor.score(
+                trimmed[None], torch.tensor([n_out], dtype=torch.int32))
+        with span("session.probs_fetch"):
+            probs = probs[0].cpu().numpy()
+            label = -1 if n_out < self.cfg.speaker_feature.silent_samples \
+                else int(torch.argmax(logits[0]))
         name = "silent" if label < 0 else \
             self.speaker_id_dict.get(str(label), str(label))
         return name, probs
