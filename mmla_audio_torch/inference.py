@@ -18,6 +18,12 @@ Speaker identification:
 All of it is torch ops (cuBLAS GEMMs, cuDNN convolutions and LSTM on the
 card), as the JAX package runs it outside any Pallas kernel.
 
+On the card ``OverlapPredictor.apply_model`` replays the overlap model's
+stretches between its fused blocks (``OverlapResBLSTM.segments``) as CUDA
+graphs, captured the second time a shape comes, and launches the six fused
+blocks (B3) between them from Python; ``graph_stats()`` counts captures,
+replays and eager forwards.
+
 A predictor's construction is the set-up span ``setup.predictor``; a batch
 spans ``model.features``, ``model.forward`` and ``model.labels``
 (``utils.timers``).
@@ -26,6 +32,9 @@ spans ``model.features``, ``model.forward`` and ``model.labels``
 from __future__ import annotations
 
 import contextlib
+import threading
+import weakref
+from collections import OrderedDict
 from typing import Mapping
 
 import torch
@@ -48,6 +57,11 @@ from mmla_audio_torch.utils.timers import setup_span, span
 __all__ = ["SILENT", "OverlapPredictor", "SpeakerPredictor"]
 
 SILENT = -1  # label index for the silent gate (the log writes "silent")
+
+# the most keys (model, device, input shape, TF32 flags) whose CUDA graphs an
+# OverlapPredictor keeps, least recently used out first: the multiplexer's
+# two buckets on up to four mesh replicas
+GRAPH_SHAPES = 8
 
 
 def _masked_prefix(buf: torch.Tensor, n: torch.Tensor,
@@ -85,6 +99,64 @@ def _apply(model, x, device, compute_dtype, matmul_precision):
         if compute_dtype is not None else contextlib.nullcontext()
     with fp32_policy(matmul_precision is None), autocast:
         return model(x).float()
+
+
+def _run(layers, x):
+    for layer in layers:
+        x = layer(x)
+    return x
+
+
+class _StretchGraphs:
+    """One input shape's CUDA graphs of a model's stretches
+    (``OverlapResBLSTM.segments``), in one memory pool, each reading its
+    static input buffer and writing its static output.  The graphs read the
+    parameters where they were at capture: an in-place update
+    (``load_state_dict``) shows at the next replay."""
+
+    def __init__(self):
+        self.inputs, self.graphs, self.outputs = [], [], []
+
+    @classmethod
+    def capture(cls, model, x: torch.Tensor):
+        """``(graphs, logits)``: each stretch captured in turn, and the
+        forward of ``x``.  A stretch is warmed up on a side stream (cuDNN
+        plans, cuBLAS workspaces), captured there, then replayed on the
+        current stream, and its fused blocks run on the replay's output, so
+        the blocks launch once, as in a replay."""
+        self = cls()
+        pool = torch.cuda.graph_pool_handle()
+        main = torch.cuda.current_stream(x.device)
+        side = torch.cuda.Stream(x.device)
+        for name, stretch, blocks in model.segments():
+            with span(name):
+                buf = torch.empty_like(x)
+                side.wait_stream(main)
+                with torch.cuda.stream(side):
+                    buf.copy_(x)
+                    _run(stretch, buf)
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graph, pool=pool, stream=side,
+                                          capture_error_mode="thread_local"):
+                        out = _run(stretch, buf)
+                main.wait_stream(side)
+                graph.replay()
+                x = _run(blocks, out)
+            self.inputs.append(buf)
+            self.graphs.append(graph)
+            self.outputs.append(out)
+        return self, x.clone()
+
+    def replay(self, model, x: torch.Tensor) -> torch.Tensor:
+        """The forward of ``x`` (this shape): copy in, replay, the fused
+        blocks; logits the caller owns."""
+        for (name, _, blocks), buf, graph, out in zip(
+                model.segments(), self.inputs, self.graphs, self.outputs):
+            with span(name):
+                buf.copy_(x)
+                graph.replay()
+                x = _run(blocks, out)
+        return x.clone()
 
 
 class OverlapPredictor:
@@ -125,13 +197,68 @@ class OverlapPredictor:
         self.compute_dtype = compute_dtype
         self.matmul_precision = matmul_precision
         self.silent_threshold = silent_threshold
+        self._graphs: OrderedDict = OrderedDict()   # key -> _StretchGraphs
+        self._seen: OrderedDict = OrderedDict()     # keys met once
+        self._counts = {"captures": 0, "replays": 0, "eager": 0}
+        # one forward at a time through the graphs' shared buffers
+        self._lock = threading.RLock()
 
     def apply_model(self, x: torch.Tensor, model=None) -> torch.Tensor:
         """Model forward (``model``: a replica on ``x``'s device, default
         this predictor's) under this predictor's numerics policy; float32
-        logits."""
-        return _apply(self.model if model is None else model, x, x.device,
-                      self.compute_dtype, self.matmul_precision)
+        logits, which the caller owns.
+
+        The stretches between the fused blocks replay as CUDA graphs where
+        ``x`` is a CUDA float32 tensor, ``compute_dtype`` is None, the model
+        is in eval mode, autograd and autocast are off, no stream capture is
+        under way, and this model met this shape on this device, under the
+        same TF32 flags, before: the first time runs eagerly, the second
+        captures.  The replay launches the very kernels of the eager
+        forward, so the logits are the same bits.  Every other forward runs
+        eagerly.  Threads take the graphs in turn; callers on different
+        streams order their calls (a stream's ``wait_stream``), since the
+        graphs' buffers are shared."""
+        model = self.model if model is None else model
+        if not (x.is_cuda and x.dtype == torch.float32
+                and self.compute_dtype is None and not model.training
+                and not torch.is_grad_enabled()
+                and not torch.is_autocast_enabled(x.device.type)
+                and not torch.cuda.is_current_stream_capturing()):
+            return self._eager(model, x)
+        with self._lock, fp32_policy(self.matmul_precision is None):
+            key = (weakref.ref(model), x.device, tuple(x.shape),
+                   torch.backends.cuda.matmul.allow_tf32,
+                   torch.backends.cudnn.allow_tf32)
+            graphs = self._graphs.get(key)
+            if graphs is not None:
+                self._graphs.move_to_end(key)
+                self._counts["replays"] += 1
+                return graphs.replay(model, x)
+            if self._seen.pop(key, None) is None:
+                self._seen[key] = True
+                if len(self._seen) > GRAPH_SHAPES:
+                    self._seen.popitem(last=False)
+                return self._eager(model, x)
+            if len(self._graphs) == GRAPH_SHAPES:
+                old, _ = self._graphs.popitem(last=False)
+                torch.cuda.synchronize(old[1])    # no replay of it in flight
+            self._graphs[key], logits = _StretchGraphs.capture(model, x)
+            self._counts["captures"] += 1
+            self._counts["replays"] += 1
+            return logits
+
+    def _eager(self, model, x: torch.Tensor) -> torch.Tensor:
+        with self._lock:
+            self._counts["eager"] += 1
+        return _apply(model, x, x.device, self.compute_dtype,
+                      self.matmul_precision)
+
+    def graph_stats(self) -> dict:
+        """``captures`` (shapes whose graphs were captured), ``replays``
+        (forwards through the graphs, a capture's own included) and
+        ``eager`` (forwards without them) since construction."""
+        with self._lock:
+            return dict(self._counts)
 
     def _forward(self, model, buf: torch.Tensor, n: torch.Tensor):
         with span("model.features"):

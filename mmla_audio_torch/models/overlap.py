@@ -16,8 +16,12 @@ last window holding one column, as ``SAME``'s -inf padding gives).
 
 In inference on the card, each non-pooling block is one launch of the
 hand-written fused kernel (``ops/cuda_resblock.py``; the rule is in
-``ResBlock2D``'s docstring).  A forward spans each stage (``model.stage``)
-and the mel-mean, BiLSTM and head (``model.lstm``): ``utils.timers``.
+``ResBlock2D``'s docstring).  ``OverlapResBLSTM.segments`` is the forward
+as its stretches that never reach that kernel and the fused blocks between
+them; ``forward`` runs them, and ``inference.OverlapPredictor`` replays the
+stretches as CUDA graphs.  A forward spans each stage (``model.stage``, the
+first with the stem) and the mel-mean, BiLSTM and head (``model.lstm``):
+``utils.timers``.
 """
 
 from __future__ import annotations
@@ -118,21 +122,41 @@ class OverlapResBLSTM(nn.Module):
         self.dropout = SeededDropout(cfg.dropout)
         self.head = nn.Linear(2 * cfg.lstm_units, cfg.num_classes)
 
+    def segments(self) -> list:
+        """The forward in order, as ``(span, stretch, blocks)`` a segment:
+        the layers of ``stretch`` (the stem and a stage's pooling block, or
+        the mel-mean, BiLSTM and head), none of which reaches the fused
+        block, then ``blocks``, the stage's non-pooling blocks (B3 at
+        inference on the card), each on the previous layer's output."""
+        blocks, n = list(self.blocks), self.cfg.blocks_per_stage
+        stages = [blocks[i: i + n] for i in range(0, len(blocks), n)]
+        segs = [("model.stage", (self._stem, stages[0][0]),
+                 tuple(stages[0][1:]))]
+        segs += [("model.stage", (stage[0],), tuple(stage[1:]))
+                 for stage in stages[1:]]
+        segs.append(("model.lstm", (self._lstm_head,), ()))
+        return segs
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """``x (B, 128, 151, 3)`` -> logits ``(B, num_classes)``.  The
+        """``x (B, 128, 151, 3)`` -> logits ``(B, num_classes)``: the
+        layers of ``segments`` in order."""
+        for name, stretch, blocks in self.segments():
+            with span(name):
+                for layer in stretch + blocks:
+                    x = layer(x)
+        return x
+
+    def _stem(self, x: torch.Tensor) -> torch.Tensor:
+        """The scaled image, channels first, through the stem.  The
         channels-first image is made contiguous (a no-op for the featurizer
         kernel's output, a permuted view of it): from a channels-last image
         the convolutions would keep the channels-last layout, which the
         fused block refuses."""
         if self.cfg.input_scale != 1.0:
             x = x * self.cfg.input_scale
-        net = self.stem(x.permute(0, 3, 1, 2).contiguous())
-        blocks, n = list(self.blocks), self.cfg.blocks_per_stage
-        for i in range(0, len(blocks), n):
-            with span("model.stage"):
-                for block in blocks[i: i + n]:
-                    net = block(net)
-        with span("model.lstm"):
-            net = net.mean(dim=2).transpose(1, 2)    # mel-axis mean -> (B, T, C)
-            net = leaky_relu(self.dropout(self.bilstm(net)))
-            return self.head(net)
+        return self.stem(x.permute(0, 3, 1, 2).contiguous())
+
+    def _lstm_head(self, net: torch.Tensor) -> torch.Tensor:
+        net = net.mean(dim=2).transpose(1, 2)    # mel-axis mean -> (B, T, C)
+        net = leaky_relu(self.dropout(self.bilstm(net)))
+        return self.head(net)

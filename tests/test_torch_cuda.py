@@ -484,8 +484,9 @@ def test_multiplexer_launches_each_kernel_once_a_batch(device, tmp_path):
 
 def test_multiplexer_dispatch_does_not_wait_for_the_card(device, tmp_path):
     """A tick's gather and dispatch (the copies, W1, W2, the featurizer and
-    the model) enqueue without a synchronizing call: only the next tick's
-    label fetch waits for the card."""
+    the model's graph replays) enqueue without a synchronizing call: only
+    the next tick's label fetch waits for the card.  Two ticks warm up: the
+    first chooses plans, the second captures the model's graphs."""
     import dataclasses
 
     from mmla_audio_torch.core.config import PipelineConfig
@@ -501,9 +502,11 @@ def test_multiplexer_dispatch_does_not_wait_for_the_card(device, tmp_path):
     noise = (np.random.RandomState(3).randn(160000) * 15).astype(np.int16)
     for s in range(2):
         mux.add_stream(f"s{s}", PrefilledCapture(
-            (_audio(1, 3 * 40960, seed=s)[0] * 20000).astype(np.int16)),
+            (_audio(1, 4 * 40960, seed=s)[0] * 20000).astype(np.int16)),
             noise)
-    assert mux.tick() == 0 and mux.flush() == 2      # warm: caches, plans
+    for _ in range(2):                 # warm: caches, plans; graphs
+        assert mux.tick() == 0 and mux.flush() == 2
+    assert pred.graph_stats()["captures"] == 1
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -709,6 +712,166 @@ def test_aot_compile_captures_the_predictor(device):
         torch.testing.assert_close(probs, ref[1], rtol=0, atol=1e-6)
     with pytest.raises(ValueError, match="compiled for"):
         compiled(bufs[:2], counts[:2])
+
+
+# -- CUDA graphs of the overlap model's stretches (OverlapPredictor) ---------
+
+def _graph_predictor(device, tf32, cfg=OverlapModelConfig(), seed=0):
+    sd = keras_init_(OverlapResBLSTM(cfg),
+                     torch.Generator().manual_seed(seed)).state_dict()
+    return OverlapPredictor(sd, cfg, device=device,
+                            matmul_precision=None if tf32 else "highest")
+
+
+def _perturbed(model, seed):
+    """``model``'s state dict with every floating leaf moved (BatchNorm
+    variances kept positive), so a refold and a graph both have something
+    to read."""
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for name, t in model.state_dict().items():
+        if t.is_floating_point():
+            t = t.cpu() * (1 + 0.2 * torch.rand(t.shape, generator=g))
+            if not name.endswith("running_var"):
+                t = t + 0.02 * torch.randn(t.shape, generator=g)
+        out[name] = t
+    return out
+
+
+@pytest.mark.parametrize("tf32", [False, True])
+@pytest.mark.parametrize("batch", [1, 8, 64])
+def test_graphed_apply_model_equals_eager(device, batch, tf32):
+    """``apply_model`` at the cells' batch sizes, full width, TF32 off and
+    on: a shape met once runs eagerly and captures nothing; the second call
+    captures and the third replays, six fused-block launches each; every
+    call equals the eager forward bit for bit; the logits are the caller's
+    (a later replay leaves them); weights loaded in place show in the next
+    replay; ``graph_stats()`` counts each step."""
+    from mmla_audio_torch.inference import _apply
+
+    pred = _graph_predictor(device, tf32)
+    imgs = [overlap_model_input_cuda(torch.from_numpy(
+        _audio(batch, 24000, seed=s)).to(device)) for s in (1, 2)]
+
+    def eager(img):
+        return _apply(pred.model, img, img.device, None,
+                      pred.matmul_precision)
+
+    with torch.no_grad():
+        ref = eager(imgs[0])
+        first = pred.apply_model(imgs[0])
+        assert pred.graph_stats() == {"captures": 0, "replays": 0,
+                                      "eager": 1}
+        assert not pred._graphs
+        second = pred.apply_model(imgs[0])
+        assert pred.graph_stats() == {"captures": 1, "replays": 1,
+                                      "eager": 1}
+        before = fused_resblock_cuda.launches
+        third = pred.apply_model(imgs[0])
+        torch.cuda.synchronize()
+        assert fused_resblock_cuda.launches == before + 6
+        for got in (first, second, third):
+            assert torch.equal(got, ref)
+        other = pred.apply_model(imgs[1])
+        assert torch.equal(third, ref)
+        assert torch.equal(other, eager(imgs[1]))
+        pred.model.load_state_dict(_perturbed(pred.model, 5))
+        moved = eager(imgs[0])
+        assert not torch.equal(moved, ref)
+        assert torch.equal(pred.apply_model(imgs[0]), moved)
+        assert pred.graph_stats() == {"captures": 1, "replays": 4,
+                                      "eager": 1}
+
+
+@pytest.mark.parametrize("tf32", [False, True])
+@pytest.mark.parametrize("batch", [1, 8, 64])
+def test_graphs_stay_out_of_an_outer_capture(device, batch, tf32):
+    """``export.aot_compile`` around ``predict``: its warm-up meets the
+    shape first and its capture records the eager forward (both counted
+    ``eager``, nothing captured by the predictor); the compiled replay
+    agrees with ``predict``, whose later calls capture and replay the
+    predictor's own graphs."""
+    from mmla_audio_torch.export import aot_compile
+
+    pred = _graph_predictor(device, tf32)
+    bufs = torch.from_numpy((_audio(batch, 40960) * 20000).astype(np.int16)
+                            ).to(device)
+    counts = torch.full((batch,), 30000, dtype=torch.int32, device=device)
+    compiled = aot_compile(pred.predict, bufs, counts)
+    assert pred.graph_stats() == {"captures": 0, "replays": 0, "eager": 2}
+    labels, probs = compiled(bufs, counts)
+    for _ in range(2):
+        ref = pred.predict(bufs, counts)
+        assert torch.equal(labels, ref[0])
+        assert torch.equal(probs, ref[1])
+    assert pred.graph_stats() == {"captures": 1, "replays": 2, "eager": 2}
+
+
+def test_graphs_keep_a_bounded_set_of_shapes(device):
+    """Each of ``GRAPH_SHAPES + 2`` batch sizes met twice: the predictor
+    never holds more than ``GRAPH_SHAPES`` shapes' graphs, the oldest go
+    first, and a shape evicted starts again from once-met."""
+    from mmla_audio_torch.inference import GRAPH_SHAPES
+
+    cfg = OverlapModelConfig(stage_filters=(8, 8, 16), lstm_units=16)
+    pred = _graph_predictor(device, False, cfg)
+    img = overlap_model_input_cuda(torch.from_numpy(
+        _audio(GRAPH_SHAPES + 2, 24000)).to(device))
+    with torch.no_grad():
+        for b in range(1, GRAPH_SHAPES + 3):
+            for _ in range(2):
+                pred.apply_model(img[:b])
+                assert len(pred._graphs) <= GRAPH_SHAPES
+        assert [k[2][0] for k in pred._graphs] == \
+            list(range(3, GRAPH_SHAPES + 3))
+        assert pred.graph_stats() == {"captures": GRAPH_SHAPES + 2,
+                                      "replays": GRAPH_SHAPES + 2,
+                                      "eager": GRAPH_SHAPES + 2}
+        ref = _graph_predictor(device, False, cfg).apply_model(img[:1])
+        for _ in range(2):
+            assert torch.equal(pred.apply_model(img[:1]), ref)
+        assert pred.graph_stats()["captures"] == GRAPH_SHAPES + 3
+        assert pred.graph_stats()["eager"] == GRAPH_SHAPES + 3
+
+
+def test_graphs_shared_by_threads(device):
+    """Four threads share one predictor, each its own batch of one shape,
+    the interpreter switching threads every microsecond: every forward
+    returns the logits its batch gave alone (no thread's input lands in
+    another's replay), and the counts add up."""
+    import sys
+    import threading
+
+    cfg = OverlapModelConfig(stage_filters=(8, 8, 16), lstm_units=16)
+    pred = _graph_predictor(device, False, cfg)
+    imgs = [overlap_model_input_cuda(torch.from_numpy(
+        _audio(2, 24000, seed=s)).to(device)) for s in range(4)]
+    with torch.no_grad():
+        refs = [pred.apply_model(img) for img in imgs]
+    wrong = []
+
+    def work(img, ref):
+        with torch.no_grad():
+            for _ in range(30):
+                if not torch.equal(pred.apply_model(img), ref):
+                    wrong.append(1)
+
+    threads = [threading.Thread(target=work, args=a)
+               for a in zip(imgs, refs)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert not wrong
+    stats = pred.graph_stats()
+    assert stats["captures"] == 1
+    assert stats["replays"] + stats["eager"] == 4 + 4 * 30
 
 
 # -- data parallelism: the mesh multiplexer, NCCL at world size 1 -----------

@@ -75,6 +75,22 @@ def test_predictor_bf16_autocast(predictors):
     np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=0.05)
 
 
+def test_apply_model_on_the_cpu_runs_eagerly(predictors):
+    """On the CPU ``apply_model`` never captures a graph: every forward,
+    the same shape again and again, counts ``eager`` and equals the
+    model's own forward."""
+    pred = OverlapPredictor(predictors[1].model.state_dict(), as_port(CFG),
+                            device="cpu")
+    x = torch.from_numpy((np.random.RandomState(5).rand(2, 128, 151, 3)
+                          * 255).astype(np.float32))
+    with torch.no_grad():
+        ref = pred.model(x)
+        for _ in range(3):
+            assert torch.equal(pred.apply_model(x), ref)
+    assert pred.graph_stats() == {"captures": 0, "replays": 0, "eager": 3}
+    assert not pred._graphs
+
+
 def test_predictor_refuses_non_default_feature_config(predictors):
     feat = port_config.OverlapFeatureConfig(flip_mel_axis=False)
     with pytest.raises(ValueError, match="requires png_quantize=True"):

@@ -90,6 +90,33 @@ def test_logits_match_jax_with_input_scale():
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("training", [False, True])
+def test_segments_in_turn_equal_forward(training):
+    """``segments`` is the forward: its stretches and blocks run one after
+    another give ``forward``'s logits exactly (train mode: the same
+    dropout draws from the same seed), three stages then the head."""
+    cfg = as_port(OverlapModelConfig(stage_filters=(4, 4, 4), lstm_units=8,
+                                     input_scale=1 / 255))
+    model = keras_init_(OverlapResBLSTM(cfg),
+                        torch.Generator().manual_seed(2)).train(training)
+    x = torch.from_numpy((np.random.RandomState(4).rand(3, 128, 151, 3)
+                          * 255).astype(np.float32))
+    segs = model.segments()
+    assert [name for name, _, _ in segs] == ["model.stage"] * 3 + \
+        ["model.lstm"]
+    assert [len(blocks) for _, _, blocks in segs] == [2, 2, 2, 0]
+    assert not any(b.pool for _, _, blocks in segs for b in blocks)
+    with torch.no_grad():
+        torch.manual_seed(0)
+        ref = model(x)
+        torch.manual_seed(0)
+        net = x
+        for _, stretch, blocks in segs:
+            for layer in stretch + blocks:
+                net = layer(net)
+    assert torch.equal(net, ref)
+
+
 def test_converter_rejects_wrong_tree():
     tree = perturbed_tree(NARROW)
     del tree["batch_stats"]["stage0_block0"]
