@@ -46,6 +46,14 @@ per source, all at once), then:
    batches), and the FFMA kernel (C % 8 != 0) at C=12, TF32 off, max |diff|
    <= 1e-4 * max |ref|; CUDA-event timings of the kernel, the plain version
    and the unfused ``ResBlock2D`` (cuDNN, the yardstick);
+2b. kernel A1 (``csrc/wavlm_attention.cu``, WavLM's attention with its
+   gated relative position bias): against its plain version in float64 at
+   T = 127, B = 1, 8, 64 and T = 511, B = 8, one TF32 pass and 3xTF32
+   within ``A1_RTOL``, the plain version in bf16 above the TF32 limit; the
+   kernel alone, by CUDA events, the plain version and SDPA's
+   memory-efficient path with the bias materialised (the library
+   yardstick) timed; the full-width WavLM forward at B = 1, 8, 64 and A1's
+   share of it (these launches are not counted);
 3. predictor: the full-width default ``OverlapModelConfig()`` with weights
    from a seeded numpy tree through ``params.py``; B=8 on the card vs the
    same predictor on the CPU, TF32 off;
@@ -167,6 +175,14 @@ per source, all at once), then:
    statistic within rtol 1e-4 / atol 1e-5 (the CPU test's), each step
    timed by CUDA events with and without the mesh; the group destroyed
    after;
+10e. WavLM Large at full width through ``Multiplexer(kind="wavlm")``:
+   64 prefilled streams x 2 windows of synthetic speech at bucket 64, each
+   logged once, in order; the trimmed windows its normalisation was given
+   through the same weights on the CPU (TF32 off), labels equal where the
+   CPU's top-2 margin exceeds ``TOP2_MARGIN``; then 4 streams x 4 windows
+   against ``WavLMSession`` (``mux_vs_sessions``).  Kernel A1's launches
+   are counted from 0 over these runs alone, 24 a forward: the kernels
+   line's count of A1 (phase 2b's timing loops are left out);
 11. edge, export and weights: ``EdgeOverlapSession.run`` over 8 windows
    (3 noise-only, where the SSIM gate fires) on the card and the CPU,
    labels equal where the CPU's top-2 margin is above 1e-3 and its SSIM
@@ -4049,6 +4065,279 @@ def phase_compile_cache(tmp: Path) -> None:
         f"process {warm_s:.2f} s)")
 
 
+# -- kernel A1: WavLM's gated-relative-position attention ---------------------
+
+A1_HEADS, A1_HEAD, A1_FRAMES = 16, 64, 127   # WavLM Large on a 2.56 s window
+A1_BATCHES = (1, 8, 64)
+# A1's error against the float64 plain version, of max |ref|: one TF32
+# pass (the configuration's precision) and 3xTF32 (TF32 not allowed)
+A1_RTOL = {"tf32": 2e-3, "split": 2e-5}
+
+
+def a1_operands(batch: int, T: int, device, seed: int) -> tuple:
+    """Seeded q, k, v as the model hands them to A1 (views of one (B, T, 3,
+    H, 64) tensor, as from its projections), its gates, a positive bias
+    table and key lengths from 1 to T."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    qkv = 1.3 * torch.randn(batch, T, 3, A1_HEADS, A1_HEAD, generator=g,
+                            device=device)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    gate = 1.0 + 2.0 * torch.rand(batch, A1_HEADS, T, generator=g,
+                                  device=device)
+    bias = 0.5 + 1.5 * torch.rand(A1_HEADS, 2 * T - 1, generator=g,
+                                  device=device)
+    lens = torch.randint(max(1, T // 4), T + 1, (batch,), generator=g,
+                         device=device, dtype=torch.int32)
+    lens[0] = T
+    if batch > 1:
+        lens[1] = 1
+    return q, k, v, gate, bias, lens
+
+
+def a1_work(batch: int, T: int) -> tuple:
+    """(FLOPs, bytes) of one launch: both products; q, k, v, out, the gate,
+    the table and the lengths once (perfbench/counts/wavlm.py's)."""
+    H, d = A1_HEADS, A1_HEAD
+    return (4 * batch * H * T * T * d,
+            4 * (4 * batch * H * T * d + batch * H * T + H * (2 * T - 1)
+                 + batch))
+
+
+def a1_error(got, ref) -> float:
+    return float((got.double() - ref).abs().max() / ref.abs().max())
+
+
+def wavlm_state_dict(cfg, device, seed: int = 5) -> dict:
+    """Seeded full-width WavLM weights on ``device``: LayerNorm scales,
+    ``weight_g`` and ``gru_rel_pos_const`` 1 + 0.2 N(0, 1), other vectors
+    0.1 N(0, 1), matrices N(0, 1) over the root of their fan-in."""
+    from mmla_audio_torch.models.wavlm import WavLMForSequenceClassification
+
+    with torch.device("meta"):
+        model = WavLMForSequenceClassification(cfg)
+    g = torch.Generator(device=device).manual_seed(seed)
+    sd = {}
+    for name, p in model.state_dict().items():
+        z = torch.randn(p.shape, generator=g, device=device)
+        sd[name] = 1.0 + 0.2 * z if name.endswith(
+            ("layer_norm.weight", "weight_g", "gru_rel_pos_const")) \
+            else (0.1 * z if p.ndim == 1 else z / (p[0].numel() ** 0.5))
+    return sd
+
+
+def phase_attention(device) -> dict:
+    """A1 against its plain version in float64 at T = 127 (and 511), B = 1,
+    8, 64: one TF32 pass under A1_RTOL["tf32"], 3xTF32 (TF32 off) under
+    A1_RTOL["split"], the plain version in bf16 above the TF32 limit;
+    timings of the kernel alone and by CUDA events, the plain version
+    (fp32, TF32 off), and SDPA's memory-efficient path with the gated bias
+    materialised (the library yardstick; the port never calls it); then the
+    full-width WavLM forward at B = 1, 8, 64 by CUDA events (TF32 allowed)
+    and A1's share of it."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from mmla_audio_torch.core.config import WavLMConfig
+    from mmla_audio_torch.inference import WavLMPredictor
+    from mmla_audio_torch.ops.cuda_attention import (wavlm_attention,
+                                                     wavlm_attention_plain)
+    from mmla_audio_torch.precision import fp32_policy
+
+    def library(q, k, v, gate, bias, lens):
+        T = q.shape[2]
+        pos = torch.arange(T, device=q.device)
+        mask = gate[..., None] * bias[:, pos[None, :] - pos[:, None] + T - 1]
+        mask = mask.masked_fill((pos[None, :] >= lens[:, None])[:, None,
+                                                                None],
+                                float("-inf"))
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+    out = {}
+    for T in (A1_FRAMES, 511):
+        for batch in A1_BATCHES if T == A1_FRAMES else (8,):
+            ops = a1_operands(batch, T, device, seed=batch + T)
+            ref = wavlm_attention_plain(*(o.double() if o.is_floating_point()
+                                          else o for o in ops))
+            errs = {}
+            for mode, tf32 in (("tf32", True), ("split", False)):
+                with torch.no_grad(), fp32_policy(tf32):
+                    before = wavlm_attention.launches_split
+                    errs[mode] = a1_error(wavlm_attention(*ops), ref)
+                    if wavlm_attention.launches_split - before != (not tf32):
+                        raise AssertionError(f"A1 {mode}: not its kernel")
+                if errs[mode] > A1_RTOL[mode]:
+                    raise AssertionError(f"A1 T={T} B={batch} {mode}: error "
+                                         f"{errs[mode]:.3g} > {A1_RTOL[mode]}")
+            errs["bf16"] = a1_error(wavlm_attention_plain(*(
+                o.to(torch.bfloat16) if o.is_floating_point() else o
+                for o in ops)), ref)
+            if errs["bf16"] <= A1_RTOL["tf32"]:
+                raise AssertionError(f"A1 T={T} B={batch}: bf16's error "
+                                     f"{errs['bf16']:.3g} within the TF32 "
+                                     f"limit")
+            with torch.no_grad(), fp32_policy(True):
+                alone = queued_ms(wavlm_attention, *ops)
+                kern = time_ms(wavlm_attention, *ops)
+                lib = time_ms(library, *ops)
+            with torch.no_grad(), fp32_policy(False):
+                plain = time_ms(wavlm_attention_plain, *ops)
+            flop, nbytes = a1_work(batch, T)
+            bnd = max(nbytes / HBM_BYTES_S, flop / TF32_FLOP_S) * 1e3
+            out[(T, batch)] = dict(alone_ms=alone, ms=kern, plain_ms=plain,
+                                   library_ms=lib, bound_ms=bnd, **errs)
+            log(f"[A1] T={T} B={batch}: error of max |ref| TF32 "
+                f"{errs['tf32']:.3g} (limit {A1_RTOL['tf32']}), 3xTF32 "
+                f"{errs['split']:.3g} (limit {A1_RTOL['split']}), bf16 plain "
+                f"{errs['bf16']:.3g}; kernel alone {alone:.4f} ms, by events "
+                f"{kern:.4f} ms, plain {plain:.4f} ms, SDPA "
+                f"memory-efficient with the bias materialised {lib:.4f} ms; "
+                f"bound {bnd:.4f} ms (bytes {nbytes / 1e6:.1f} MB, "
+                f"{flop / 1e9:.2f} GFLOP), {bnd / alone * 100:.1f} % of it")
+    cfg = WavLMConfig()
+    pred = WavLMPredictor(wavlm_state_dict(cfg, device), cfg, device=device)
+    rng = np.random.RandomState(9)
+    for batch in A1_BATCHES:
+        x = torch.from_numpy(rng.randn(batch, 40960).astype(np.float32) * 3e3)
+        n = torch.full((batch,), 40960, dtype=torch.int32)
+        with torch.no_grad():
+            from mmla_audio_torch.models.wavlm import wavlm_input_batch
+
+            xin = wavlm_input_batch(x.to(device), n.to(device))
+            launches = wavlm_attention.launches
+            pred.apply_model(xin)
+            torch.cuda.synchronize()
+            if wavlm_attention.launches - launches != cfg.num_hidden_layers:
+                raise AssertionError("WavLM forward: not one A1 launch a "
+                                     "layer")
+            ms = time_ms(pred.apply_model, xin, reps=3 if batch > 8 else 10,
+                         rounds=3)
+        share = out[(A1_FRAMES, batch)]["ms"] * cfg.num_hidden_layers / ms
+        out[("forward", batch)] = ms
+        log(f"[WavLM] full width, B={batch}: forward {ms:.3f} ms by CUDA "
+            f"events ({batch / ms * 1e3:.0f} windows/s), A1 "
+            f"{share * 100:.1f} % of it (24 launches at its own time), "
+            f"peak memory {torch.cuda.max_memory_allocated(device) / 1e9:.2f}"
+            f" GB")
+    return out
+
+
+# -- phase 10e: WavLM Large through the multiplexer ---------------------------
+
+WAVLM_STREAMS, WAVLM_WINDOWS, WAVLM_CPU_ROWS = 64, 2, 8
+
+
+def phase_wavlm_multiplexer(device, cfg, tmp: Path) -> int:
+    """Phase 10e: WavLM Large at full width through the multiplexer.
+    ``WAVLM_STREAMS`` prefilled streams x ``WAVLM_WINDOWS`` windows at
+    bucket 64, each window logged once, in order; the first
+    ``WAVLM_CPU_ROWS`` trimmed windows of each tick (as the normalisation
+    was given them) through the same weights on the CPU, TF32 off: labels
+    equal where the CPU's top-2 margin exceeds ``TOP2_MARGIN``; then
+    ``mux_vs_sessions`` against ``WavLMSession``.  Returns A1's launches
+    over these runs, each counted from 0 and checked at 24 a forward."""
+    from mmla_audio_torch.core.config import WavLMConfig
+    from mmla_audio_torch.inference import SILENT, WavLMPredictor
+    from mmla_audio_torch.ops.cuda_attention import wavlm_attention
+    from mmla_audio_torch.streaming import multiplex
+    from mmla_audio_torch.streaming.capture import PrefilledCapture
+    from mmla_audio_torch.streaming.session import WavLMSession
+
+    t_phase = time.perf_counter()
+    wcfg = WavLMConfig()
+    layers = wcfg.num_hidden_layers
+    sd = wavlm_state_dict(wcfg, device, seed=23)
+    pred = WavLMPredictor(sd, wcfg, device=device)
+    cpu = WavLMPredictor({k: v.cpu() for k, v in sd.items()}, wcfg,
+                         device="cpu", matmul_precision="highest")
+    n_win = cfg.audio.window_samples
+    noises = [ambient(600 + k) for k in range(4)]
+    mux = multiplex.Multiplexer(pred, tmp / "wavlm_mux", kind="wavlm",
+                                cfg=cfg, device=device)
+    for s in range(WAVLM_STREAMS):
+        mux.add_stream(f"w{s}", PrefilledCapture(
+            vad_windows(WAVLM_WINDOWS, seed=700 + s, n=n_win).ravel()),
+            noises[s % len(noises)])
+    batches = []
+    real_norm, real_apply = multiplex.wavlm_input_batch, pred.apply_model
+
+    def norm(trimmed, n, *args):
+        batches.append([trimmed[:WAVLM_CPU_ROWS].cpu(),
+                        n[:WAVLM_CPU_ROWS].cpu()])
+        return real_norm(trimmed, n, *args)
+
+    def apply(x, model=None):
+        logits = real_apply(x, model)
+        batches[-1].append(logits[:WAVLM_CPU_ROWS].cpu())
+        return logits
+
+    multiplex.wavlm_input_batch, pred.apply_model = norm, apply
+    try:
+        zero_launch_counters()
+        wavlm_attention.launches = 0
+        t0 = time.perf_counter()
+        got = mux.run_until_exhausted()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        served = wavlm_attention.launches
+    finally:
+        multiplex.wavlm_input_batch, pred.apply_model = real_norm, real_apply
+    want = WAVLM_STREAMS * WAVLM_WINDOWS
+    ticks = want // 64
+    if got != want or len(batches) != ticks or served != layers * ticks:
+        raise AssertionError(f"WavLM multiplexer: {got} of {want} windows in "
+                             f"{len(batches)} forwards, A1 launched {served} "
+                             f"times ({layers} a forward)")
+    if mux.buckets[-1] != 64 or any(len(b[2]) != WAVLM_CPU_ROWS
+                                    for b in batches):
+        raise AssertionError(f"WavLM multiplexer: buckets {mux.buckets}")
+    check_logs(mux, WAVLM_WINDOWS, "WavLM multiplexer")
+    clear = silent = 0
+    worst = 0.0
+    for trimmed, n, card in batches:
+        with torch.no_grad():
+            ref = cpu.apply_model(multiplex.wavlm_input_batch(trimmed, n))
+        probs = torch.softmax(ref, -1)
+        top2 = torch.sort(probs, -1).values[:, -2:]
+        ok = (top2[:, 1] - top2[:, 0]) > TOP2_MARGIN
+        gated = n < pred.silent_threshold
+        ok &= ~gated
+        silent += int(gated.sum())
+        if not torch.equal(card.argmax(-1)[ok], ref.argmax(-1)[ok]):
+            raise AssertionError(f"WavLM multiplexer: card labels "
+                                 f"{card.argmax(-1).tolist()} vs CPU "
+                                 f"{ref.argmax(-1).tolist()} (kept {n})")
+        clear += int(ok.sum())
+        worst = max(worst, float((card - ref).abs().max()
+                                 / ref.abs().max()))
+    if clear == 0:
+        raise AssertionError("WavLM multiplexer: no window to compare with "
+                             "the CPU")
+    labelled = sum(r[1] != "silent" for s in mux.streams for r in s.results)
+    log(f"[wavlm] multiplexer at full width, {WAVLM_STREAMS} streams x "
+        f"{WAVLM_WINDOWS} windows at bucket 64: {got} windows in "
+        f"{seconds:.3f} s ({got / seconds:.1f} windows/s, first tick's "
+        f"build and warm-up included), {labelled} labelled, the rest "
+        f"silent (label {SILENT}); each logged once, in order; A1 launched "
+        f"{served} times ({layers} a forward); labels == the CPU's (TF32 "
+        f"off) on {clear} of {ticks * WAVLM_CPU_ROWS} windows checked (the "
+        f"rest under the top-2 margin {TOP2_MARGIN} or the silent gate, "
+        f"{silent}), largest logit difference {worst:.3g} of max |CPU|")
+    wavlm_attention.launches = 0
+    mux_vs_sessions(device, pred, WavLMSession, "wavlm", cfg, tmp,
+                    MUX_SPEAKER_STREAMS, {})
+    vs_sessions = wavlm_attention.launches
+    forwards = MUX_LABEL_WINDOWS * (1 + MUX_SPEAKER_STREAMS)
+    if vs_sessions != layers * forwards:
+        raise AssertionError(f"WavLM multiplexer vs sessions: A1 launched "
+                             f"{vs_sessions} times, {layers} x {forwards} "
+                             f"forwards expected")
+    log(f"[wavlm] A1 launches over phase 10e's runs, from 0: multiplexer "
+        f"{served}, multiplexer vs sessions {vs_sessions}; phase wall time "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return served + vs_sessions
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -4082,6 +4371,7 @@ def main() -> int:
     feat = phase_featurizer(device)
     grouped = phase_grouped(device)
     block = phase_block(device)
+    attention = phase_attention(device)
 
     cfg = PipelineConfig()
     mcfg: OverlapModelConfig = cfg.overlap_model
@@ -4153,6 +4443,7 @@ def main() -> int:
         mesh = phase_mesh(device, mux["pred"], cfg, Path(tmp))
         phase_distributed(device, cfg)
         phase_tensor_parallel(device, cfg, Path(tmp))
+        a1_launches = phase_wavlm_multiplexer(device, cfg, Path(tmp))
         edge = phase_edge(device, cfg, state_dict, noise, Path(tmp), clips)
         gmm = phase_gmm(device, cfg)
         phase_compile_cache(Path(tmp))
@@ -4163,8 +4454,8 @@ def main() -> int:
                 "replaces": replaces, "launches": n, **measured}
 
     # launches: the session's, the post-time pass's, overlap training's,
-    # the multiplexer's (with and without a mesh), the edge sessions' and
-    # the GMM path's runs, each counted from 0
+    # the multiplexer's (with and without a mesh; WavLM's for A1), the edge
+    # sessions' and the GMM path's runs, each counted from 0
     log(json.dumps({"kernels": [
         entry("overlap_features", "overlap_features.cu",
               "mmla_audio_tpu/ops/pallas_features.py:44",
@@ -4196,6 +4487,8 @@ def main() -> int:
         entry("gmm_vad", "gmm_vad.cu", "mmla_audio_tpu/vad/gmm.py:217",
               gmm["launches"]["g1"] + gmm["launches"]["g1_rows"]
               + gmm["launches"]["g1_energies"], gmm["g1"]),
+        entry("wavlm_attention", "wavlm_attention.cu", None, a1_launches,
+              attention[(A1_FRAMES, 64)]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -78,6 +78,10 @@ CUDA_KERNELS = {
          "gmm_vad_windows_launch":
          [_P, _LL, _I, _I, _I, _P, _P, _P, _I, _P, _F, _F, _I]
          + [_P] * 5}),
+    "wavlm_attention": (
+        _PKG / "csrc" / "wavlm_attention.cu",
+        {"wavlm_attention_launch": [_P] * 7 + [_I] * 3 + [_LL] * 6
+         + [_I, _P]}),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

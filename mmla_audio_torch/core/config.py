@@ -6,6 +6,8 @@ copy of the configuration it uses.  Every class here has the same fields and
 defaults as its JAX counterpart (pinned by ``tests/test_torch_inference.py``);
 ``PipelineConfig`` holds only the parts the overlap and speaker serving
 paths, the two models' training and the device mesh read.
+``WavLMConfig``, the port's own (the JAX package has no WavLM), sizes the
+WavLM overlap detector (``models/wavlm.py``).
 """
 
 from __future__ import annotations
@@ -15,8 +17,9 @@ from typing import Optional, Tuple
 
 __all__ = ["AudioConfig", "OverlapFeatureConfig", "SpeakerFeatureConfig",
            "VadConfig", "DenoiseConfig", "OverlapModelConfig",
-           "SpeakerModelConfig", "OverlapTrainConfig", "SpeakerTrainConfig",
-           "TransferConfig", "MeshConfig", "PipelineConfig", "DEFAULT"]
+           "SpeakerModelConfig", "WavLMConfig", "OverlapTrainConfig",
+           "SpeakerTrainConfig", "TransferConfig", "MeshConfig",
+           "PipelineConfig", "DEFAULT"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,6 +193,35 @@ class SpeakerModelConfig:
     num_speakers: int = 630            # TIMIT
     bn_momentum: float = 0.99
     bn_eps: float = 1e-3
+
+
+@dataclasses.dataclass(frozen=True)
+class WavLMConfig:
+    """WavLM Large (``microsoft/wavlm-large``'s ``config.json``, arXiv
+    2110.13900) under ``WavLMForSequenceClassification``'s head, with
+    Hugging Face's key names.  The layer-normed conv encoder
+    (``feat_extract_norm="layer"``) and pre-LN layers
+    (``do_stable_layer_norm``) are the only variants the port builds.
+    ``input_eps``: the input normalisation's epsilon (the feature
+    extractor's ``do_normalize``)."""
+
+    hidden_size: int = 1024
+    num_hidden_layers: int = 24
+    num_attention_heads: int = 16
+    intermediate_size: int = 4096
+    conv_dim: Tuple[int, ...] = (512,) * 7
+    conv_kernel: Tuple[int, ...] = (10, 3, 3, 3, 3, 2, 2)
+    conv_stride: Tuple[int, ...] = (5, 2, 2, 2, 2, 2, 2)
+    conv_bias: bool = False
+    num_conv_pos_embeddings: int = 128
+    num_conv_pos_embedding_groups: int = 16
+    num_buckets: int = 320
+    max_bucket_distance: int = 800
+    layer_norm_eps: float = 1e-5
+    use_weighted_layer_sum: bool = True
+    classifier_proj_size: int = 256
+    num_labels: int = 2
+    input_eps: float = 1e-7
 
 
 @dataclasses.dataclass(frozen=True)

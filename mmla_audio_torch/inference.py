@@ -18,6 +18,16 @@ Speaker identification:
 All of it is torch ops (cuBLAS GEMMs, cuDNN convolutions and LSTM on the
 card), as the JAX package runs it outside any Pallas kernel.
 
+Overlap detection with WavLM Large (the port's own; ``models/wavlm.py``):
+
+    (B, 40960) int16-scale samples + (B,) valid counts
+        -> ``wavlm_input_batch`` (kept samples normalised, the count beside
+        them) -> WavLMForSequenceClassification (attention: kernel A1)
+        -> softmax, argmax -> silent gate
+
+``WavLMPredictor.frame_stats()`` counts the frames its forwards computed
+and those of them that lay within a row's valid frames.
+
 On the card ``OverlapPredictor.apply_model`` replays the overlap model's
 stretches between its fused blocks (``OverlapResBLSTM.segments``) as CUDA
 graphs, captured the second time a shape comes, and launches the six fused
@@ -39,12 +49,14 @@ from typing import Mapping
 
 import torch
 
-from mmla_audio_torch.core.config import (OverlapFeatureConfig,
+from mmla_audio_torch.core.config import (AudioConfig, OverlapFeatureConfig,
                                           OverlapModelConfig,
                                           SpeakerFeatureConfig,
-                                          SpeakerModelConfig)
+                                          SpeakerModelConfig, WavLMConfig)
 from mmla_audio_torch.models.overlap import OverlapResBLSTM
 from mmla_audio_torch.models.speaker import SpeakerResBLSTM
+from mmla_audio_torch.models.wavlm import (WavLMForSequenceClassification,
+                                           split_input, wavlm_input_batch)
 from mmla_audio_torch.ops.cuda_features import (
     check_feature_config,
     overlap_model_input_cuda,
@@ -54,7 +66,8 @@ from mmla_audio_torch.ops.features import speaker_feature_batch
 from mmla_audio_torch.precision import fp32_policy
 from mmla_audio_torch.utils.timers import setup_span, span
 
-__all__ = ["SILENT", "OverlapPredictor", "SpeakerPredictor"]
+__all__ = ["SILENT", "OverlapPredictor", "SpeakerPredictor",
+           "WavLMPredictor"]
 
 SILENT = -1  # label index for the silent gate (the log writes "silent")
 
@@ -91,14 +104,14 @@ def _resolve_precision(matmul_precision, auto):
     return matmul_precision
 
 
-def _apply(model, x, device, compute_dtype, matmul_precision):
-    """Model forward under a predictor's numerics policy: bf16 autocast if
-    ``compute_dtype``; TF32 only where ``matmul_precision`` is None; float32
-    out."""
+def _apply(model, x, device, compute_dtype, matmul_precision, *more):
+    """Model forward of ``x`` (and ``more``) under a predictor's numerics
+    policy: bf16 autocast if ``compute_dtype``; TF32 only where
+    ``matmul_precision`` is None; float32 out."""
     autocast = torch.autocast(device.type, dtype=compute_dtype) \
         if compute_dtype is not None else contextlib.nullcontext()
     with fp32_policy(matmul_precision is None), autocast:
-        return model(x).float()
+        return model(x, *more).float()
 
 
 def _run(layers, x):
@@ -384,3 +397,84 @@ class SpeakerPredictor:
             labels, probs = self.predict(buf[None], n.reshape(1))
             return labels[0], probs[0]
         return self._forward(self.model, buf, n)
+
+
+class WavLMPredictor:
+    """Overlap detection with WavLM Large over (denoised, VAD-trimmed)
+    windows.
+
+    ``predict(buf, n)``: ``buf (B, >=window)`` or ``(>=window,)`` raw PCM,
+    int16 or float32 at int16 scale, with valid counts ``n`` ->
+    ``(labels, probs)`` on ``device``; label ``SILENT`` where ``n <
+    silent_threshold``.  A row's first 40,960 samples (the 2.56 s window
+    at 16 kHz, ``AudioConfig().window_samples``) are the model's input.
+    """
+
+    @setup_span("setup.predictor")
+    def __init__(self, state_dict: Mapping[str, torch.Tensor],
+                 model_cfg: WavLMConfig = WavLMConfig(),
+                 device: torch.device | str = "cuda",
+                 matmul_precision: str | None = "auto",
+                 silent_threshold: int = 4000):
+        """``matmul_precision``: ``None`` allows TF32 in the GEMMs, the
+        convolutions and kernel A1's dots; ``"highest"`` keeps them IEEE
+        fp32 (A1 in 3xTF32); ``"auto"`` is ``None``, as for the overlap
+        model."""
+        self.matmul_precision = _resolve_precision(matmul_precision, None)
+        self.device = torch.device(device)
+        self.model = WavLMForSequenceClassification(model_cfg)
+        self.model.load_state_dict(state_dict)
+        self.model.to(self.device).eval()
+        self.cfg = model_cfg
+        self.silent_threshold = silent_threshold
+        self.window_samples = AudioConfig().window_samples
+        self._lock = threading.Lock()
+        self._frames = {"batches": 0, "computed": 0}
+        self._valid = torch.zeros((), dtype=torch.int64, device=self.device)
+
+    def apply_model(self, x: torch.Tensor, model=None) -> torch.Tensor:
+        """Model forward of ``wavlm_input_batch``'s rows ``x (B, L + 1)``
+        (``model``: a replica on ``x``'s device, default this predictor's)
+        under this predictor's numerics policy; float32 logits.  Counts the
+        frames computed and, on the device without a wait, those within the
+        rows' valid frames."""
+        model = self.model if model is None else model
+        samples, n = split_input(x)
+        T = int(model.frames(samples.shape[-1]))
+        valid = model.frames(n).clamp(0, T).sum()
+        with self._lock:
+            self._frames["batches"] += 1
+            self._frames["computed"] += samples.shape[0] * T
+            self._valid += valid.to(self._valid.device)
+        return _apply(model, samples, x.device, None, self.matmul_precision,
+                      n)
+
+    def frame_stats(self) -> dict:
+        """``batches`` forwards, ``computed`` frames (rows x frames a row)
+        and ``valid`` frames among them (within the rows' kept samples)
+        since construction; reading ``valid`` waits for the card."""
+        with self._lock:
+            return dict(self._frames, valid=int(self._valid))
+
+    def _forward(self, buf: torch.Tensor, n: torch.Tensor):
+        with span("model.features"):
+            x = wavlm_input_batch(
+                _masked_prefix(buf.to(torch.float32), n, self.window_samples),
+                n, self.cfg.input_eps)
+        with span("model.forward"):
+            logits = self.apply_model(x)
+        with span("model.labels"):
+            probs = torch.softmax(logits, dim=-1)
+            labels = torch.argmax(probs, dim=-1).to(torch.int32)
+            labels = torch.where(n < self.silent_threshold,
+                                 torch.full_like(labels, SILENT), labels)
+        return labels, probs
+
+    @torch.no_grad()
+    def predict(self, buf, n):
+        buf = _as_pcm(buf, self.device)
+        n = torch.as_tensor(n).to(self.device, torch.int32)
+        if buf.ndim == 1:
+            labels, probs = self.predict(buf[None], n.reshape(1))
+            return labels[0], probs[0]
+        return self._forward(buf, n)

@@ -18,6 +18,7 @@ from mmla_audio_torch.streaming.session import (
     OverlapSession,
     SpeakerSession,
     StreamingSession,
+    WavLMSession,
     preprocess_window,
     preprocess_windows,
     session_stamp,
@@ -38,6 +39,7 @@ __all__ = [
     "OverlapSession",
     "SpeakerSession",
     "StreamingSession",
+    "WavLMSession",
     "preprocess_window",
     "preprocess_windows",
     "session_stamp",

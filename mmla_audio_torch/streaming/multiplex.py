@@ -79,6 +79,7 @@ import torch
 
 from mmla_audio_torch.analyze.logs import OVERLAP_LABELS, SessionLog
 from mmla_audio_torch.core.config import PipelineConfig
+from mmla_audio_torch.models.wavlm import wavlm_input_batch
 from mmla_audio_torch.ops.cuda_features import overlap_model_input_cuda
 from mmla_audio_torch.ops.denoise import noise_threshold
 from mmla_audio_torch.ops.features import speaker_feature_batch
@@ -124,14 +125,15 @@ class Stream:
 class Multiplexer:
     """Batch windows across streams into one device program a tick.
 
-    ``kind``: ``"overlap"`` (an ``OverlapPredictor``) or ``"speaker"`` (a
-    ``SpeakerPredictor``).  ``bucket`` fixes one batch size; ``buckets`` is
-    the ascending ladder (a tick rounds its ready count up to the smallest
-    sufficient bucket).  ``min_fill``: None is 0.75 once there are as many
-    streams as the top bucket, else 0 (dispatch every tick).  ``device``
-    must be the predictor's.  ``mesh``: a one-process mesh whose first
-    device is ``device`` and whose data axis divides every bucket; each
-    batch splits over its data axis (the module docstring)."""
+    ``kind``: ``"overlap"`` (an ``OverlapPredictor``), ``"speaker"`` (a
+    ``SpeakerPredictor``) or ``"wavlm"`` (a ``WavLMPredictor``, labelled and
+    logged as the overlap detector).  ``bucket`` fixes one batch size;
+    ``buckets`` is the ascending ladder (a tick rounds its ready count up to
+    the smallest sufficient bucket).  ``min_fill``: None is 0.75 once there
+    are as many streams as the top bucket, else 0 (dispatch every tick).
+    ``device`` must be the predictor's.  ``mesh``: a one-process mesh whose
+    first device is ``device`` and whose data axis divides every bucket;
+    each batch splits over its data axis (the module docstring)."""
 
     def __init__(self, predictor, dirs: ExperimentDirs | str, *,
                  kind: str = "overlap", bucket: int | None = None,
@@ -141,8 +143,9 @@ class Multiplexer:
                  results_cap: int | None = None,
                  cfg: PipelineConfig = PipelineConfig(),
                  device: torch.device | str = "cuda", mesh=None):
-        if kind not in ("overlap", "speaker"):
-            raise ValueError(f"kind must be 'overlap' or 'speaker': {kind!r}")
+        if kind not in ("overlap", "speaker", "wavlm"):
+            raise ValueError(f"kind must be 'overlap', 'speaker' or 'wavlm': "
+                             f"{kind!r}")
         self.device = torch.device(device)
         if predictor.device.type != self.device.type:
             raise ValueError(f"the predictor runs on {predictor.device}, the "
@@ -257,6 +260,13 @@ class Multiplexer:
             with span("model.forward"):
                 logits = self.predictor.apply_model(feats, model)
             gate = cfg.speaker_feature.silent_samples
+        elif self.kind == "wavlm":
+            with span("model.features"):
+                x = wavlm_input_batch(trimmed, n_out,
+                                      self.predictor.cfg.input_eps)
+            with span("model.forward"):
+                logits = self.predictor.apply_model(x, model)
+            gate = cfg.vad.silent_samples
         else:
             with span("model.features"):
                 # trimmed is zero beyond n_out
@@ -329,7 +339,8 @@ class Multiplexer:
                    label_names: Optional[Dict[str, str]] = None,
                    now: Optional[datetime] = None) -> Stream:
         log = SessionLog(self.dirs.logs / f"{session_stamp(now)}-{name}.txt",
-                         kind=self.kind, start_index=1)
+                         kind="speaker" if self.kind == "speaker"
+                         else "overlap", start_index=1)
         noise_thresh, vad_db = self._calibrate(noise_clip_i16)
         row = self._claim_retired_row()
         stream = Stream(name, capture, log, noise_thresh=noise_thresh,
@@ -401,7 +412,7 @@ class Multiplexer:
             return "silent"
         if stream.label_names is not None:
             return stream.label_names.get(str(label), str(label))
-        if self.kind == "overlap":
+        if self.kind != "speaker":
             return OVERLAP_LABELS[str(label)]
         return str(label)
 

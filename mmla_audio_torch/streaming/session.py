@@ -11,8 +11,9 @@ Per 2.56 s window, at B=1:
    whose state lives across windows like the reference's ``Vad(3)``; or,
    with ``decision="energy"``, the calibrated energy detector on the device;
 3. hysteresis trim (``vad_trim``) -> the predictor on the device (the
-   overlap featurizer and model, or the MFCC and speaker model), then the
-   session's silent gate -> one TSV log row.
+   overlap featurizer and model, WavLM's normalised window and model, or
+   the MFCC and speaker model), then the session's silent gate -> one TSV
+   log row.
 
 ``preprocess_windows`` is the same chain over a batch of windows from many
 streams, all on the windows' device: per-row denoise profiles and energy
@@ -85,7 +86,8 @@ from mmla_audio_torch.vad.native import NativeWebRtcVad, native_available
 from mmla_audio_torch.vad.webrtc import webrtc_vad_rows
 
 __all__ = ["session_stamp", "preprocess_window", "preprocess_windows",
-           "StreamingSession", "OverlapSession", "SpeakerSession"]
+           "StreamingSession", "OverlapSession", "WavLMSession",
+           "SpeakerSession"]
 
 
 def session_stamp(now: Optional[datetime] = None) -> str:
@@ -383,6 +385,12 @@ class OverlapSession(StreamingSession):
             else int(np.argmax(probs))
         name = "silent" if label < 0 else OVERLAP_LABELS[str(label)]
         return name, probs
+
+
+class WavLMSession(OverlapSession):
+    """Live overlap detection with WavLM Large (a ``WavLMPredictor``): the
+    overlap session's chain, gate, labels and log, the predictor's
+    normalised window in place of the overlap image."""
 
 
 class SpeakerSession(StreamingSession):

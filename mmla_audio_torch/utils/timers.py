@@ -30,7 +30,9 @@ program's set-up record for the process, which ``PROGRAM.summary()`` and
   ``mux.fetch``, ``mux.log``;
 * predictor (``inference.py``): ``model.features``, ``model.forward``
   (inside it the overlap model's ``model.stage`` a stage and ``model.lstm``,
-  ``models/overlap.py``), ``model.labels``;
+  ``models/overlap.py``; WavLM's ``model.encoder``, ``model.layers`` with a
+  ``model.layer`` a layer, and ``model.head``, ``models/wavlm.py``),
+  ``model.labels``;
 * logs (``analyze/logs.py``): ``logs.reopen``, an append handle opened on
   a miss of the handle LRU;
 * set-up: ``setup.kernels`` (a kernel library built or loaded),
@@ -40,7 +42,9 @@ program's set-up record for the process, which ``PROGRAM.summary()`` and
 
 The counters beside them are plain integers, always on:
 ``analyze.logs.handle_stats()``, ``Multiplexer.calib_hits`` and
-``calib_misses``, ``_build.compiles`` and ``_build.found``.
+``calib_misses``, ``_build.compiles`` and ``_build.found``; kernel A1's
+``wavlm_attention.launches`` and ``WavLMPredictor.frame_stats()`` (frames
+computed and frames within the rows' valid lengths).
 """
 
 from __future__ import annotations

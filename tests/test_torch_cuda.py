@@ -5,7 +5,8 @@ the GMM VAD's G1, from samples and from energies)
 against their plain versions, the block's dispatch rule, the predictor on
 the card against the CPU, the multiplexer's launches, the denoise of a
 window equal in a batch and alone, and the predictor captured as a CUDA
-graph by ``export.aot_compile``.
+graph by ``export.aot_compile``; kernel A1 against the attention in
+float64 and the full-width WavLM against ``tests/wavlm_reference.py``.
 
 This file imports neither JAX nor tests/conftest.py, so it runs where JAX is
 not installed:  python -m pytest --noconftest tests/test_torch_cuda.py
@@ -1159,3 +1160,89 @@ def test_g1_energies_launch_and_init(device, monkeypatch):
     for a, b in zip(got, ref):
         assert a.device.type == "cuda"
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=2e-3)
+
+
+# -- WavLM: kernel A1 and the full-width model -------------------------------
+
+@pytest.mark.parametrize("tf32", [True, False])
+@pytest.mark.parametrize("batch,T", [(1, 127), (8, 127), (64, 127), (8, 511)])
+def test_a1_matches_the_reference_attention(device, batch, T, tf32):
+    """A1 against the attention in float64 (``wavlm_attention_plain``):
+    one TF32 pass within A1_RTOL["tf32"] of max |ref|, 3xTF32 with TF32
+    off within A1_RTOL["split"]; the plain version in bf16 lies above the
+    TF32 limit, so the limit tells TF32 from bf16."""
+    from chip_smoke import A1_RTOL, a1_error, a1_operands
+    from mmla_audio_torch.ops.cuda_attention import (wavlm_attention,
+                                                     wavlm_attention_plain)
+
+    ops = a1_operands(batch, T, device, seed=batch * T)
+    ref = wavlm_attention_plain(*(o.double() if o.is_floating_point() else o
+                                  for o in ops))
+    before = wavlm_attention.launches
+    with torch.no_grad(), fp32_policy(tf32):
+        got = wavlm_attention(*ops)
+    torch.cuda.synchronize()
+    assert wavlm_attention.launches == before + 1
+    assert got.shape == ref.shape and got.permute(0, 2, 1, 3).is_contiguous()
+    assert a1_error(got, ref) <= A1_RTOL["tf32" if tf32 else "split"]
+    bf16 = wavlm_attention_plain(*(o.to(torch.bfloat16)
+                                   if o.is_floating_point() else o
+                                   for o in ops))
+    assert a1_error(bf16, ref) > A1_RTOL["tf32"]
+
+
+def test_a1_refuses_what_it_does_not_take(device):
+    from chip_smoke import a1_operands
+    from mmla_audio_torch.ops.cuda_attention import wavlm_attention
+
+    q, k, v, gate, bias, lens = a1_operands(2, 33, device, seed=1)
+    with pytest.raises(ValueError, match="heads of 64"):
+        wavlm_attention(q[..., :32], k[..., :32], v[..., :32], gate, bias,
+                        lens)
+    with pytest.raises(ValueError, match="lens"):
+        wavlm_attention(q, k, v, gate, bias, lens.long())
+    with pytest.raises(ValueError, match="share their strides"):
+        wavlm_attention(q.contiguous(), k, v, gate, bias, lens)
+
+
+@pytest.fixture(scope="module")
+def wavlm_weights():
+    from tests.test_torch_wavlm import seeded_state_dict
+    from mmla_audio_torch.core.config import WavLMConfig
+
+    return seeded_state_dict(WavLMConfig(), seed=4)
+
+
+@pytest.mark.parametrize("batch", [1, 8, 64])
+def test_full_width_wavlm_matches_the_reference(device, wavlm_weights,
+                                                batch):
+    """WavLM Large on the card against ``tests/wavlm_reference.py`` (TF32
+    off): IEEE fp32 (A1 in 3xTF32) within 1e-4 of max |ref| (sums in
+    other orders through 24 layers), TF32 allowed within 2e-2 (one TF32
+    pass in every product); one A1 launch a layer."""
+    from tests import wavlm_reference as ref
+    from tests.test_torch_wavlm import windows
+    from mmla_audio_torch.core.config import WavLMConfig
+    from mmla_audio_torch.inference import WavLMPredictor
+    from mmla_audio_torch.models.wavlm import wavlm_input_batch
+    from mmla_audio_torch.ops.cuda_attention import wavlm_attention
+
+    cfg = WavLMConfig()
+    kept = np.array([40960, 30000, 4001, 3000, 400, 399, 0, 20000]
+                    * 8)[:batch]
+    trimmed = windows(kept, seed=batch)
+    sd = {k: v.to(device) for k, v in wavlm_weights.items()}
+    want = ref.forward(sd, ref.normalize(trimmed, kept).to(device), kept,
+                       cfg).cpu()
+    x = wavlm_input_batch(torch.from_numpy(trimmed).to(device),
+                          torch.from_numpy(kept).to(device))
+    scale = want.abs().max()
+    for precision, rtol in (("highest", 1e-4), (None, 2e-2)):
+        pred = WavLMPredictor(sd, cfg, device=device,
+                              matmul_precision=precision)
+        before = wavlm_attention.launches
+        with torch.no_grad():
+            got = pred.apply_model(x).cpu()
+        assert wavlm_attention.launches - before == cfg.num_hidden_layers
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max() <= rtol * scale, precision

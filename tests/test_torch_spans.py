@@ -235,3 +235,81 @@ def test_build_counters_say_found_the_second_time(tmp_path, monkeypatch):
     build()
     assert (_build.compiles - compiles, _build.found - found) == (1, 1)
     assert timers.PROGRAM.counts["setup.kernels"] - kernels == 2
+
+
+def _wavlm(root, session=False):
+    """A tiny WavLM (``tests/test_torch_wavlm.py``) served by a multiplexer
+    of 3 streams x 2 windows at bucket 4, or a session of 3 windows."""
+    from mmla_audio_torch.inference import WavLMPredictor
+    from mmla_audio_torch.streaming.session import WavLMSession
+    from tests.test_torch_wavlm import TINY, seeded_state_dict
+
+    pred = WavLMPredictor(seeded_state_dict(), TINY, device="cpu")
+    if session:
+        sess = WavLMSession(pred, PrefilledCapture(_audio(3)), root)
+        sess.set_noise_profile(NOISE)
+        return pred, sess
+    mux = Multiplexer(pred, root, kind="wavlm", bucket=4, device="cpu")
+    for s in range(3):
+        mux.add_stream(f"s{s}", PrefilledCapture(_audio(2, 10 * s)), NOISE)
+    return pred, mux
+
+
+@pytest.mark.parametrize("path", ["session", "multiplexer"])
+def test_wavlm_spans_nest_in_the_forward(path, tmp_path):
+    """``model.encoder``, ``model.layers`` (a ``model.layer`` a layer
+    inside it) and ``model.head`` nest in ``model.forward``, in order."""
+    pred, served = _wavlm(tmp_path / path, session=path == "session")
+    run = served.run if path == "session" else served.run_until_exhausted
+    _, spans = _traced(run)
+    forwards = _of(spans, "model.forward")
+    layers = _of(spans, "model.layers")
+    n = pred.frame_stats()["batches"]
+    assert len(forwards) == n == (3 if path == "session" else 2)
+    for name in ("model.encoder", "model.layers", "model.head"):
+        assert len(_of(spans, name)) == n, name
+        assert _all_inside(_of(spans, name), forwards), name
+    assert len(_of(spans, "model.layer")) == 2 * n
+    assert _all_inside(_of(spans, "model.layer"), layers)
+    for (_, enc_end, _), (lay_start, lay_end, _), (head_start, _, _) in zip(
+            _of(spans, "model.encoder"), layers, _of(spans, "model.head")):
+        assert enc_end <= lay_start and lay_end <= head_start
+
+
+def test_wavlm_enters_no_record_function_without_a_profiler(tmp_path,
+                                                            monkeypatch):
+    entered = []
+    real = torch.profiler.record_function
+
+    def counting(name, *args):
+        entered.append(name)
+        return real(name, *args)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    _, mux = _wavlm(tmp_path / "off")
+    assert mux.run_until_exhausted() == 6
+    assert not [n for n in entered if n.startswith(PROGRAM)]
+
+
+def test_a1_once_a_layer_and_the_frame_counter(tmp_path, monkeypatch):
+    """A known batch: A1 called through ``models.wavlm.wavlm_attention``
+    once a layer (on the CPU its plain version, no kernel launch counted),
+    and the frame counter's computed and valid frames."""
+    from mmla_audio_torch.models import wavlm
+    from mmla_audio_torch.ops.cuda_attention import wavlm_attention
+
+    pred, _ = _wavlm(tmp_path / "a")
+    calls = []
+    real = wavlm.wavlm_attention
+    monkeypatch.setattr(wavlm, "wavlm_attention",
+                        lambda *a: calls.append(a[5].tolist()) or real(*a))
+    launches = wavlm_attention.launches
+    # kept 40960 (127 frames), 20000 (62), 3000 (9), 0 (none: one key)
+    n = np.array([40960, 20000, 3000, 0])
+    buf = np.stack([synth_speech_i16(WIN, seed=s) for s in range(4)])
+    labels, _ = pred.predict(buf, n)
+    assert calls == [[127, 62, 9, 1]] * 2
+    assert wavlm_attention.launches == launches
+    assert labels.tolist()[2:] == [-1, -1]
+    assert pred.frame_stats() == {"batches": 1, "computed": 4 * 127,
+                                  "valid": 127 + 62 + 9}
