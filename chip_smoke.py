@@ -54,6 +54,14 @@ per source, all at once), then:
    memory-efficient path with the bias materialised (the library
    yardstick) timed; the full-width WavLM forward at B = 1, 8, 64 and A1's
    share of it (these launches are not counted);
+2c. kernel E1 (``csrc/wavlm_conv.cu``, WavLM's conv encoder, one launch a
+   layer): each of the seven layers (on the float64 chain's input to it)
+   and the whole encoder at B = 1, 8, 64 on 2.56 s windows against the
+   plain version in float64, one TF32 pass and 3xTF32 within ``E1_RTOL``,
+   the plain version in bf16 above the TF32 limit; the encoder alone, by
+   CUDA events, the plain version (TF32 off) and the path E1 replaced
+   (cuDNN, transposes, aten's LayerNorm and GELU; the library yardstick)
+   timed beside its bound, and at B = 64 each layer alone;
 3. predictor: the full-width default ``OverlapModelConfig()`` with weights
    from a seeded numpy tree through ``params.py``; B=8 on the card vs the
    same predictor on the CPU, TF32 off;
@@ -180,9 +188,10 @@ per source, all at once), then:
    logged once, in order; the trimmed windows its normalisation was given
    through the same weights on the CPU (TF32 off), labels equal where the
    CPU's top-2 margin exceeds ``TOP2_MARGIN``; then 4 streams x 4 windows
-   against ``WavLMSession`` (``mux_vs_sessions``).  Kernel A1's launches
-   are counted from 0 over these runs alone, 24 a forward: the kernels
-   line's count of A1 (phase 2b's timing loops are left out);
+   against ``WavLMSession`` (``mux_vs_sessions``).  Kernels A1's and
+   E1's launches are counted from 0 over these runs alone, 24 and 7 a
+   forward, none of E1's in 3xTF32: the kernels line's counts of A1 and
+   E1 (phases 2b's and 2c's timing loops are left out);
 11. edge, export and weights: ``EdgeOverlapSession.run`` over 8 windows
    (3 noise-only, where the SSIM gate fires) on the card and the CPU,
    labels equal where the CPU's top-2 margin is above 1e-3 and its SSIM
@@ -4222,6 +4231,200 @@ def phase_attention(device) -> dict:
     return out
 
 
+# -- kernel E1: WavLM's conv encoder, one launch a layer ----------------------
+
+E1_SAMPLES = 40960                           # a 2.56 s window at 16 kHz
+E1_BATCHES = (1, 8, 64)
+# E1's error against the float64 plain version, of max |ref|, each layer on
+# the float64 chain's input to it rounded to float32, and the whole encoder:
+# one TF32 pass (the configuration's precision), between its readings
+# (1.1e-3 at most) and the plain version's in bf16 (6.1e-3 at least), and
+# 3xTF32 (TF32 not allowed), between its readings (2.0e-5) and one TF32
+# pass's (3.3e-4 at least); H100, B = 1, 8, 64
+E1_RTOL = {"tf32": 2.5e-3, "split": 8e-5}
+
+
+def e1_layers(device, seed: int = 11) -> list:
+    """Seeded full-width conv encoder layers as ``wavlm_conv``'s arguments
+    ``(weight, LayerNorm scale, shift, stride)``, drawn as
+    ``wavlm_state_dict`` draws them (no conv bias, as in WavLM Large)."""
+    from mmla_audio_torch.core.config import WavLMConfig
+
+    cfg = WavLMConfig()
+    g = torch.Generator(device=device).manual_seed(seed)
+    dims = (1,) + tuple(cfg.conv_dim)
+    layers = []
+    for i, (k, s) in enumerate(zip(cfg.conv_kernel, cfg.conv_stride)):
+        w = torch.randn(dims[i + 1], dims[i], k, generator=g, device=device)
+        layers.append((w / (dims[i] * k) ** 0.5,
+                       1.0 + 0.2 * torch.randn(dims[i + 1], generator=g,
+                                               device=device),
+                       0.1 * torch.randn(dims[i + 1], generator=g,
+                                         device=device), s))
+    return layers
+
+
+def e1_input(batch: int, device, seed: int) -> torch.Tensor:
+    """``batch`` windows of synthetic speech as the model receives them
+    (``wavlm_input_batch``'s rows without their count: a strided view)."""
+    from mmla_audio_torch.models.wavlm import split_input, wavlm_input_batch
+
+    pcm = torch.from_numpy(speech_windows(batch, E1_SAMPLES, seed)
+                           .astype(np.float32)).to(device)
+    n = torch.full((batch,), E1_SAMPLES, dtype=torch.int32, device=device)
+    return split_input(wavlm_input_batch(pcm, n))[0]
+
+
+def e1_encoder(x, layers, packed=None) -> torch.Tensor:
+    """The conv encoder through ``wavlm_conv`` (E1 on the card), samples
+    ``(B, L)`` to ``(B, T, 512)``; ``packed`` the layers' repacked
+    weights."""
+    from mmla_audio_torch.ops.cuda_conv_encoder import wavlm_conv
+
+    h = x[..., None]
+    for i, (w, gamma, beta, s) in enumerate(layers):
+        h = wavlm_conv(h, w, gamma, beta, s,
+                       packed=None if packed is None else packed[i])
+    return h
+
+
+def e1_plain_layer(h, layer, dtype) -> torch.Tensor:
+    from mmla_audio_torch.ops.cuda_conv_encoder import wavlm_conv_plain
+
+    w, gamma, beta, s = layer
+    return wavlm_conv_plain(h.to(dtype), w.to(dtype), gamma.to(dtype),
+                            beta.to(dtype), s)
+
+
+def e1_plain(x, layers, dtype=torch.float32) -> torch.Tensor:
+    """The conv encoder through ``wavlm_conv_plain`` in ``dtype``."""
+    h = x[..., None]
+    for layer in layers:
+        h = e1_plain_layer(h, layer, dtype)
+    return h
+
+
+def e1_library(x, layers) -> torch.Tensor:
+    """The conv encoder as it ran before E1 (the library yardstick; the
+    port no longer calls it): cuDNN's convolution on (B, C, T), a transpose,
+    aten's LayerNorm, a transpose back and GELU a layer."""
+    import torch.nn.functional as F
+
+    h = x[:, None]
+    for w, gamma, beta, s in layers:
+        h = F.conv1d(h, w, stride=s)
+        h = F.gelu(F.layer_norm(h.transpose(1, 2), (w.shape[0],), gamma,
+                                beta).transpose(1, 2))
+    return h.transpose(1, 2)
+
+
+def e1_work(batch: int, samples: int = E1_SAMPLES) -> tuple:
+    """(FLOPs, bytes) of the seven launches at WavLM Large's widths, as
+    ``e1_roofline`` counts them (``perfbench/counts/wavlm_conv.py``)."""
+    import dataclasses
+
+    from mmla_audio_torch.core.config import WavLMConfig
+    from perfbench.counts.wavlm_conv import conv_encoder_work
+
+    return conv_encoder_work(dataclasses.asdict(WavLMConfig()),
+                             {"window_samples": samples}, batch)
+
+
+def phase_conv_encoder(device) -> dict:
+    """E1 against the plain version in float64 at B = 1, 8, 64 on 2.56 s
+    windows: each layer on the float64 chain's input to it (rounded to
+    float32) and the whole encoder, one TF32 pass under E1_RTOL["tf32"],
+    3xTF32 (TF32 off) under E1_RTOL["split"], the plain version in bf16
+    above the TF32 limit; seven launches an encoder, none in 3xTF32 under
+    TF32; timings of E1 alone and by CUDA events beside its bound, the
+    plain version (fp32, TF32 off) and the path E1 replaced (the library,
+    TF32 on); at B = 64 each layer alone."""
+    from mmla_audio_torch.ops.cuda_conv_encoder import (pack_conv_weight,
+                                                        wavlm_conv)
+    from mmla_audio_torch.precision import fp32_policy
+
+    layers = e1_layers(device)
+    packed = [pack_conv_weight(w) for w, *_ in layers]
+    out = {}
+    for batch in E1_BATCHES:
+        x = e1_input(batch, device, seed=31 + batch)
+        errs = {"tf32": [], "split": [], "bf16": []}
+        h64 = x[..., None]
+        for i, layer in enumerate(layers):
+            inp = h64.float()
+            ref = e1_plain_layer(inp, layer, torch.float64)
+            for mode, tf32 in (("tf32", True), ("split", False)):
+                with torch.no_grad(), fp32_policy(tf32):
+                    before = (wavlm_conv.launches, wavlm_conv.launches_split)
+                    got = wavlm_conv(inp, *layer[:3], layer[3],
+                                     packed=packed[i])
+                    split = wavlm_conv.launches_split - before[1]
+                    if wavlm_conv.launches - before[0] != 1 or \
+                            split != (i > 0 and not tf32):
+                        raise AssertionError(f"E1 layer {i} {mode}: not "
+                                             f"its kernel")
+                errs[mode].append(a1_error(got, ref))
+            errs["bf16"].append(a1_error(e1_plain_layer(
+                inp, layer, torch.bfloat16), ref))
+            h64 = ref
+        whole = {}
+        for mode, tf32 in (("tf32", True), ("split", False)):
+            with torch.no_grad(), fp32_policy(tf32):
+                before = wavlm_conv.launches_split
+                whole[mode] = a1_error(e1_encoder(x, layers, packed), h64)
+                if wavlm_conv.launches_split - before != \
+                        (0 if tf32 else len(layers) - 1):
+                    raise AssertionError(f"E1 encoder {mode}: 3xTF32 "
+                                         f"launches")
+        whole["bf16"] = a1_error(e1_plain(x, layers, torch.bfloat16), h64)
+        del h64
+        for mode in ("tf32", "split"):
+            worst = max(max(errs[mode]), whole[mode])
+            if worst > E1_RTOL[mode]:
+                raise AssertionError(f"E1 B={batch} {mode}: error "
+                                     f"{worst:.3g} > {E1_RTOL[mode]}")
+        if min(min(errs["bf16"]), whole["bf16"]) <= E1_RTOL["tf32"]:
+            raise AssertionError(f"E1 B={batch}: bf16's error within the "
+                                 f"TF32 limit")
+        with torch.no_grad(), fp32_policy(True):
+            alone = queued_ms(e1_encoder, x, layers, packed, reps=5)
+            kern = time_ms(e1_encoder, x, layers, packed, reps=5)
+            lib = time_ms(e1_library, x, layers, reps=5)
+        with torch.no_grad(), fp32_policy(False):
+            plain = time_ms(e1_plain, x, layers, reps=3)
+        flop, nbytes = e1_work(batch)
+        bnd = max(nbytes / HBM_BYTES_S, flop / TF32_FLOP_S) * 1e3
+        out[batch] = dict(alone_ms=alone, ms=kern, plain_ms=plain,
+                          library_ms=lib, bound_ms=bnd,
+                          **{m: max(max(errs[m]), whole[m]) for m in errs})
+        log(f"[E1] B={batch}: error of max |ref| by layer TF32 "
+            f"{', '.join(f'{e:.3g}' for e in errs['tf32'])}, whole "
+            f"{whole['tf32']:.3g} (limit {E1_RTOL['tf32']}); 3xTF32 "
+            f"{', '.join(f'{e:.3g}' for e in errs['split'])}, whole "
+            f"{whole['split']:.3g} (limit {E1_RTOL['split']}); bf16 plain "
+            f"{', '.join(f'{e:.3g}' for e in errs['bf16'])}, whole "
+            f"{whole['bf16']:.3g}; encoder alone {alone:.4f} ms, by events "
+            f"{kern:.4f} ms, plain (TF32 off) {plain:.4f} ms, the path it "
+            f"replaced (library, TF32 on) {lib:.4f} ms; bound {bnd:.4f} ms "
+            f"({flop / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), "
+            f"{bnd / alone * 100:.1f} % of it")
+        if batch == E1_BATCHES[-1]:
+            hs = [x[..., None]]
+            for i, layer in enumerate(layers[:-1]):
+                with torch.no_grad(), fp32_policy(True):
+                    hs.append(wavlm_conv(hs[-1], *layer[:3], layer[3],
+                                         packed=packed[i]))
+            per = []
+            with torch.no_grad(), fp32_policy(True):
+                for i, layer in enumerate(layers):
+                    per.append(queued_ms(wavlm_conv, hs[i], *layer[:3],
+                                         layer[3], 1e-5, None, packed[i]))
+            out["layers_ms"] = per
+            log(f"[E1] B={batch} each layer alone: "
+                f"{', '.join(f'{m:.4f}' for m in per)} ms")
+    return out
+
+
 # -- phase 10e: WavLM Large through the multiplexer ---------------------------
 
 WAVLM_STREAMS, WAVLM_WINDOWS, WAVLM_CPU_ROWS = 64, 2, 8
@@ -4234,11 +4437,13 @@ def phase_wavlm_multiplexer(device, cfg, tmp: Path) -> int:
     ``WAVLM_CPU_ROWS`` trimmed windows of each tick (as the normalisation
     was given them) through the same weights on the CPU, TF32 off: labels
     equal where the CPU's top-2 margin exceeds ``TOP2_MARGIN``; then
-    ``mux_vs_sessions`` against ``WavLMSession``.  Returns A1's launches
-    over these runs, each counted from 0 and checked at 24 a forward."""
+    ``mux_vs_sessions`` against ``WavLMSession``.  Returns A1's and E1's
+    launches over these runs, ``{"a1": .., "e1": ..}``, each counted from 0
+    and checked at 24 and 7 a forward (E1 none in 3xTF32: TF32 allowed)."""
     from mmla_audio_torch.core.config import WavLMConfig
     from mmla_audio_torch.inference import SILENT, WavLMPredictor
     from mmla_audio_torch.ops.cuda_attention import wavlm_attention
+    from mmla_audio_torch.ops.cuda_conv_encoder import wavlm_conv
     from mmla_audio_torch.streaming import multiplex
     from mmla_audio_torch.streaming.capture import PrefilledCapture
     from mmla_audio_torch.streaming.session import WavLMSession
@@ -4246,6 +4451,7 @@ def phase_wavlm_multiplexer(device, cfg, tmp: Path) -> int:
     t_phase = time.perf_counter()
     wcfg = WavLMConfig()
     layers = wcfg.num_hidden_layers
+    convs = len(wcfg.conv_dim)
     sd = wavlm_state_dict(wcfg, device, seed=23)
     pred = WavLMPredictor(sd, wcfg, device=device)
     cpu = WavLMPredictor({k: v.cpu() for k, v in sd.items()}, wcfg,
@@ -4275,19 +4481,24 @@ def phase_wavlm_multiplexer(device, cfg, tmp: Path) -> int:
     try:
         zero_launch_counters()
         wavlm_attention.launches = 0
+        wavlm_conv.launches = wavlm_conv.launches_split = 0
         t0 = time.perf_counter()
         got = mux.run_until_exhausted()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         served = wavlm_attention.launches
+        served_e1 = wavlm_conv.launches
     finally:
         multiplex.wavlm_input_batch, pred.apply_model = real_norm, real_apply
     want = WAVLM_STREAMS * WAVLM_WINDOWS
     ticks = want // 64
-    if got != want or len(batches) != ticks or served != layers * ticks:
+    if got != want or len(batches) != ticks or served != layers * ticks \
+            or served_e1 != convs * ticks or wavlm_conv.launches_split:
         raise AssertionError(f"WavLM multiplexer: {got} of {want} windows in "
                              f"{len(batches)} forwards, A1 launched {served} "
-                             f"times ({layers} a forward)")
+                             f"times ({layers} a forward), E1 {served_e1} "
+                             f"({convs} a forward), "
+                             f"{wavlm_conv.launches_split} in 3xTF32")
     if mux.buckets[-1] != 64 or any(len(b[2]) != WAVLM_CPU_ROWS
                                     for b in batches):
         raise AssertionError(f"WavLM multiplexer: buckets {mux.buckets}")
@@ -4319,23 +4530,30 @@ def phase_wavlm_multiplexer(device, cfg, tmp: Path) -> int:
         f"{seconds:.3f} s ({got / seconds:.1f} windows/s, first tick's "
         f"build and warm-up included), {labelled} labelled, the rest "
         f"silent (label {SILENT}); each logged once, in order; A1 launched "
-        f"{served} times ({layers} a forward); labels == the CPU's (TF32 "
+        f"{served} times ({layers} a forward), E1 {served_e1} ({convs} a "
+        f"forward, none in 3xTF32); labels == the CPU's (TF32 "
         f"off) on {clear} of {ticks * WAVLM_CPU_ROWS} windows checked (the "
         f"rest under the top-2 margin {TOP2_MARGIN} or the silent gate, "
         f"{silent}), largest logit difference {worst:.3g} of max |CPU|")
     wavlm_attention.launches = 0
+    wavlm_conv.launches = wavlm_conv.launches_split = 0
     mux_vs_sessions(device, pred, WavLMSession, "wavlm", cfg, tmp,
                     MUX_SPEAKER_STREAMS, {})
     vs_sessions = wavlm_attention.launches
+    vs_sessions_e1 = wavlm_conv.launches
     forwards = MUX_LABEL_WINDOWS * (1 + MUX_SPEAKER_STREAMS)
-    if vs_sessions != layers * forwards:
+    if vs_sessions != layers * forwards or \
+            vs_sessions_e1 != convs * forwards or wavlm_conv.launches_split:
         raise AssertionError(f"WavLM multiplexer vs sessions: A1 launched "
-                             f"{vs_sessions} times, {layers} x {forwards} "
-                             f"forwards expected")
-    log(f"[wavlm] A1 launches over phase 10e's runs, from 0: multiplexer "
-        f"{served}, multiplexer vs sessions {vs_sessions}; phase wall time "
+                             f"{vs_sessions} times, E1 {vs_sessions_e1} "
+                             f"({wavlm_conv.launches_split} in 3xTF32); "
+                             f"{layers} and {convs} x {forwards} forwards "
+                             f"expected")
+    log(f"[wavlm] launches over phase 10e's runs, from 0: A1 multiplexer "
+        f"{served}, multiplexer vs sessions {vs_sessions}; E1 {served_e1} "
+        f"and {vs_sessions_e1}, none in 3xTF32; phase wall time "
         f"{time.perf_counter() - t_phase:.1f} s")
-    return served + vs_sessions
+    return {"a1": served + vs_sessions, "e1": served_e1 + vs_sessions_e1}
 
 
 def main() -> int:
@@ -4372,6 +4590,7 @@ def main() -> int:
     grouped = phase_grouped(device)
     block = phase_block(device)
     attention = phase_attention(device)
+    conv_encoder = phase_conv_encoder(device)
 
     cfg = PipelineConfig()
     mcfg: OverlapModelConfig = cfg.overlap_model
@@ -4443,7 +4662,7 @@ def main() -> int:
         mesh = phase_mesh(device, mux["pred"], cfg, Path(tmp))
         phase_distributed(device, cfg)
         phase_tensor_parallel(device, cfg, Path(tmp))
-        a1_launches = phase_wavlm_multiplexer(device, cfg, Path(tmp))
+        wavlm_launches = phase_wavlm_multiplexer(device, cfg, Path(tmp))
         edge = phase_edge(device, cfg, state_dict, noise, Path(tmp), clips)
         gmm = phase_gmm(device, cfg)
         phase_compile_cache(Path(tmp))
@@ -4487,8 +4706,10 @@ def main() -> int:
         entry("gmm_vad", "gmm_vad.cu", "mmla_audio_tpu/vad/gmm.py:217",
               gmm["launches"]["g1"] + gmm["launches"]["g1_rows"]
               + gmm["launches"]["g1_energies"], gmm["g1"]),
-        entry("wavlm_attention", "wavlm_attention.cu", None, a1_launches,
-              attention[(A1_FRAMES, 64)]),
+        entry("wavlm_attention", "wavlm_attention.cu", None,
+              wavlm_launches["a1"], attention[(A1_FRAMES, 64)]),
+        entry("wavlm_conv", "wavlm_conv.cu", None, wavlm_launches["e1"],
+              conv_encoder[E1_BATCHES[-1]]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -82,6 +82,11 @@ CUDA_KERNELS = {
         _PKG / "csrc" / "wavlm_attention.cu",
         {"wavlm_attention_launch": [_P] * 7 + [_I] * 3 + [_LL] * 6
          + [_I, _P]}),
+    "wavlm_conv": (
+        _PKG / "csrc" / "wavlm_conv.cu",
+        {"wavlm_conv_samples_launch": [_P, _LL] + [_P] * 5 + [_I] * 6
+         + [_F, _P],
+         "wavlm_conv_gemm_launch": [_P] * 6 + [_I] * 7 + [_F, _I, _P]}),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

@@ -11,10 +11,17 @@ Sizes are ``core.config.WavLMConfig``'s.
   unit variance over the kept samples (``input_eps`` under the root), zero
   beyond them (``wavlm_input_batch``).
 * Feature encoder: 7 x (Conv1d without bias, LayerNorm over channels,
-  exact GELU); 40,960 samples -> 127 frames of 512.  A row's valid frames
-  are the conv length formula ``floor((L - k) / s) + 1`` a layer over its
-  kept count (``frames``).
-* Feature projection: LayerNorm(512) -> Linear(512 -> 1024).
+  exact GELU); 40,960 samples -> 127 frames of 512.  Channels-last
+  throughout, ``(B, T, C)``: each layer is one call of
+  ``ops.cuda_conv_encoder.wavlm_conv``, kernel E1 on the card (one launch
+  a layer: layer 0 a stencil from the samples, layers 1-6 an implicit GEMM
+  with the LayerNorm and GELU in its epilogue, on the weights repacked once
+  a device, ``WavLMConvLayer.packed``, outside the state dict), its plain
+  version (``F.conv1d``, ``F.layer_norm``, ``F.gelu``) on the CPU.  A
+  row's valid frames are the conv length formula ``floor((L - k) / s) + 1``
+  a layer over its kept count (``frames``).
+* Feature projection: LayerNorm(512) -> Linear(512 -> 1024), on E1's
+  channels-last output as it is.
 * Frames past a row's valid ones are zeroed; then the positional
   convolution, Conv1d(1024, 1024, k=128, pad 64, 16 groups), weight-normed
   over dim 2 (``weight_g``, ``weight_v``), its last frame dropped, GELU,
@@ -51,10 +58,12 @@ Face would put NaN into the row (such rows lie under the silent gate); the
 weighted layer sum is accumulated layer by layer instead of over a stack
 of the 25 hidden states (the same sum, in another order).
 
-GEMMs are ``F.linear``, the convolutions ``F.conv1d``, under the caller's
-TF32 policy (``precision.fp32_policy``).  A forward spans ``model.encoder``
-(conv encoder, projection, positional convolution), ``model.layers`` with a
-``model.layer`` a layer, and ``model.head`` (``utils.timers``).
+GEMMs are ``F.linear``, the positional convolution ``F.conv1d``, under the
+caller's TF32 policy (``precision.fp32_policy``), which E1 and A1 follow
+too (one TF32 pass where it allows TF32, else 3xTF32).  A forward spans
+``model.encoder`` (conv encoder, projection, positional convolution),
+``model.layers`` with a ``model.layer`` a layer, and ``model.head``
+(``utils.timers``).
 """
 
 from __future__ import annotations
@@ -67,6 +76,8 @@ from torch import nn
 
 from mmla_audio_torch.core.config import WavLMConfig
 from mmla_audio_torch.ops.cuda_attention import wavlm_attention
+from mmla_audio_torch.ops.cuda_conv_encoder import (pack_conv_weight,
+                                                    wavlm_conv)
 from mmla_audio_torch.utils.timers import span
 
 __all__ = ["relative_position_bucket", "wavlm_input_batch", "split_input",
@@ -116,17 +127,30 @@ def split_input(x: torch.Tensor) -> tuple:
 
 
 class WavLMConvLayer(nn.Module):
-    """``WavLMLayerNormConvLayer``: conv, LayerNorm over channels, GELU."""
+    """``WavLMLayerNormConvLayer``: conv, LayerNorm over channels, GELU, on
+    channels-last ``(B, T, C)`` in and out (``wavlm_conv``)."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int,
                  bias: bool):
         super().__init__()
         self.conv = nn.Conv1d(cin, cout, kernel, stride=stride, bias=bias)
         self.layer_norm = nn.LayerNorm(cout)
+        self._packed = None                 # (key, the kernel's weight)
+
+    def packed(self) -> torch.Tensor:
+        """The conv weight in E1's layout (``pack_conv_weight``), made once
+        for each device, storage and version of the weight."""
+        w = self.conv.weight
+        key = (w.device, w.data_ptr(), w._version)
+        if self._packed is None or self._packed[0] != key:
+            self._packed = (key, pack_conv_weight(w))
+        return self._packed[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv(x)
-        return F.gelu(self.layer_norm(x.transpose(1, 2)).transpose(1, 2))
+        return wavlm_conv(x, self.conv.weight, self.layer_norm.weight,
+                          self.layer_norm.bias, self.conv.stride[0],
+                          self.layer_norm.eps, self.conv.bias,
+                          packed=self.packed() if x.is_cuda else None)
 
 
 class WavLMFeatureEncoder(nn.Module):
@@ -138,10 +162,11 @@ class WavLMFeatureEncoder(nn.Module):
             for i, (k, s) in enumerate(zip(cfg.conv_kernel, cfg.conv_stride)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x[:, None]
+        """Samples ``(B, L)`` -> ``(B, T, C)``, channels-last."""
+        x = x[..., None]
         for layer in self.conv_layers:
             x = layer(x)
-        return x                                          # (B, 512, T)
+        return x
 
 
 class WavLMFeatureProjection(nn.Module):
@@ -303,8 +328,7 @@ class WavLMForSequenceClassification(nn.Module):
 
     def forward(self, x: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
         with span("model.encoder"):
-            h = self.feature_projection(
-                self.feature_extractor(x).transpose(1, 2))
+            h = self.feature_projection(self.feature_extractor(x))
             B, T, _ = h.shape
             lens = self.frames(n.to(h.device)).clamp(1, T).to(torch.int32)
             valid = torch.arange(T, device=h.device)[None, :] < lens[:, None]

@@ -6,7 +6,8 @@ against their plain versions, the block's dispatch rule, the predictor on
 the card against the CPU, the multiplexer's launches, the denoise of a
 window equal in a batch and alone, and the predictor captured as a CUDA
 graph by ``export.aot_compile``; kernel A1 against the attention in
-float64 and the full-width WavLM against ``tests/wavlm_reference.py``.
+float64, kernel E1 against the conv encoder's plain version in float64,
+and the full-width WavLM against ``tests/wavlm_reference.py``.
 
 This file imports neither JAX nor tests/conftest.py, so it runs where JAX is
 not installed:  python -m pytest --noconftest tests/test_torch_cuda.py
@@ -1205,6 +1206,105 @@ def test_a1_refuses_what_it_does_not_take(device):
         wavlm_attention(q.contiguous(), k, v, gate, bias, lens)
 
 
+@pytest.mark.parametrize("tf32", [True, False])
+@pytest.mark.parametrize("batch", [1, 8, 64])
+def test_e1_matches_the_plain_conv_encoder(device, batch, tf32):
+    """E1, each layer at full width on the float64 plain chain's input to
+    it (rounded to float32), against the plain version in float64: one
+    TF32 pass within E1_RTOL["tf32"] of max |ref|, 3xTF32 (TF32 off) within
+    E1_RTOL["split"]; one launch a layer, in 3xTF32 only on the GEMM's
+    layers with TF32 off; the plain version in bf16 above the TF32 limit."""
+    from chip_smoke import (E1_RTOL, a1_error, e1_input, e1_layers,
+                            e1_plain_layer)
+    from mmla_audio_torch.ops.cuda_conv_encoder import wavlm_conv
+
+    layers = e1_layers(device, seed=batch)
+    h = e1_input(batch, device, seed=batch)[..., None]
+    for i, layer in enumerate(layers):
+        ref = e1_plain_layer(h, layer, torch.float64)
+        before = wavlm_conv.launches, wavlm_conv.launches_split
+        with torch.no_grad(), fp32_policy(tf32):
+            got = wavlm_conv(h, *layer[:3], layer[3])
+        torch.cuda.synchronize()
+        assert (wavlm_conv.launches - before[0],
+                wavlm_conv.launches_split - before[1]) \
+            == (1, int(i > 0 and not tf32))
+        assert got.is_contiguous() and got.shape == ref.shape
+        assert a1_error(got, ref) <= E1_RTOL["tf32" if tf32 else "split"], i
+        if tf32:
+            assert a1_error(e1_plain_layer(h, layer, torch.bfloat16), ref) \
+                > E1_RTOL["tf32"], i
+        h = ref.float()
+
+
+@pytest.mark.parametrize("c_in,c_out,k,s", [(1, 256, 10, 5), (1, 128, 3, 1),
+                                            (64, 128, 3, 2), (96, 384, 2, 1),
+                                            (512, 256, 5, 3)])
+def test_e1_takes_other_widths_and_a_bias(device, c_in, c_out, k, s):
+    """Both kernels at other widths, kernel sizes and strides, with the
+    convolution's bias, against the plain version in float64, both
+    precisions; a length that leaves a ragged last tile."""
+    from chip_smoke import E1_RTOL, a1_error
+    from mmla_audio_torch.ops.cuda_conv_encoder import (wavlm_conv,
+                                                        wavlm_conv_plain)
+
+    g = torch.Generator(device=device).manual_seed(c_in + c_out)
+    x = torch.randn(3, 1001, c_in, generator=g, device=device)
+    w = torch.randn(c_out, c_in, k, generator=g, device=device) \
+        / (c_in * k) ** 0.5
+    bias = 0.3 * torch.randn(c_out, generator=g, device=device)
+    gamma = 1.0 + 0.2 * torch.randn(c_out, generator=g, device=device)
+    beta = 0.1 * torch.randn(c_out, generator=g, device=device)
+    ref = wavlm_conv_plain(x.double(), w.double(), gamma.double(),
+                           beta.double(), s, 1e-5, bias.double())
+    for tf32 in (True, False):
+        with torch.no_grad(), fp32_policy(tf32):
+            got = wavlm_conv(x, w, gamma, beta, s, 1e-5, bias)
+        assert got.shape == ref.shape == (3, (1001 - k) // s + 1, c_out)
+        assert a1_error(got, ref) <= E1_RTOL["tf32" if tf32 else "split"]
+
+
+def test_e1_refuses_what_it_does_not_take(device):
+    from mmla_audio_torch.ops.cuda_conv_encoder import wavlm_conv
+
+    x = torch.randn(2, 31, 512, device=device)
+    w = torch.randn(512, 512, 3, device=device)
+    ln = torch.ones(512, device=device), torch.zeros(512, device=device)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        wavlm_conv(x, w[:64], ln[0][:64], ln[1][:64], 2)
+    with pytest.raises(ValueError, match="float32"):
+        wavlm_conv(x.double(), w, *ln, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        wavlm_conv(x[:, ::2], w, *ln, 2)
+    with pytest.raises(ValueError, match="packed"):
+        wavlm_conv(x, w, *ln, 2, packed=w.reshape(512, -1))
+
+
+def test_e1_kernels_are_tied_to_their_operator(device):
+    """The profiler ties each of the encoder's seven E1 kernels to the
+    ``mmla_audio::wavlm_conv`` operator that launched it, as it ties aten's
+    kernels to theirs, so that the device time of a span's launches
+    (``perfbench/launched.py``) counts E1."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import e1_encoder, e1_input, e1_layers
+
+    layers = e1_layers(device)
+    x = e1_input(2, device, seed=5)
+    with torch.no_grad():
+        e1_encoder(x, layers)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            e1_encoder(x, layers)
+            torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.name == "mmla_audio::wavlm_conv"]
+    kernels = [k for e in ops for k in e.kernels]
+    assert len(ops) == 7
+    assert len(kernels) == 7 and all("wavlm_conv" in k.name
+                                     and k.duration > 0 for k in kernels)
+
+
 @pytest.fixture(scope="module")
 def wavlm_weights():
     from tests.test_torch_wavlm import seeded_state_dict
@@ -1217,15 +1317,17 @@ def wavlm_weights():
 def test_full_width_wavlm_matches_the_reference(device, wavlm_weights,
                                                 batch):
     """WavLM Large on the card against ``tests/wavlm_reference.py`` (TF32
-    off): IEEE fp32 (A1 in 3xTF32) within 1e-4 of max |ref| (sums in
-    other orders through 24 layers), TF32 allowed within 2e-2 (one TF32
-    pass in every product); one A1 launch a layer."""
+    off): IEEE fp32 (A1 and E1 in 3xTF32) within 1e-4 of max |ref| (sums
+    in other orders through 24 layers), TF32 allowed within 2e-2 (one TF32
+    pass in every product); one A1 launch a layer, one E1 launch a conv
+    layer."""
     from tests import wavlm_reference as ref
     from tests.test_torch_wavlm import windows
     from mmla_audio_torch.core.config import WavLMConfig
     from mmla_audio_torch.inference import WavLMPredictor
     from mmla_audio_torch.models.wavlm import wavlm_input_batch
     from mmla_audio_torch.ops.cuda_attention import wavlm_attention
+    from mmla_audio_torch.ops.cuda_conv_encoder import wavlm_conv
 
     cfg = WavLMConfig()
     kept = np.array([40960, 30000, 4001, 3000, 400, 399, 0, 20000]
@@ -1241,8 +1343,12 @@ def test_full_width_wavlm_matches_the_reference(device, wavlm_weights,
         pred = WavLMPredictor(sd, cfg, device=device,
                               matmul_precision=precision)
         before = wavlm_attention.launches
+        e1 = wavlm_conv.launches, wavlm_conv.launches_split
         with torch.no_grad():
             got = pred.apply_model(x).cpu()
         assert wavlm_attention.launches - before == cfg.num_hidden_layers
+        # E1: one launch a conv layer, 3xTF32 on the GEMM's six with TF32 off
+        assert (wavlm_conv.launches - e1[0], wavlm_conv.launches_split
+                - e1[1]) == (7, 6 if precision == "highest" else 0)
         assert torch.isfinite(got).all()
         assert (got - want).abs().max() <= rtol * scale, precision

@@ -19,6 +19,11 @@ from mmla_audio_torch.models.wavlm import (WavLMForSequenceClassification,
                                            split_input, wavlm_input_batch)
 from mmla_audio_torch.ops.cuda_attention import (wavlm_attention,
                                                  wavlm_attention_plain)
+from mmla_audio_torch.ops.cuda_conv_encoder import (conv_args, conv_route,
+                                                    pack_conv_weight,
+                                                    round_tf32,
+                                                    wavlm_conv,
+                                                    wavlm_conv_plain)
 from mmla_audio_torch.streaming import multiplex as mx
 from mmla_audio_torch.streaming.capture import PrefilledCapture
 from mmla_audio_torch.streaming.multiplex import Multiplexer
@@ -197,3 +202,213 @@ def test_multiplexer_labels_are_the_references(tmp_path, monkeypatch):
     assert stats["batches"] == len(seen) == 2
     assert stats["computed"] == 2 * 4 * 127
     assert 0 < stats["valid"] <= 6 * 127
+
+
+# -- kernel E1's plain version, layout and checks -----------------------------
+
+class TransposingConvLayer(torch.nn.Module):
+    """The conv encoder's layer as it was before E1: conv on (B, C, T), a
+    transpose, LayerNorm, a transpose back, GELU."""
+
+    def __init__(self, layer):
+        super().__init__()
+        self.conv, self.layer_norm = layer.conv, layer.layer_norm
+
+    def forward(self, x):
+        x = self.conv(x)
+        return F.gelu(self.layer_norm(x.transpose(1, 2)).transpose(1, 2))
+
+
+def transposing_encoder(model, samples):
+    """(B, L) -> (B, T, C) through ``TransposingConvLayer``s."""
+    x = samples[:, None]
+    for layer in model.feature_extractor.conv_layers:
+        x = TransposingConvLayer(layer)(x)
+    return x.transpose(1, 2)
+
+
+def _samples(kept=KEPT[:3]):
+    x = wavlm_input_batch(torch.from_numpy(windows(kept)),
+                          torch.from_numpy(kept))
+    return split_input(x)
+
+
+@pytest.mark.parametrize("width", [32, 512])
+def test_plain_conv_encoder_equals_the_transposing_stack(width):
+    """Channels-last through ``wavlm_conv`` on the CPU (its plain version)
+    gives the transposing stack's bits, layer by layer; at width 512 the
+    first three layers (WavLM Large's)."""
+    cfg = port_config.WavLMConfig(conv_dim=(width,) * 7)
+    m = WavLMForSequenceClassification(cfg).eval()
+    m.load_state_dict(seeded_state_dict(cfg, seed=2))
+    samples, _ = _samples()
+    layers = m.feature_extractor.conv_layers[:7 if width == 32 else 3]
+    old, new = samples[:, None], samples[..., None]
+    with torch.no_grad():
+        for layer in layers:
+            old = TransposingConvLayer(layer)(old)
+            new = layer(new)
+            assert new.is_contiguous()
+            assert torch.equal(new, old.transpose(1, 2))
+
+
+def test_conv_encoder_output_feeds_the_projection_to_the_same_logits(model):
+    """The channels-last encoder, fed to the projection as it is, gives
+    the logits of the transposing stack's output transposed, bit for bit."""
+    samples, n = _samples(KEPT)
+    with torch.no_grad():
+        got = model(samples, n)
+        feats = model.feature_extractor(samples)
+        assert torch.equal(feats, transposing_encoder(model, samples))
+        real = model.feature_extractor.forward
+        model.feature_extractor.forward = lambda x: transposing_encoder(
+            model, x)
+        try:
+            want = model(samples, n)
+        finally:
+            model.feature_extractor.forward = real
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("c_in,k", [(1, 10), (32, 3), (512, 2)])
+def test_weight_repack_round_trips(c_in, k):
+    """``pack_conv_weight``: (k, C_out) for one input channel, else (2,
+    C_out, k C_in) with K = j C_in + c, the second copy rounded to TF32;
+    the layout's inverse gives the weight back."""
+    w = torch.randn(128, c_in, k, generator=torch.Generator().manual_seed(k))
+    p = pack_conv_weight(w)
+    assert p.is_contiguous()
+    if c_in == 1:
+        assert p.shape == (k, 128) and torch.equal(p[k - 1], w[:, 0, k - 1])
+    else:
+        assert p.shape == (2, 128, k * c_in)
+        assert torch.equal(p[0, 7, (k - 1) * c_in + 5], w[7, 5, k - 1])
+        assert torch.equal(p[1], round_tf32(p[0]))
+    back = p.t()[:, None, :] if c_in == 1 \
+        else p[0].view(128, k, c_in).permute(0, 2, 1)
+    assert torch.equal(back, w)
+
+
+def test_round_tf32_rounds_to_nearest_ties_away():
+    """11 bits kept after the leading one: 1 + 2^-10 is kept, 1 + 2^-11 (a
+    tie) rounds away from zero, 1 + 2^-12 rounds down; signs kept."""
+    x = torch.tensor([1 + 2 ** -10, 1 + 2 ** -11, 1 + 2 ** -12,
+                      -(1 + 2 ** -11), 3.0, 0.0, 1 + 3 * 2 ** -12])
+    want = torch.tensor([1 + 2 ** -10, 1 + 2 ** -10, 1.0, -(1 + 2 ** -10),
+                         3.0, 0.0, 1 + 2 ** -10])
+    assert torch.equal(round_tf32(x), want)
+    y = torch.randn(1000, generator=torch.Generator().manual_seed(1))
+    r = round_tf32(y)
+    assert ((r.view(torch.int32) & 0x1FFF) == 0).all()
+    assert ((r - y).abs() <= y.abs() * 2 ** -11).all()
+
+
+def test_state_dict_keeps_its_names_and_shapes_after_a_forward(model):
+    """The repacked weights are not parameters or buffers: the state dict
+    keeps Hugging Face's names and shapes and loads strictly."""
+    want = {k: tuple(v.shape) for k, v in seeded_state_dict().items()}
+    samples, n = _samples()
+    with torch.no_grad():
+        model(samples, n)
+    for layer in model.feature_extractor.conv_layers:
+        layer.packed()
+    sd = model.state_dict()
+    assert {k: tuple(v.shape) for k, v in sd.items()} == want
+    assert "feature_extractor.conv_layers.0.conv.weight" in sd
+    assert "feature_extractor.conv_layers.6.layer_norm.bias" in sd
+    assert not any("pack" in k for k in sd)
+    model.load_state_dict(sd, strict=True)
+
+
+def test_packed_weight_is_made_once_and_follows_the_weight():
+    m = WavLMForSequenceClassification(TINY).eval()
+    layer = m.feature_extractor.conv_layers[1]
+    first = layer.packed()
+    assert layer.packed() is first
+    with torch.no_grad():
+        layer.conv.weight.mul_(2.0)
+    again = layer.packed()
+    assert again is not first and torch.equal(again, 2.0 * first)
+    m.load_state_dict(seeded_state_dict())
+    assert torch.equal(layer.packed(), pack_conv_weight(layer.conv.weight))
+
+
+@pytest.mark.parametrize("c_in,c_out,want", [
+    (1, 512, "samples"), (1, 128, "samples"), (1, 64, None),
+    (512, 512, "gemm"), (32, 128, "gemm"), (512, 384, "gemm"),
+    (512, 640, None), (48, 128, None), (32, 64, None)])
+def test_conv_route_depends_on_the_widths_alone(c_in, c_out, want):
+    assert conv_route(c_in, c_out) == want
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take():
+    """An unsupported device raises in ``wavlm_conv``; widths, dtype, shape
+    and layout in ``conv_args``, which it runs before every launch."""
+    w = torch.randn(512, 512, 3)
+    ln = torch.ones(512), torch.zeros(512)
+    x = torch.randn(2, 31, 512)
+    assert conv_args(x, w, *ln, 2) == ("gemm", 15)
+    w0 = torch.randn(512, 1, 10)
+    assert conv_args(torch.randn(2, 31)[..., None], w0, *ln, 5) \
+        == ("samples", 5)
+    with pytest.raises(ValueError, match="along a row"):
+        conv_args(x[..., :1], w0, *ln, 5)
+    with pytest.raises(ValueError, match="unsupported device"):
+        wavlm_conv(x.to("meta"), w.to("meta"), *(t.to("meta") for t in ln),
+                   2)
+    with pytest.raises(ValueError, match="float32"):
+        conv_args(x.double(), w, *ln, 2)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        conv_args(x, torch.randn(32, 512, 3), torch.ones(32),
+                  torch.zeros(32), 2)
+    with pytest.raises(ValueError, match="cannot take"):
+        conv_args(x[:, :2], w, *ln, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_args(x.transpose(0, 1).contiguous().transpose(0, 1), w, *ln, 2)
+    with pytest.raises(ValueError, match="packed"):
+        conv_args(x, w, *ln, 2, packed=torch.randn(2, 512, 512 * 2))
+    with pytest.raises(ValueError, match="norm_weight"):
+        conv_args(x, w, torch.ones(256), ln[1], 2)
+    with pytest.raises(ValueError, match=r"\(B, T, C_in\)"):
+        conv_args(x[0], w, *ln, 2)
+
+
+def test_cpu_forward_launches_no_kernel(model):
+    """The CPU path is the plain version: neither E1's counters nor A1's
+    move."""
+    before = (wavlm_conv.launches, wavlm_conv.launches_split,
+              wavlm_attention.launches)
+    samples, n = _samples()
+    with torch.no_grad():
+        model(samples, n)
+    assert (wavlm_conv.launches, wavlm_conv.launches_split,
+            wavlm_attention.launches) == before
+
+
+def test_e1_launches_inside_a_dispatcher_operator():
+    """The card path launches through ``mmla_audio::wavlm_conv``, an
+    operator with a CUDA kernel alone, so that a profiler ties E1's kernels
+    to an operator as it ties aten's; the CPU path never calls it."""
+    from torch._C import _dispatch_has_kernel_for_dispatch_key as has_kernel
+
+    op = torch.ops.mmla_audio.wavlm_conv.default
+    assert [a.name for a in op._schema.arguments] == [
+        "x", "packed", "bias", "norm_weight", "norm_bias", "c_out", "k",
+        "stride", "t_out", "eps", "split"]
+    assert has_kernel("mmla_audio::wavlm_conv", "CUDA")
+    assert not has_kernel("mmla_audio::wavlm_conv", "CPU")
+    with pytest.raises(NotImplementedError):
+        op(torch.randn(2, 31, 512), torch.randn(2, 512, 1536), None,
+           torch.ones(512), torch.zeros(512), 512, 3, 2, 15, 1e-5, False)
+
+
+def test_conv_plain_adds_the_bias_before_the_layer_norm():
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(2, 40, 64, generator=g)
+    w, b = torch.randn(128, 64, 3, generator=g), torch.randn(128, generator=g)
+    gamma, beta = torch.rand(128, generator=g) + 0.5, torch.randn(128)
+    got = wavlm_conv_plain(x, w, gamma, beta, 2, 1e-5, b)
+    y = F.conv1d(x.transpose(1, 2), w, stride=2).transpose(1, 2) + b
+    want = F.gelu(F.layer_norm(y, (128,), gamma, beta, 1e-5))
+    assert got.shape == (2, 19, 128)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
