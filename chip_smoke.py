@@ -1193,10 +1193,14 @@ def arrangement_line(times: dict) -> str:
 
 class ProbsTap:
     """An OverlapPredictor whose ``predict`` also keeps the probabilities,
-    so the post-time labels can be compared where the margin is clear."""
+    so the post-time labels can be compared where the margin is clear; the
+    rest of the predictor passes through."""
 
     def __init__(self, pred):
         self.pred, self.device, self.probs = pred, pred.device, []
+
+    def __getattr__(self, name):
+        return getattr(self.pred, name)
 
     def predict(self, buf, n):
         labels, probs = self.pred.predict(buf, n)
@@ -1328,10 +1332,14 @@ def phase_post(device, tree, state_dict, cfg, noise, tmp: Path, clips):
 class LogitsTap:
     """A SpeakerPredictor whose ``score`` and ``logits_from_features`` also
     keep the logits, so card and CPU labels can be compared where the
-    CPU's top-2 margin is clear."""
+    CPU's top-2 margin is clear; the rest of the predictor (a session's
+    gate and label names) passes through."""
 
     def __init__(self, pred):
         self.pred, self.device, self.logits = pred, pred.device, []
+
+    def __getattr__(self, name):
+        return getattr(self.pred, name)
 
     def score(self, buf, n):
         logits, probs = self.pred.score(buf, n)
@@ -4444,6 +4452,7 @@ def phase_wavlm_multiplexer(device, cfg, tmp: Path) -> int:
     from mmla_audio_torch.inference import SILENT, WavLMPredictor
     from mmla_audio_torch.ops.cuda_attention import wavlm_attention
     from mmla_audio_torch.ops.cuda_conv_encoder import wavlm_conv
+    from mmla_audio_torch import inference
     from mmla_audio_torch.streaming import multiplex
     from mmla_audio_torch.streaming.capture import PrefilledCapture
     from mmla_audio_torch.streaming.session import WavLMSession
@@ -4465,7 +4474,7 @@ def phase_wavlm_multiplexer(device, cfg, tmp: Path) -> int:
             vad_windows(WAVLM_WINDOWS, seed=700 + s, n=n_win).ravel()),
             noises[s % len(noises)])
     batches = []
-    real_norm, real_apply = multiplex.wavlm_input_batch, pred.apply_model
+    real_norm, real_apply = inference.wavlm_input_batch, pred.apply_model
 
     def norm(trimmed, n, *args):
         batches.append([trimmed[:WAVLM_CPU_ROWS].cpu(),
@@ -4477,7 +4486,8 @@ def phase_wavlm_multiplexer(device, cfg, tmp: Path) -> int:
         batches[-1].append(logits[:WAVLM_CPU_ROWS].cpu())
         return logits
 
-    multiplex.wavlm_input_batch, pred.apply_model = norm, apply
+    # the decision step calls the featurizer through ``inference``
+    inference.wavlm_input_batch, pred.apply_model = norm, apply
     try:
         zero_launch_counters()
         wavlm_attention.launches = 0
@@ -4489,7 +4499,7 @@ def phase_wavlm_multiplexer(device, cfg, tmp: Path) -> int:
         served = wavlm_attention.launches
         served_e1 = wavlm_conv.launches
     finally:
-        multiplex.wavlm_input_batch, pred.apply_model = real_norm, real_apply
+        inference.wavlm_input_batch, pred.apply_model = real_norm, real_apply
     want = WAVLM_STREAMS * WAVLM_WINDOWS
     ticks = want // 64
     if got != want or len(batches) != ticks or served != layers * ticks \
@@ -4507,7 +4517,7 @@ def phase_wavlm_multiplexer(device, cfg, tmp: Path) -> int:
     worst = 0.0
     for trimmed, n, card in batches:
         with torch.no_grad():
-            ref = cpu.apply_model(multiplex.wavlm_input_batch(trimmed, n))
+            ref = cpu.apply_model(inference.wavlm_input_batch(trimmed, n))
         probs = torch.softmax(ref, -1)
         top2 = torch.sort(probs, -1).values[:, -2:]
         ok = (top2[:, 1] - top2[:, 0]) > TOP2_MARGIN

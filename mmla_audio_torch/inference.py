@@ -1,32 +1,36 @@
 """Window-to-label inference (counterpart of ``mmla_audio_tpu.inference``).
 
-Overlap detection:
+Every predictor runs one decision step (``Predictor``) on trimmed windows,
+``(B, L)`` int16-scale samples zero beyond their valid counts ``n``:
 
-    (B, >=24000) int16-scale samples + (B,) valid counts
-        -> masked prefix / 32768 -> featurize -> model -> softmax, argmax
-        -> silent gate -> (labels (B,), probs (B, C))
+    the kind's featurizer -> ``apply_model`` -> argmax of the logits
+        -> ``SILENT`` where ``n`` is below the gate
 
-The featurizer is ``overlap_model_input_cuda``: on the card it is the
-hand-written kernel; for CPU tensors its plain version.
+``predict`` casts raw PCM, masks it beyond ``n`` and gates at the
+predictor's ``silent_threshold``; the multiplexer runs the step on its
+trimmed batch at the gate ``serving_gate`` reads from a ``PipelineConfig``;
+a session takes ``score``'s logits and probabilities and decides on the
+host.  What differs by kind:
 
-Speaker identification:
+* ``OverlapPredictor`` (``"overlap"``): the first 1.5 s / 32768 ->
+  ``overlap_model_input_cuda`` (128, 151, 3) (on the card the hand-written
+  kernel; for CPU tensors its plain version) -> OverlapResBLSTM ->
+  softmax.
+* ``SpeakerPredictor`` (``"speaker"``): ``speaker_feature_batch`` MFCC-39
+  (256, 39) -> SpeakerResBLSTM -> softmax, or sigmoid for a
+  transfer-learned head; gated at ``cfg.speaker_feature.silent_samples``
+  and logged by speaker index.  All of it is torch ops (cuBLAS GEMMs,
+  cuDNN convolutions and LSTM on the card), as the JAX package runs it
+  outside any Pallas kernel.
+* ``WavLMPredictor`` (``"wavlm"``, the port's own; ``models/wavlm.py``): the
+  first 40,960 samples -> ``wavlm_input_batch`` (kept samples normalised,
+  the count beside them) -> WavLMForSequenceClassification (attention:
+  kernel A1) -> softmax; labelled and logged as the overlap detector.
+  ``frame_stats()`` counts the frames its forwards computed and those of
+  them that lay within a row's valid frames.
 
-    (B, 40960) int16-scale samples + (B,) valid counts
-        -> MFCC-39 (256, 39) -> SpeakerResBLSTM -> softmax (or sigmoid for a
-        transfer-learned head), argmax of the logits -> silent gate
-
-All of it is torch ops (cuBLAS GEMMs, cuDNN convolutions and LSTM on the
-card), as the JAX package runs it outside any Pallas kernel.
-
-Overlap detection with WavLM Large (the port's own; ``models/wavlm.py``):
-
-    (B, 40960) int16-scale samples + (B,) valid counts
-        -> ``wavlm_input_batch`` (kept samples normalised, the count beside
-        them) -> WavLMForSequenceClassification (attention: kernel A1)
-        -> softmax, argmax -> silent gate
-
-``WavLMPredictor.frame_stats()`` counts the frames its forwards computed
-and those of them that lay within a row's valid frames.
+The step calls the featurizers through this module's names, so a patch of
+``inference.<name>`` sees every call.
 
 On the card ``OverlapPredictor.apply_model`` replays the overlap model's
 stretches between its fused blocks (``OverlapResBLSTM.segments``) as CUDA
@@ -49,8 +53,9 @@ from typing import Mapping
 
 import torch
 
+from mmla_audio_torch.analyze.logs import OVERLAP_LABELS
 from mmla_audio_torch.core.config import (AudioConfig, OverlapFeatureConfig,
-                                          OverlapModelConfig,
+                                          OverlapModelConfig, PipelineConfig,
                                           SpeakerFeatureConfig,
                                           SpeakerModelConfig, WavLMConfig)
 from mmla_audio_torch.models.overlap import OverlapResBLSTM
@@ -66,7 +71,7 @@ from mmla_audio_torch.ops.features import speaker_feature_batch
 from mmla_audio_torch.precision import fp32_policy
 from mmla_audio_torch.utils.timers import setup_span, span
 
-__all__ = ["SILENT", "OverlapPredictor", "SpeakerPredictor",
+__all__ = ["SILENT", "Predictor", "OverlapPredictor", "SpeakerPredictor",
            "WavLMPredictor"]
 
 SILENT = -1  # label index for the silent gate (the log writes "silent")
@@ -75,14 +80,6 @@ SILENT = -1  # label index for the silent gate (the log writes "silent")
 # OverlapPredictor keeps, least recently used out first: the multiplexer's
 # two buckets on up to four mesh replicas
 GRAPH_SHAPES = 8
-
-
-def _masked_prefix(buf: torch.Tensor, n: torch.Tensor,
-                   length: int) -> torch.Tensor:
-    """First ``length`` samples of each row, zero beyond the valid count."""
-    pre = buf[..., :length]
-    idx = torch.arange(pre.shape[-1], device=buf.device)
-    return torch.where(idx < n[..., None], pre, torch.zeros_like(pre))
 
 
 def _as_pcm(buf, device: torch.device) -> torch.Tensor:
@@ -172,14 +169,105 @@ class _StretchGraphs:
         return x.clone()
 
 
-class OverlapPredictor:
-    """Overlap detection over (denoised, VAD-trimmed) windows.
+class Predictor:
+    """The decision step every predictor shares.  A subclass gives what
+    differs by kind (``kind``, ``features``, ``apply_model``,
+    ``probabilities``, ``log_kind``, ``label_names``, ``cfg_features``,
+    ``serving_gate``) and sets ``device``, ``model`` and
+    ``silent_threshold``.
 
-    ``predict(buf, n)``: ``buf (B, >=24000)`` or ``(>=24000,)`` raw PCM,
-    int16 or float32 at int16 scale, with valid counts ``n`` ->
-    ``(labels, probs)`` on ``device``; label ``SILENT`` where
-    ``n < silent_threshold``.
-    """
+    ``predict(buf, n)``: ``buf (B, L)`` or ``(L,)`` raw PCM, int16 or
+    float32 at int16 scale, with valid counts ``n`` -> ``(labels, probs)``
+    on ``device``; label ``SILENT`` where ``n < silent_threshold``."""
+
+    kind = ""
+    log_kind = "overlap"            # the SessionLog schema
+    label_names = OVERLAP_LABELS    # a label's name when none is given
+    # the ``PipelineConfig`` field that must equal ``feat_cfg`` where a
+    # multiplexer serves this predictor under that config (None: none)
+    cfg_features: str | None = None
+
+    def features(self, samples: torch.Tensor, n: torch.Tensor):
+        """The model input of trimmed rows (``step``)."""
+        raise NotImplementedError
+
+    def probabilities(self, logits: torch.Tensor) -> torch.Tensor:
+        return torch.softmax(logits, dim=-1)
+
+    def serving_gate(self, cfg: PipelineConfig) -> int:
+        """The kept-sample count below which a served window is SILENT."""
+        return cfg.vad.silent_samples
+
+    def label_name(self, label: int, names=None) -> str:
+        """A label's log name: ``"silent"``, else its name in ``names`` (a
+        stream's or an enrollment's) or in ``label_names``, else its
+        index."""
+        if label < 0:
+            return "silent"
+        names = self.label_names if names is None else names
+        return names.get(str(label), str(label))
+
+    def _logits(self, samples, n, model=None) -> torch.Tensor:
+        with span("model.features"):
+            x = self.features(samples, n)
+        with span("model.forward"):
+            return self.apply_model(x, model)
+
+    def step(self, samples: torch.Tensor, n: torch.Tensor, gate: int,
+             model=None):
+        """The decision step of trimmed rows ``samples (B, L)`` float32 at
+        int16 scale, zero beyond the counts ``n (B,)`` int32, on the model's
+        device (``model``: a replica there, default this predictor's):
+        ``(labels, logits)``, the labels ``(B,)`` int32 the argmax of the
+        logits, ``SILENT`` where ``n < gate``."""
+        logits = self._logits(samples, n, model)
+        with span("model.labels"):
+            labels = torch.argmax(logits, dim=-1).to(torch.int32)
+            return torch.where(n < gate, torch.full_like(labels, SILENT),
+                               labels), logits
+
+    @torch.no_grad()
+    def score(self, samples, n) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(logits, probs)`` of ``(B, L)`` rows zero beyond their valid
+        counts ``n``, no gate (a session decides on the host)."""
+        samples = _as_pcm(samples, self.device).to(torch.float32)
+        n = torch.as_tensor(n).to(self.device, torch.int32)
+        logits = self._logits(samples, n)
+        with span("model.labels"):
+            return logits, self.probabilities(logits)
+
+    def _batch(self, model, buf: torch.Tensor, n: torch.Tensor):
+        samples = buf.to(torch.float32)
+        idx = torch.arange(samples.shape[-1], device=samples.device)
+        samples = torch.where(idx < n[:, None], samples,
+                              torch.zeros_like(samples))
+        labels, logits = self.step(samples, n, self.silent_threshold, model)
+        return labels, self.probabilities(logits)
+
+    def lower_fn(self):
+        """``fn(model, buf, n) -> (labels, probs)``: the batch forward of
+        ``predict`` with the model passed in and ``buf (B, L)``, ``n (B,)``
+        int32 already on the model's device, for wrappers that place both
+        (``parallel.DataParallel(pred.lower_fn(), mesh)(pred.model, buf,
+        n)``)."""
+        return torch.no_grad()(self._batch)
+
+    @torch.no_grad()
+    def predict(self, buf, n):
+        buf = _as_pcm(buf, self.device)
+        n = torch.as_tensor(n).to(self.device, torch.int32)
+        if buf.ndim == 1:
+            labels, probs = self.predict(buf[None], n.reshape(1))
+            return labels[0], probs[0]
+        return self._batch(self.model, buf, n)
+
+
+class OverlapPredictor(Predictor):
+    """Overlap detection over (denoised, VAD-trimmed) windows: ``predict``'s
+    ``buf`` is ``(B, >=24000)`` or ``(>=24000,)``."""
+
+    kind = "overlap"
+    cfg_features = "overlap_feature"
 
     @setup_span("setup.predictor")
     def __init__(self, state_dict: Mapping[str, torch.Tensor],
@@ -273,47 +361,22 @@ class OverlapPredictor:
         with self._lock:
             return dict(self._counts)
 
-    def _forward(self, model, buf: torch.Tensor, n: torch.Tensor):
-        with span("model.features"):
-            y = _masked_prefix(buf.to(torch.float32), n,
-                               self.feat_cfg.n_samples) / 32768.0
-            img = overlap_model_input_cuda(y, self.feat_cfg)  # (B, 128, 151, 3)
-        with span("model.forward"):
-            logits = self.apply_model(img, model)
-        with span("model.labels"):
-            probs = torch.softmax(logits, dim=-1)
-            labels = torch.argmax(probs, dim=-1).to(torch.int32)
-            labels = torch.where(n < self.silent_threshold,
-                                 torch.full_like(labels, SILENT), labels)
-        return labels, probs
-
-    def lower_fn(self):
-        """``fn(model, buf, n) -> (labels, probs)``: the batch forward of
-        ``predict`` with the model passed in and ``buf (B, >=24000)``,
-        ``n (B,)`` int32 already on the model's device, for wrappers that
-        place both (``parallel.DataParallel(pred.lower_fn(), mesh)(
-        pred.model, buf, n)``)."""
-        return torch.no_grad()(self._forward)
-
-    @torch.no_grad()
-    def predict(self, buf, n):
-        buf = _as_pcm(buf, self.device)
-        n = torch.as_tensor(n).to(self.device, torch.int32)
-        if buf.ndim == 1:
-            labels, probs = self.predict(buf[None], n.reshape(1))
-            return labels[0], probs[0]
-        return self._forward(self.model, buf, n)
+    def features(self, samples, n):
+        """The first 1.5 s / 32768 -> images ``(B, 128, 151, 3)``."""
+        return overlap_model_input_cuda(
+            samples[:, : self.feat_cfg.n_samples] / 32768.0, self.feat_cfg)
 
 
-class SpeakerPredictor:
-    """Speaker identification over (denoised, VAD-trimmed) windows.
+class SpeakerPredictor(Predictor):
+    """Speaker identification over (denoised, VAD-trimmed) windows:
+    ``predict``'s ``buf`` is ``(B, 40960)`` or ``(40960,)``, its gate
+    ``feat_cfg.silent_samples``.  A label indexes the enrollment
+    ``speaker_id_dict``."""
 
-    ``predict(buf, n)``: ``buf (B, 40960)`` or ``(40960,)`` raw PCM, int16
-    or float32 at int16 scale, with valid counts ``n`` -> ``(labels,
-    probs)`` on ``device``; label ``SILENT`` where ``n <
-    feat_cfg.silent_samples``.  A label indexes the enrollment
-    ``speaker_id_dict``.
-    """
+    kind = "speaker"
+    log_kind = "speaker"
+    label_names: Mapping[str, str] = {}
+    cfg_features = "speaker_feature"
 
     @setup_span("setup.predictor")
     def __init__(self, state_dict: Mapping[str, torch.Tensor],
@@ -340,6 +403,7 @@ class SpeakerPredictor:
         self.feat_cfg = feat_cfg
         self.sigmoid_head = sigmoid_head
         self.compute_dtype = compute_dtype
+        self.silent_threshold = feat_cfg.silent_samples
 
     def apply_model(self, x: torch.Tensor, model=None) -> torch.Tensor:
         """Model forward on MFCC-39 rows ``(B, 256, 39)`` (``model``: a
@@ -355,60 +419,27 @@ class SpeakerPredictor:
         return self.apply_model(torch.as_tensor(feats).to(self.device,
                                                           torch.float32))
 
-    def _score(self, model, buf: torch.Tensor, n: torch.Tensor):
-        with span("model.features"):
-            feats, _ = speaker_feature_batch(buf.to(torch.float32), n,
-                                             self.feat_cfg)
-        with span("model.forward"):
-            logits = self.apply_model(feats, model)
-        with span("model.labels"):
-            probs = torch.sigmoid(logits) if self.sigmoid_head else \
-                torch.softmax(logits, dim=-1)
-        return logits, probs
+    def features(self, samples, n):
+        """MFCC-39 rows ``(B, 256, 39)``."""
+        return speaker_feature_batch(samples, n, self.feat_cfg)[0]
 
-    @torch.no_grad()
-    def score(self, buf, n) -> tuple[torch.Tensor, torch.Tensor]:
-        """``(logits, probs)`` of ``(B, max_samples)`` windows, no gate:
-        a transfer-learned head's probabilities are sigmoids
-        (`speaker_identification.py:409`), the base model's a softmax."""
-        buf = _as_pcm(buf, self.device)
-        n = torch.as_tensor(n).to(self.device, torch.int32)
-        return self._score(self.model, buf, n)
+    def probabilities(self, logits):
+        """A transfer-learned head's sigmoids
+        (`speaker_identification.py:409`), the base model's softmax."""
+        return torch.sigmoid(logits) if self.sigmoid_head else \
+            torch.softmax(logits, dim=-1)
 
-    def _forward(self, model, buf: torch.Tensor, n: torch.Tensor):
-        logits, probs = self._score(model, buf, n)
-        with span("model.labels"):
-            labels = torch.argmax(logits, dim=-1).to(torch.int32)
-            labels = torch.where(n < self.feat_cfg.silent_samples,
-                                 torch.full_like(labels, SILENT), labels)
-        return labels, probs
-
-    def lower_fn(self):
-        """``fn(model, buf, n) -> (labels, probs)``: ``predict``'s batch
-        forward with the model passed in, its inputs already on the
-        model's device (see ``OverlapPredictor.lower_fn``)."""
-        return torch.no_grad()(self._forward)
-
-    @torch.no_grad()
-    def predict(self, buf, n):
-        buf = _as_pcm(buf, self.device)
-        n = torch.as_tensor(n).to(self.device, torch.int32)
-        if buf.ndim == 1:
-            labels, probs = self.predict(buf[None], n.reshape(1))
-            return labels[0], probs[0]
-        return self._forward(self.model, buf, n)
+    def serving_gate(self, cfg: PipelineConfig) -> int:
+        return cfg.speaker_feature.silent_samples
 
 
-class WavLMPredictor:
+class WavLMPredictor(Predictor):
     """Overlap detection with WavLM Large over (denoised, VAD-trimmed)
-    windows.
+    windows: ``predict``'s ``buf`` is ``(B, >=window)`` or ``(>=window,)``.
+    A row's first 40,960 samples (the 2.56 s window at 16 kHz,
+    ``AudioConfig().window_samples``) are the model's input."""
 
-    ``predict(buf, n)``: ``buf (B, >=window)`` or ``(>=window,)`` raw PCM,
-    int16 or float32 at int16 scale, with valid counts ``n`` ->
-    ``(labels, probs)`` on ``device``; label ``SILENT`` where ``n <
-    silent_threshold``.  A row's first 40,960 samples (the 2.56 s window
-    at 16 kHz, ``AudioConfig().window_samples``) are the model's input.
-    """
+    kind = "wavlm"
 
     @setup_span("setup.predictor")
     def __init__(self, state_dict: Mapping[str, torch.Tensor],
@@ -456,25 +487,7 @@ class WavLMPredictor:
         with self._lock:
             return dict(self._frames, valid=int(self._valid))
 
-    def _forward(self, buf: torch.Tensor, n: torch.Tensor):
-        with span("model.features"):
-            x = wavlm_input_batch(
-                _masked_prefix(buf.to(torch.float32), n, self.window_samples),
-                n, self.cfg.input_eps)
-        with span("model.forward"):
-            logits = self.apply_model(x)
-        with span("model.labels"):
-            probs = torch.softmax(logits, dim=-1)
-            labels = torch.argmax(probs, dim=-1).to(torch.int32)
-            labels = torch.where(n < self.silent_threshold,
-                                 torch.full_like(labels, SILENT), labels)
-        return labels, probs
-
-    @torch.no_grad()
-    def predict(self, buf, n):
-        buf = _as_pcm(buf, self.device)
-        n = torch.as_tensor(n).to(self.device, torch.int32)
-        if buf.ndim == 1:
-            labels, probs = self.predict(buf[None], n.reshape(1))
-            return labels[0], probs[0]
-        return self._forward(buf, n)
+    def features(self, samples, n):
+        """``wavlm_input_batch`` rows ``(B, 40961)`` of the windows."""
+        return wavlm_input_batch(samples[:, : self.window_samples], n,
+                                 self.cfg.input_eps)

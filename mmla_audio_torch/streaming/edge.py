@@ -31,7 +31,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from mmla_audio_torch.analyze.logs import OVERLAP_LABELS
 from mmla_audio_torch.core.config import PipelineConfig
 from mmla_audio_torch.export import aot_compile
 from mmla_audio_torch.ops.cuda_features import overlap_model_input_cuda
@@ -113,7 +112,7 @@ class EdgeOverlapSession(StreamingSession):
         # window was noise-only (record_on_pi.py:44-48, :120)
         if sim < self.ssim_threshold:
             return "silent", probs
-        return OVERLAP_LABELS[str(int(np.argmax(probs)))], probs
+        return self.predictor.label_name(int(np.argmax(probs))), probs
 
 
 class EdgeSpeakerSession(SpeakerSession):
@@ -146,20 +145,8 @@ class EdgeSpeakerSession(SpeakerSession):
         self._aot = None          # a new head: compile the pinned step anew
         return acc
 
-    @torch.no_grad()
-    def process_window(self, window_i16: np.ndarray):
-        """One window -> (speaker name, probs as numpy), the identify step
-        through the pinned program."""
-        trimmed, n_out = self.preprocess(window_i16)
-        args = (trimmed[None], torch.tensor([n_out], dtype=torch.int32,
-                                             device=self.device))
+    def _score(self, samples: torch.Tensor, n: torch.Tensor):
+        """The identify step through the pinned program."""
         if self._aot is None:
-            self._aot = aot_compile(self.predictor.score, *args)
-        logits, probs = self._aot(*args)
-        out = torch.cat([logits[0], probs[0]]).cpu().numpy()   # one fetch
-        logits, probs = np.split(out, 2)
-        label = -1 if n_out < self.cfg.speaker_feature.silent_samples \
-            else int(np.argmax(logits))
-        name = "silent" if label < 0 else \
-            self.speaker_id_dict.get(str(label), str(label))
-        return name, probs
+            self._aot = aot_compile(self.predictor.score, samples, n)
+        return self._aot(samples, n)

@@ -77,18 +77,21 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from mmla_audio_torch.analyze.logs import OVERLAP_LABELS, SessionLog
+from mmla_audio_torch.analyze.logs import SessionLog
 from mmla_audio_torch.core.config import PipelineConfig
-from mmla_audio_torch.models.wavlm import wavlm_input_batch
-from mmla_audio_torch.ops.cuda_features import overlap_model_input_cuda
+# the benchmark's taps patch the featurizers here by name; the decision
+# step calls them through ``mmla_audio_torch.inference``
+from mmla_audio_torch.models.wavlm import wavlm_input_batch  # noqa: F401
+from mmla_audio_torch.ops.cuda_features import (  # noqa: F401
+    overlap_model_input_cuda)
 from mmla_audio_torch.ops.denoise import noise_threshold
-from mmla_audio_torch.ops.features import speaker_feature_batch
+from mmla_audio_torch.ops.features import speaker_feature_batch  # noqa: F401
 from mmla_audio_torch.parallel.mesh import canonical_device, replicate_tree
 from mmla_audio_torch.streaming.native import BatchGather, NativeRingBuffer
 from mmla_audio_torch.streaming.session import (preprocess_windows,
                                                 session_stamp)
 from mmla_audio_torch.utils.experiment import ExperimentDirs, bootstrap
-from mmla_audio_torch.utils.timers import phase, setup_span, span
+from mmla_audio_torch.utils.timers import phase, setup_span
 from mmla_audio_torch.vad.collector import calibrate_threshold
 from mmla_audio_torch.vad.webrtc import webrtc_init
 
@@ -125,27 +128,33 @@ class Stream:
 class Multiplexer:
     """Batch windows across streams into one device program a tick.
 
-    ``kind``: ``"overlap"`` (an ``OverlapPredictor``), ``"speaker"`` (a
-    ``SpeakerPredictor``) or ``"wavlm"`` (a ``WavLMPredictor``, labelled and
-    logged as the overlap detector).  ``bucket`` fixes one batch size;
-    ``buckets`` is the ascending ladder (a tick rounds its ready count up to
-    the smallest sufficient bucket).  ``min_fill``: None is 0.75 once there
-    are as many streams as the top bucket, else 0 (dispatch every tick).
-    ``device`` must be the predictor's.  ``mesh``: a one-process mesh whose
-    first device is ``device`` and whose data axis divides every bucket;
-    each batch splits over its data axis (the module docstring)."""
+    ``predictor``: an ``inference.Predictor``, whose decision step, gate
+    (``serving_gate(cfg)``), log schema and label names the multiplexer
+    serves; ``kind``, if given, must be the predictor's, and ``cfg``'s
+    feature section (``predictor.cfg_features``) its ``feat_cfg``.  ``bucket`` fixes
+    one batch size; ``buckets`` is the ascending ladder (a tick rounds its
+    ready count up to the smallest sufficient bucket).  ``min_fill``: None
+    is 0.75 once there are as many streams as the top bucket, else 0
+    (dispatch every tick).  ``device`` must be the predictor's.  ``mesh``: a
+    one-process mesh whose first device is ``device`` and whose data axis
+    divides every bucket; each batch splits over its data axis (the module
+    docstring)."""
 
     def __init__(self, predictor, dirs: ExperimentDirs | str, *,
-                 kind: str = "overlap", bucket: int | None = None,
+                 kind: str | None = None, bucket: int | None = None,
                  buckets: Sequence[int] = (8, 64),
                  min_fill: float | None = None,
                  max_pending_ticks: int = 4,
                  results_cap: int | None = None,
                  cfg: PipelineConfig = PipelineConfig(),
                  device: torch.device | str = "cuda", mesh=None):
-        if kind not in ("overlap", "speaker", "wavlm"):
-            raise ValueError(f"kind must be 'overlap', 'speaker' or 'wavlm': "
-                             f"{kind!r}")
+        if kind is not None and kind != predictor.kind:
+            raise ValueError(f"kind {kind!r} is not the predictor's "
+                             f"({predictor.kind!r})")
+        field = predictor.cfg_features
+        if field is not None and getattr(cfg, field) != predictor.feat_cfg:
+            raise ValueError(f"cfg.{field} is not the predictor's feat_cfg, "
+                             f"which it featurizes with")
         self.device = torch.device(device)
         if predictor.device.type != self.device.type:
             raise ValueError(f"the predictor runs on {predictor.device}, the "
@@ -156,7 +165,6 @@ class Multiplexer:
         self.predictor = predictor
         self.dirs = dirs if isinstance(dirs, ExperimentDirs) \
             else bootstrap(dirs)
-        self.kind = kind
         if bucket is not None:
             buckets = (bucket,)
         self.buckets = tuple(sorted(int(b) for b in buckets))
@@ -175,6 +183,7 @@ class Multiplexer:
         self.max_pending_ticks = int(max_pending_ticks)
         self.results_cap = results_cap
         self.cfg = cfg
+        self._gate = predictor.serving_gate(cfg)
         self._calib_cache: Dict[bytes, tuple] = {}
         self.calib_hits = self.calib_misses = 0
         self.streams: List[Stream] = []
@@ -247,39 +256,13 @@ class Multiplexer:
                  vts: torch.Tensor, idx, states: Optional[torch.Tensor],
                  model=None) -> torch.Tensor:
         """One batch: the pre-decision chain (``states``: the detector rows
-        ``idx`` names, advanced in place), then the head (``model``: the
-        replica on the batch's device, default the predictor's); labels
-        (B,) int32 on the device, -1 where the trimmed window is silent."""
-        cfg = self.cfg
+        ``idx`` names, advanced in place), then the predictor's decision
+        step (``model``: the replica on the batch's device, default the
+        predictor's); labels (B,) int32 on the device, -1 where the trimmed
+        window is silent."""
         trimmed, n_out = preprocess_windows(
-            raws, nts, vts, cfg, states=states, idx=idx)
-        if self.kind == "speaker":
-            with span("model.features"):
-                feats, _ = speaker_feature_batch(trimmed, n_out,
-                                                 cfg.speaker_feature)
-            with span("model.forward"):
-                logits = self.predictor.apply_model(feats, model)
-            gate = cfg.speaker_feature.silent_samples
-        elif self.kind == "wavlm":
-            with span("model.features"):
-                x = wavlm_input_batch(trimmed, n_out,
-                                      self.predictor.cfg.input_eps)
-            with span("model.forward"):
-                logits = self.predictor.apply_model(x, model)
-            gate = cfg.vad.silent_samples
-        else:
-            with span("model.features"):
-                # trimmed is zero beyond n_out
-                img = overlap_model_input_cuda(
-                    trimmed[:, : cfg.overlap_feature.n_samples] / 32768.0,
-                    cfg.overlap_feature)
-            with span("model.forward"):
-                logits = self.predictor.apply_model(img, model)
-            gate = cfg.vad.silent_samples
-        with span("model.labels"):
-            labels = torch.argmax(logits, dim=-1).to(torch.int32)
-            return torch.where(n_out < gate, torch.full_like(labels, -1),
-                               labels)
+            raws, nts, vts, self.cfg, states=states, idx=idx)
+        return self.predictor.step(trimmed, n_out, self._gate, model)[0]
 
     def _program_split(self, raws: torch.Tensor, nts: torch.Tensor,
                        vts: torch.Tensor, idx) -> torch.Tensor:
@@ -339,8 +322,7 @@ class Multiplexer:
                    label_names: Optional[Dict[str, str]] = None,
                    now: Optional[datetime] = None) -> Stream:
         log = SessionLog(self.dirs.logs / f"{session_stamp(now)}-{name}.txt",
-                         kind="speaker" if self.kind == "speaker"
-                         else "overlap", start_index=1)
+                         kind=self.predictor.log_kind, start_index=1)
         noise_thresh, vad_db = self._calibrate(noise_clip_i16)
         row = self._claim_retired_row()
         stream = Stream(name, capture, log, noise_thresh=noise_thresh,
@@ -406,15 +388,6 @@ class Multiplexer:
                 [self._webrtc_states,
                  self._fresh_row.expand(n - self._webrtc_n, -1)])
         self._webrtc_n = n
-
-    def _label_name(self, stream: Stream, label: int) -> str:
-        if label < 0:
-            return "silent"
-        if stream.label_names is not None:
-            return stream.label_names.get(str(label), str(label))
-        if self.kind != "speaker":
-            return OVERLAP_LABELS[str(label)]
-        return str(label)
 
     # -- serving loop --------------------------------------------------------
     def _ensure_gather(self) -> None:
@@ -569,7 +542,8 @@ class Multiplexer:
         with phase(self.phase_seconds, "resolve_log", "mux.log"):
             ts = datetime.today()
             for i, stream in enumerate(ready):
-                name = self._label_name(stream, int(labels[i]))
+                name = self.predictor.label_name(int(labels[i]),
+                                                 stream.label_names)
                 row = stream.log.append(name, ts)
                 stream.results.append((row, name, ts))
         self.windows_resolved += len(ready)

@@ -10,10 +10,11 @@ Per 2.56 s window, at B=1:
 2. int16 -> host: per-frame webrtcvad decisions from the native engine,
    whose state lives across windows like the reference's ``Vad(3)``; or,
    with ``decision="energy"``, the calibrated energy detector on the device;
-3. hysteresis trim (``vad_trim``) -> the predictor on the device (the
-   overlap featurizer and model, WavLM's normalised window and model, or
-   the MFCC and speaker model), then the session's silent gate -> one TSV
-   log row.
+3. hysteresis trim (``vad_trim``) -> the predictor's featurizer and model
+   on the device (``inference.Predictor.score``: the overlap image,
+   WavLM's normalised window or the MFCC), then on the host the argmax of
+   the logits and the predictor's serving gate (``serving_gate(cfg)``) -> one TSV log
+   row.
 
 ``preprocess_windows`` is the same chain over a batch of windows from many
 streams, all on the windows' device: per-row denoise profiles and energy
@@ -72,9 +73,10 @@ from typing import Callable, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from mmla_audio_torch.analyze.logs import OVERLAP_LABELS, SessionLog
+from mmla_audio_torch.analyze.logs import SessionLog
 from mmla_audio_torch.core.config import PipelineConfig
 from mmla_audio_torch.data.wavio import write_wav
+from mmla_audio_torch.inference import SILENT, SpeakerPredictor
 from mmla_audio_torch.ops.denoise import (noise_threshold, quantize_i16,
                                           reduce_noise)
 from mmla_audio_torch.utils.experiment import ExperimentDirs, bootstrap
@@ -192,10 +194,14 @@ def preprocess_windows(raws_i16: torch.Tensor, noise_threshs: torch.Tensor,
 
 
 class StreamingSession:
-    """Calibration, the per-window pre-decision chain, the run loop, logs."""
+    """Calibration, the per-window pre-decision chain, the run loop, logs;
+    a subclass sets ``predictor``, whose step ``process_window`` runs."""
 
     kind = "overlap"
     log_timestamps = True
+    # the labels' names (a speaker session's enrollment); None: the
+    # predictor's own
+    speaker_id_dict: Optional[Dict[str, str]] = None
 
     @setup_span("setup.stream")
     def __init__(self, capture, dirs: ExperimentDirs | str,
@@ -363,28 +369,29 @@ class StreamingSession:
                 on_result(idx, label, prob)
         return True
 
+    def _score(self, samples: torch.Tensor, n: torch.Tensor):
+        return self.predictor.score(samples, n)
+
     def process_window(self, window_i16: np.ndarray):
-        raise NotImplementedError
+        """One window -> (label name, probs as numpy)."""
+        trimmed, n_out = self.preprocess(window_i16)
+        pred = self.predictor
+        with span("session.predict"):
+            logits, probs = self._score(
+                trimmed[None], torch.tensor([n_out], dtype=torch.int32,
+                                            device=self.device))
+            out = torch.cat([logits[0], probs[0]])
+        with span("session.probs_fetch"):
+            logits, probs = np.split(out.cpu().numpy(), 2)    # one fetch
+        label = SILENT if n_out < pred.serving_gate(self.cfg) else \
+            int(np.argmax(logits))
+        return pred.label_name(label, self.speaker_id_dict), probs
 
 
 class OverlapSession(StreamingSession):
     def __init__(self, predictor, capture, dirs, **kw):
         super().__init__(capture, dirs, device=predictor.device, **kw)
         self.predictor = predictor
-
-    def process_window(self, window_i16: np.ndarray):
-        """One window -> (label name, probs as numpy)."""
-        trimmed, n_out = self.preprocess(window_i16)
-        with span("session.predict"):
-            _, probs = self.predictor.predict(
-                trimmed[None], torch.tensor([n_out], dtype=torch.int32))
-        with span("session.probs_fetch"):
-            probs = probs[0].cpu().numpy()
-        # the session's gate (cfg.vad.silent_samples), not the predictor's
-        label = -1 if n_out < self.cfg.vad.silent_samples \
-            else int(np.argmax(probs))
-        name = "silent" if label < 0 else OVERLAP_LABELS[str(label)]
-        return name, probs
 
 
 class WavLMSession(OverlapSession):
@@ -406,20 +413,6 @@ class SpeakerSession(StreamingSession):
         super().__init__(capture, dirs, device=predictor.device, **kw)
         self.predictor = predictor
         self.speaker_id_dict = speaker_id_dict or {}
-
-    def process_window(self, window_i16: np.ndarray):
-        """One window -> (speaker name, probs as numpy)."""
-        trimmed, n_out = self.preprocess(window_i16)
-        with span("session.predict"):
-            logits, probs = self.predictor.score(
-                trimmed[None], torch.tensor([n_out], dtype=torch.int32))
-        with span("session.probs_fetch"):
-            probs = probs[0].cpu().numpy()
-            label = -1 if n_out < self.cfg.speaker_feature.silent_samples \
-                else int(torch.argmax(logits[0]))
-        name = "silent" if label < 0 else \
-            self.speaker_id_dict.get(str(label), str(label))
-        return name, probs
 
     # -- registration ---------------------------------------------------------
     def register_speaker(self, name: str,
@@ -458,7 +451,6 @@ class SpeakerSession(StreamingSession):
         validation accuracy.  Training and the new predictor take the
         current predictor's device and precision."""
         from mmla_audio_torch.data.corpus import featurize_corpus
-        from mmla_audio_torch.inference import SpeakerPredictor
         from mmla_audio_torch.train.checkpoints import (save_feature_cache,
                                                         save_variables)
         from mmla_audio_torch.train.transfer import TransferLearner

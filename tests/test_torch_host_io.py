@@ -93,10 +93,12 @@ def test_remove_stream_close_log(tmp_path, close_log):
     """``remove_stream`` closes the retired stream's handle unless
     ``close_log=False``; a window still in flight resolves to its log
     either way."""
+    from mmla_audio_torch.inference import Predictor
     from mmla_audio_torch.streaming.multiplex import Multiplexer
     from tests.test_torch_multiplex import _noise, _Windows
 
-    class _Pred:
+    class _Pred(Predictor):
+        kind = "overlap"
         device = torch.device("cpu")
 
     mux = Multiplexer(_Pred(), tmp_path / "exp", device="cpu")

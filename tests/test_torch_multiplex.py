@@ -23,9 +23,11 @@ from mmla_audio_tpu.inference import SpeakerPredictor as JaxSpeakerPredictor
 from mmla_audio_tpu.streaming.multiplex import Multiplexer as JaxMultiplexer
 from mmla_audio_tpu.vad.webrtc import webrtc_init as jax_webrtc_init
 from mmla_audio_tpu.vad.webrtc import webrtc_vad_frames
-from mmla_audio_torch.analyze.logs import parse_log
 from mmla_audio_torch.core import config as port_config
-from mmla_audio_torch.inference import OverlapPredictor, SpeakerPredictor
+from mmla_audio_torch.analyze.logs import (OVERLAP_HEADER, SPEAKER_HEADER,
+                                           parse_log)
+from mmla_audio_torch.inference import (OverlapPredictor, SpeakerPredictor,
+                                        WavLMPredictor)
 from mmla_audio_torch.ops.denoise import quantize_i16, reduce_noise
 from mmla_audio_torch.params import (overlap_state_dict_from_jax,
                                      speaker_state_dict_from_jax)
@@ -34,6 +36,7 @@ from mmla_audio_torch.streaming.capture import (ArraySource, CaptureThread,
                                                 PrefilledCapture)
 from mmla_audio_torch.streaming.multiplex import Multiplexer
 from mmla_audio_torch.streaming.session import (OverlapSession,
+                                                SpeakerSession, WavLMSession,
                                                 preprocess_windows)
 from mmla_audio_torch.vad import webrtc
 from tests.conftest import synth_speech_i16
@@ -101,6 +104,18 @@ def speaker():
                 speaker_state_dict_from_jax(tree, as_port(SPEAKER), 2),
                 as_port(SPEAKER), head_units=2, sigmoid_head=True,
                 device="cpu"))
+
+
+@pytest.fixture(scope="module")
+def wavlm():
+    """The tiny WavLM of ``tests/test_torch_wavlm.py``, the port's only."""
+    from tests.test_torch_wavlm import TINY, seeded_state_dict
+
+    return None, WavLMPredictor(seeded_state_dict(), TINY, device="cpu")
+
+
+SESSIONS = {"overlap": OverlapSession, "speaker": SpeakerSession,
+            "wavlm": WavLMSession}
 
 
 def _conversations():
@@ -293,25 +308,65 @@ def test_multiplexer_overlap_streams(overlap, tmp_path):
     assert len(list((tmp_path / "experiment" / "logs").glob("*.txt"))) == 3
 
 
-def test_matches_single_session(overlap, tmp_path):
-    """The batched chain equals the single-stream session, labels and the
-    detector state (the session's native engine), window for window."""
-    pred = overlap[1]
+@pytest.mark.parametrize("kind", ["overlap", "speaker", "wavlm"])
+def test_matches_single_session(kind, request, tmp_path):
+    """The batched chain and decision step equal the single-stream session
+    of each kind, labels and the detector state (the session's native
+    engine), window for window."""
+    pred = request.getfixturevalue(kind)[1]
     convs, noises = _conversations(), [_noise(seed=s) for s in range(3)]
-    mux = Multiplexer(pred, tmp_path / "mux", kind="overlap", bucket=2,
+    mux = Multiplexer(pred, tmp_path / "mux", kind=kind, bucket=2,
                       cfg=PORT_CFG, device="cpu")
     for s, (ws, noise) in enumerate(zip(convs, noises)):
         mux.add_stream(f"s{s}", PrefilledCapture(np.concatenate(ws)), noise)
     assert mux.run_until_exhausted() == 9
     for s, stream in enumerate(mux.streams):
         cap = PrefilledCapture(np.concatenate(convs[s]))
-        sess = OverlapSession(pred, cap, tmp_path / f"single{s}",
+        sess = SESSIONS[kind](pred, cap, tmp_path / f"single{s}",
                               cfg=PORT_CFG)
         sess.set_noise_profile(noises[s])
         single = [r[1] for r in sess.run(max_windows=3)]
         assert [r[1] for r in stream.results] == single
         np.testing.assert_array_equal(
             mux._webrtc_states[stream.index].numpy(), sess._vad.state_array)
+
+
+@pytest.mark.parametrize("kind", ["overlap", "speaker", "wavlm"])
+def test_kind_only_cross_checks_the_predictor(kind, request, tmp_path):
+    """``kind=`` selects nothing: naming another kind than the predictor's
+    raises, and left out the multiplexer serves the predictor's kind, its
+    log schema and label names."""
+    pred = request.getfixturevalue(kind)[1]
+    for other in sorted({"overlap", "speaker", "wavlm"} - {kind}):
+        with pytest.raises(ValueError, match="kind"):
+            Multiplexer(pred, tmp_path / other, kind=other, device="cpu")
+    mux = Multiplexer(pred, tmp_path / "own", bucket=2, cfg=PORT_CFG,
+                      device="cpu")
+    stream = mux.add_stream("s", PrefilledCapture(
+        synth_speech_i16(WIN, seed=5)), _noise(seed=1))
+    assert mux.run_until_exhausted() == 1
+    assert stream.log.header == (SPEAKER_HEADER if kind == "speaker"
+                                 else OVERLAP_HEADER)
+    names = ("0", "1") if kind == "speaker" else \
+        ("non-overlapped", "overlapped")
+    assert stream.results[0][1] in names + ("silent",)
+
+
+@pytest.mark.parametrize("kind", ["overlap", "speaker", "wavlm"])
+def test_cfg_features_must_be_the_predictors(kind, request, tmp_path):
+    """The multiplexer featurizes with the predictor's ``feat_cfg``: a
+    ``cfg`` whose section of those features differs is refused, so one
+    config decides the features and the gate; a section the predictor does
+    not read (all of them for WavLM) may differ."""
+    pred = request.getfixturevalue(kind)[1]
+    for field in ("overlap_feature", "speaker_feature"):
+        cfg = dataclasses.replace(PORT_CFG, **{field: dataclasses.replace(
+            getattr(PORT_CFG, field), win_ms=30.0)})
+        if field == pred.cfg_features:
+            with pytest.raises(ValueError, match=field):
+                Multiplexer(pred, tmp_path / field, cfg=cfg, device="cpu")
+        else:
+            Multiplexer(pred, tmp_path / field, cfg=cfg, device="cpu")
 
 
 def test_multiplexer_speaker_kind(speaker, tmp_path):

@@ -13,6 +13,7 @@ import torch.nn.functional as F
 
 from mmla_audio_torch.analyze.logs import OVERLAP_LABELS
 from mmla_audio_torch.core import config as port_config
+from mmla_audio_torch import inference
 from mmla_audio_torch.inference import WavLMPredictor
 from mmla_audio_torch.models.wavlm import (WavLMForSequenceClassification,
                                            relative_position_bucket,
@@ -24,7 +25,6 @@ from mmla_audio_torch.ops.cuda_conv_encoder import (conv_args, conv_route,
                                                     round_tf32,
                                                     wavlm_conv,
                                                     wavlm_conv_plain)
-from mmla_audio_torch.streaming import multiplex as mx
 from mmla_audio_torch.streaming.capture import PrefilledCapture
 from mmla_audio_torch.streaming.multiplex import Multiplexer
 from tests import wavlm_reference as ref
@@ -173,14 +173,14 @@ def test_multiplexer_labels_are_the_references(tmp_path, monkeypatch):
     mux = Multiplexer(pred, tmp_path, kind="wavlm", bucket=4,
                       cfg=port_config.PipelineConfig(), device="cpu")
     seen = []
-    real = mx.wavlm_input_batch
+    real = inference.wavlm_input_batch
 
     def kept(trimmed, n, *a):
         seen.append(([s.name for s in mux._pending_streams], trimmed.clone(),
                      n.clone()))
         return real(trimmed, n, *a)
 
-    monkeypatch.setattr(mx, "wavlm_input_batch", kept)
+    monkeypatch.setattr(inference, "wavlm_input_batch", kept)
     noise = (np.random.RandomState(1).randn(160000) * 15).astype(np.int16)
     streams = [mux.add_stream(f"s{s}", PrefilledCapture(np.concatenate(
         [synth_speech_i16(WIN, seed=10 * s + w) for w in range(2)])), noise)
