@@ -18,8 +18,12 @@ sends each label back to its stream's log.
   until the top bucket is that full, a tick gathers nothing new, or the
   oldest has waited ``max_pending_ticks`` ticks.
 * **One-tick pipeline.** A batch is dispatched without waiting and its
-  labels are fetched on the NEXT tick, after that tick's gather, so host
-  staging and device work overlap.  The label fetch is the pipeline's only
+  labels are resolved on the NEXT tick, after that tick's gather and
+  dispatch.  At dispatch the labels are copied into one of two pinned
+  buffers (flipped with the staging) and a CUDA event is recorded after
+  the copy; the resolve waits on that event alone, so the batch dispatched
+  just before it keeps the card busy under the host's log appends, the
+  next gather and the next stage.  That wait is the pipeline's only
   blocking wait on the card.
 * **Staging.** Two pinned int16 matrices ``(top bucket, window)`` (and two
   of the per-row thresholds), flipped every dispatch and copied to the card
@@ -38,10 +42,11 @@ sends each label back to its stream's log.
   replica of the model.  The stacked detector state stays on the first
   device: a block gathers its rows, advances them on its device and writes
   them back (the blocks' rows are disjoint); the labels come back to the
-  first device for the one blocking fetch.  A one-device mesh is the
-  unsplit path, launch for launch.  A split batch's labels and detector
-  rows equal the unsplit batch's: every stage of the program is
-  row-independent, the denoise included (D1 and D2 are batch-invariant).
+  first device, whose stream copies them to the pinned buffer.  A
+  one-device mesh is the unsplit path, launch for launch.  A split batch's
+  labels and detector rows equal the unsplit batch's: every stage of the
+  program is row-independent, the denoise included (D1 and D2 are
+  batch-invariant).
 
 Retention (a long-lived host must stay bounded; the TSV logs are always
 the complete record): ``results_cap`` bounds each stream's in-memory
@@ -63,7 +68,9 @@ reopens).  A span is recorded only while a ``torch.profiler`` runs (one
 flag check otherwise); ``phase_seconds`` always counts.  ``add_stream`` is
 the set-up span ``setup.stream``, a calibration-cache miss inside it
 ``setup.calibrate``; ``calib_hits`` and ``calib_misses`` count the cache's
-lookups.
+lookups.  ``fetch_ready`` and ``fetch_waited`` count the resolves whose
+batch had already finished when the resolve asked (its event done; every
+resolve on the CPU) and those that waited for it.
 """
 
 from __future__ import annotations
@@ -72,7 +79,7 @@ import hashlib
 import time
 from collections import deque
 from datetime import datetime
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -123,6 +130,15 @@ class Stream:
         self.done = False
         self.retiring = False               # remove_stream called
         self.archive = True                 # keep the Stream in .retired
+
+
+class _Fetch(NamedTuple):
+    """A dispatched batch's labels: ``labels`` on the device (kept alive
+    until the resolve), ``host`` their pinned copy and ``event`` recorded
+    after that copy; on the CPU ``host`` is ``labels`` and ``event`` None."""
+    labels: torch.Tensor
+    host: torch.Tensor
+    event: Optional[torch.cuda.Event]
 
 
 class Multiplexer:
@@ -199,7 +215,7 @@ class Multiplexer:
         self._fresh_row = webrtc_init(1, self.device) \
             if self._use_webrtc else None
         self._rr = 0                            # round-robin gather offset
-        self._inflight = None                   # (ready streams, labels)
+        self._inflight = None                   # (ready streams, _Fetch)
         pinned = self.device.type == "cuda"
         n_win = cfg.audio.window_samples
         self._fill = [torch.zeros((self.bucket, n_win), dtype=torch.int16,
@@ -207,6 +223,10 @@ class Multiplexer:
         self._vts = [torch.zeros((self.bucket,), dtype=torch.float32,
                                  pin_memory=pinned) for _ in range(2)]
         self._nts = None                        # 2 x (top bucket, K), lazily
+        # each dispatch's labels, copied behind its program (CUDA only)
+        self._labels_host = [torch.zeros((self.bucket,), dtype=torch.int32,
+                                         pin_memory=True)
+                             for _ in range(2)] if pinned else None
         self._copied: list = [None, None]       # CUDA event after each H2D
         self._flip = 0
         self._pending_streams: List[Stream] = []
@@ -217,12 +237,13 @@ class Multiplexer:
         #   gather        ring polls + window pops into the staging rows
         #   stage         padding and per-row threshold staging
         #   dispatch      non-blocking copies + enqueuing the program
-        #   resolve_fetch the blocking fetch of the previous batch's labels
+        #   resolve_fetch the wait for the previous batch's own labels
         #   resolve_log   per-stream TSV log appends
         # Host-side cost = gather + stage + resolve_log.
         self.phase_seconds = {"gather": 0.0, "stage": 0.0, "dispatch": 0.0,
                               "resolve_fetch": 0.0, "resolve_log": 0.0}
         self.windows_resolved = 0
+        self.fetch_ready = self.fetch_waited = 0
 
     def _check_mesh(self, mesh) -> None:
         if mesh.group is not None:
@@ -500,8 +521,8 @@ class Multiplexer:
 
     def _dispatch_staged(self):
         """Enqueue the pending rows as one batch (the smallest sufficient
-        bucket) without waiting, then flip the staging buffers.  Returns
-        (ready streams, labels on the device)."""
+        bucket) and the copy of its labels to pinned memory without waiting,
+        then flip the staging buffers.  Returns (ready streams, _Fetch)."""
         with phase(self.phase_seconds, "stage", "mux.stage"):
             self._await_staging()
             ready = self._pending_streams
@@ -529,16 +550,32 @@ class Multiplexer:
                                    self._webrtc_states) \
                 if self._replicas is None else \
                 self._program_split(raws, nts, vts, idx)
+            if self.device.type == "cuda":
+                # the slot is written again two dispatches on, after this
+                # batch's resolve
+                host = self._labels_host[f][:bucket]
+                host.copy_(labels, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(labels.device))
+                fetch = _Fetch(labels, host, event)
+            else:
+                fetch = _Fetch(labels, labels, None)
         self._pending_streams = []
         self._pending_ticks = 0
         self._flip ^= 1
-        return ready, labels
+        return ready, fetch
 
     def _resolve(self, inflight) -> int:
-        """Fetch a dispatched batch's labels and append them to the logs."""
-        ready, labels = inflight
+        """Wait for a dispatched batch's own labels (its event: nothing
+        enqueued after it) and append them to the logs."""
+        ready, fetch = inflight
         with phase(self.phase_seconds, "resolve_fetch", "mux.fetch"):
-            labels = labels.cpu().numpy()       # the one blocking fetch
+            if fetch.event is None or fetch.event.query():
+                self.fetch_ready += 1
+            else:
+                self.fetch_waited += 1
+                fetch.event.synchronize()       # the one blocking wait
+            labels = fetch.host.numpy()
         with phase(self.phase_seconds, "resolve_log", "mux.log"):
             ts = datetime.today()
             for i, stream in enumerate(ready):
@@ -558,7 +595,9 @@ class Multiplexer:
         """One serving step: gather ready windows, dispatch them (when the
         top bucket is ``min_fill`` full, nothing new arrived, or the oldest
         has waited ``max_pending_ticks`` ticks), then resolve the PREVIOUS
-        tick's batch.  Returns the windows logged now."""
+        tick's batch, waiting for that batch alone: the one just dispatched
+        runs on while this tick logs and the next gathers and stages.
+        Returns the windows logged now."""
         new = self._gather(limit=self.bucket - len(self._pending_streams))
         self._pending_streams.extend(new)
         prev, self._inflight = self._inflight, None
@@ -573,7 +612,8 @@ class Multiplexer:
 
     def flush(self) -> int:
         """Resolve the batch in flight and drain the pending windows (call
-        when the serving loop stops)."""
+        when the serving loop stops); each drained batch is resolved as soon
+        as it is dispatched, so its wait covers the whole batch."""
         total = 0
         prev, self._inflight = self._inflight, None
         if prev is not None:

@@ -519,6 +519,60 @@ def test_multiplexer_dispatch_does_not_wait_for_the_card(device, tmp_path):
     assert mux.tick() == 2 and mux.flush() == 2
 
 
+def test_multiplexer_resolves_a_batch_on_its_own_event(device, tmp_path):
+    """A tick resolves the previous batch N by N's own event: with a long
+    sleep kernel queued after N and batch N+1 dispatched behind the sleep,
+    ``tick()`` logs N's labels and returns while the sleep still runs, so
+    neither the dispatch nor the fetch waited for work enqueued after N.
+    ``flush()`` logs N+1; the labels equal a CPU multiplexer's."""
+    import dataclasses
+
+    from mmla_audio_torch.core.config import PipelineConfig
+    from mmla_audio_torch.streaming.capture import PrefilledCapture
+    from mmla_audio_torch.streaming.multiplex import Multiplexer
+
+    mcfg = OverlapModelConfig(stage_filters=(8, 8, 8), lstm_units=8,
+                              input_scale=1 / 255)
+    cfg = dataclasses.replace(PipelineConfig(), overlap_model=mcfg)
+    sd = keras_init_(OverlapResBLSTM(mcfg),
+                     torch.Generator().manual_seed(0)).state_dict()
+    audio = [(_audio(1, 4 * 40960, seed=s)[0] * 20000).astype(np.int16)
+             for s in range(2)]
+    audio[0][3 * 40960:] = 0           # silent windows tell the rows and
+    audio[1][2 * 40960: 3 * 40960] = 0     # batches N, N+1 apart
+    noise = (np.random.RandomState(3).randn(160000) * 15).astype(np.int16)
+    labels = {}
+    for dev in (device, torch.device("cpu")):
+        pred = OverlapPredictor(sd, mcfg, device=dev,
+                                matmul_precision="highest")
+        mux = Multiplexer(pred, tmp_path / dev.type, bucket=2, cfg=cfg,
+                          device=dev)
+        streams = [mux.add_stream(f"s{i}", PrefilledCapture(a), noise)
+                   for i, a in enumerate(audio)]
+        for _ in range(2):             # warm: caches, plans; graphs
+            assert mux.tick() == 0 and mux.flush() == 2
+        assert mux.tick() == 0                       # dispatch N
+        if dev.type == "cuda":
+            mux._inflight[1].event.synchronize()     # N done, its copy too
+            ready, waited = mux.fetch_ready, mux.fetch_waited
+            torch.cuda._sleep(300_000_000)           # ~0.15 s at 1.98 GHz
+            slept = torch.cuda.Event()
+            slept.record()
+        assert mux.tick() == 2                       # dispatch N+1, log N
+        assert [len(s.results) for s in streams] == [3, 3]
+        if dev.type == "cuda":
+            assert not slept.query()
+            assert not torch.cuda.current_stream().query()
+            assert (mux.fetch_ready, mux.fetch_waited) == (ready + 1,
+                                                           waited)
+        assert mux.flush() == 2
+        assert [len(s.results) for s in streams] == [4, 4]
+        labels[dev.type] = [[r[1] for r in s.results] for s in streams]
+    assert labels["cpu"][0][3] == labels["cpu"][1][2] == "silent" \
+        != labels["cpu"][0][2]
+    assert labels["cuda"] == labels["cpu"]
+
+
 # -- the denoise kernels: D1 (a real FFT a frame) and D2 (banded smoothing) --
 
 def _denoise_input(batch, seed, n=40960):

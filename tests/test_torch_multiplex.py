@@ -272,9 +272,9 @@ def _spy_dispatch(mux):
     orig = mux._dispatch_staged
 
     def spy():
-        ready, labels = orig()
-        dispatched.append((len(ready), labels.shape[0]))
-        return ready, labels
+        ready, fetch = orig()
+        dispatched.append((len(ready), fetch.labels.shape[0]))
+        return ready, fetch
 
     mux._dispatch_staged = spy
     return dispatched
@@ -292,6 +292,69 @@ def test_phase_counters_account_host_side_cost(overlap, tmp_path):
     mux.reset_phase_counters()
     assert mux.windows_resolved == 0
     assert all(v == 0.0 for v in mux.phase_seconds.values())
+
+
+@pytest.mark.parametrize("kind", ["overlap", "speaker", "wavlm"])
+def test_each_resolve_reads_its_own_batch(kind, request, tmp_path):
+    """Every dispatched batch is resolved once, counted as ready or waited
+    (on the CPU always ready), and each stream logs its labels in order:
+    the labels its batches' programs returned, row for row."""
+    pred = request.getfixturevalue(kind)[1]
+    convs, noises = _conversations(), [_noise(seed=s) for s in range(3)]
+    mux = Multiplexer(pred, tmp_path / "mux", bucket=2, cfg=PORT_CFG,
+                      device="cpu")
+    for s, (ws, noise) in enumerate(zip(convs, noises)):
+        mux.add_stream(f"s{s}", PrefilledCapture(np.concatenate(ws)), noise)
+    batches = []
+    orig = mux._dispatch_staged
+
+    def spy():
+        ready, fetch = orig()
+        batches.append((list(ready), fetch.labels.clone()))
+        return ready, fetch
+
+    mux._dispatch_staged = spy
+    assert mux.run_until_exhausted() == 9
+    assert mux._inflight is None
+    assert (mux.fetch_ready, mux.fetch_waited) == (len(batches), 0)
+    want = {id(s): [] for s in mux.streams}
+    for ready, labels in batches:
+        for i, stream in enumerate(ready):
+            want[id(stream)].append(pred.label_name(int(labels[i]),
+                                                    stream.label_names))
+    for stream in mux.streams:
+        assert [r[1] for r in stream.results] == want[id(stream)]
+        assert [r[:2] for r in parse_log(stream.log.path)] == \
+            [(i + 1, name) for i, name in enumerate(want[id(stream)])]
+
+
+def test_inflight_record_sliced_logs_only_those_streams(overlap, tmp_path,
+                                                        monkeypatch):
+    """The in-flight record is ``(ready streams, fetch)``: resolving it with
+    its streams sliced, as ``perfbench.faults.half_batch`` does, logs only
+    those streams; the record is None whenever nothing is in flight."""
+    from perfbench.faults import FAULTS
+
+    mux = Multiplexer(overlap[1], tmp_path / "experiment", buckets=(4,),
+                      cfg=PORT_CFG, device="cpu")
+    for s in range(3):
+        mux.add_stream(f"s{s}", PrefilledCapture(np.concatenate(
+            [synth_speech_i16(WIN, seed=40 + 2 * s + w) for w in range(2)])),
+            _noise(seed=s))
+    assert mux._inflight is None and mux.tick() == 0
+    record = mux._inflight
+    assert isinstance(record, tuple) and len(record) == 2
+    assert record[0] == mux.streams[:3] and record[1].labels.shape == (4,)
+    FAULTS["half_batch"](monkeypatch)
+    assert mux.tick() == 2                      # (3 + 1) // 2 of the batch
+    assert [len(s.results) for s in mux.streams] == [1, 1, 0]
+    logged = record[0][:2] + mux._inflight[0][:2]   # the gather rotates
+    assert mux.flush() == 2
+    assert mux._inflight is None
+    want = [sum(s is t for t in logged) for s in mux.streams]
+    assert [len(s.results) for s in mux.streams] == want != [2, 2, 2]
+    assert [len(parse_log(s.log.path)) for s in mux.streams] == want
+    assert mux.fetch_ready + mux.fetch_waited == 2
 
 
 def test_multiplexer_overlap_streams(overlap, tmp_path):
