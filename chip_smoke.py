@@ -62,6 +62,15 @@ per source, all at once), then:
    CUDA events, the plain version (TF32 off) and the path E1 replaced
    (cuDNN, transposes, aten's LayerNorm and GELU; the library yardstick)
    timed beside its bound, and at B = 64 each layer alone;
+2d. kernel A2 (``csrc/conformer_attention.cu``, the Conformer's attention
+   with Transformer-XL relative positions): against its plain version in
+   float64 at T = 127, B = 1, 8, 64 and T = 511, B = 8, one TF32 pass and
+   3xTF32 within ``A2_RTOL``, the plain version in bf16 above the TF32
+   limit; the kernel alone, by CUDA events, the plain version and SDPA's
+   memory-efficient path with the positional term materialised (the library
+   yardstick) timed; the full-width Conformer forward at B = 1, 8, 64, A2's
+   share of it and its launches (the kernels line's count of A2), the
+   position tables built once;
 3. predictor: the full-width default ``OverlapModelConfig()`` with weights
    from a seeded numpy tree through ``params.py``; B=8 on the card vs the
    same predictor on the CPU, TF32 off;
@@ -4433,6 +4442,178 @@ def phase_conv_encoder(device) -> dict:
     return out
 
 
+# -- kernel A2: the Conformer's relative-position attention -----------------
+
+A2_BATCHES = (1, 8, 64)
+# A2's error against the float64 plain version, of max |ref|: one TF32
+# pass (the configuration's precision) and 3xTF32 (TF32 not allowed)
+A2_RTOL = {"tf32": 2e-3, "split": 2e-5}
+
+
+def a2_operands(batch: int, T: int, device, seed: int) -> tuple:
+    """Seeded q, k, v as the model hands them to A2 (views of one (B, T, 3,
+    H, 64) tensor), ``pos_bias_u`` and ``pos_bias_v`` at Xavier's scale, a
+    position table of the scale of q and key lengths from 1 to T."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    qkv = 1.3 * torch.randn(batch, T, 3, A1_HEADS, A1_HEAD, generator=g,
+                            device=device)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    u, w = (0.16 * torch.randn(A1_HEADS, A1_HEAD, generator=g, device=device)
+            for _ in range(2))
+    p = 1.3 * torch.randn(A1_HEADS, 2 * T - 1, A1_HEAD, generator=g,
+                          device=device)
+    lens = torch.randint(max(1, T // 4), T + 1, (batch,), generator=g,
+                         device=device, dtype=torch.int32)
+    lens[0] = T
+    if batch > 1:
+        lens[1] = 1
+    return q, k, v, u, w, p, lens
+
+
+def a2_work(batch: int, T: int) -> tuple:
+    """(FLOPs, bytes) of one launch (perfbench/counts/conformer.py's)."""
+    from perfbench.counts.conformer import a2_work as work
+
+    return work(batch, T, A1_HEADS, A1_HEAD)
+
+
+def conformer_state_dict(cfg, device, seed: int = 5) -> dict:
+    """Seeded full-width Conformer weights on ``device``, drawn as
+    ``wavlm_state_dict`` draws WavLM's; BatchNorm running variances in
+    [0.5, 2), ``pos_bias_u`` and ``pos_bias_v`` at 0.5 N(0, 1)."""
+    from mmla_audio_torch.models.conformer import (
+        Wav2Vec2ConformerForSequenceClassification)
+
+    with torch.device("meta"):
+        model = Wav2Vec2ConformerForSequenceClassification(cfg)
+    g = torch.Generator(device=device).manual_seed(seed)
+    sd = {}
+    for name, p in model.state_dict().items():
+        if name.endswith("num_batches_tracked"):
+            sd[name] = torch.zeros((), dtype=torch.int64, device=device)
+            continue
+        z = torch.randn(p.shape, generator=g, device=device)
+        if name.endswith("running_var"):
+            sd[name] = 0.5 + 1.5 * torch.rand(p.shape, generator=g,
+                                              device=device)
+        elif name.endswith(("layer_norm.weight", "batch_norm.weight")):
+            sd[name] = 1.0 + 0.2 * z
+        elif name.endswith(("pos_bias_u", "pos_bias_v")):
+            sd[name] = 0.5 * z
+        else:
+            sd[name] = 0.1 * z if p.ndim == 1 else z / (p[0].numel() ** 0.5)
+    return sd
+
+
+def phase_conformer_attention(device) -> dict:
+    """A2 against its plain version in float64 at T = 127 (and 511), B = 1,
+    8, 64: one TF32 pass under A2_RTOL["tf32"], 3xTF32 (TF32 off) under
+    A2_RTOL["split"], the plain version in bf16 above the TF32 limit;
+    timings of the kernel alone and by CUDA events, the plain version
+    (fp32, TF32 off), and SDPA's memory-efficient path with the positional
+    term materialised as its mask (the library yardstick; the port never
+    calls it); then the full-width Conformer forward at B = 1, 8, 64 by
+    CUDA events (TF32 allowed), A2's share of it and its launches."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from mmla_audio_torch.core.config import ConformerConfig
+    from mmla_audio_torch.inference import ConformerPredictor
+    from mmla_audio_torch.models.wavlm import wavlm_input_batch
+    from mmla_audio_torch.ops.cuda_conformer_attention import (
+        conformer_attention, conformer_attention_plain)
+    from mmla_audio_torch.precision import fp32_policy
+
+    def library(q, k, v, u, w, p, lens):
+        B, H, T, d = q.shape
+        pos = torch.arange(T, device=q.device)
+        bd = (q + w[:, None]) @ p.transpose(-1, -2)
+        mask = bd.gather(-1, (pos[None, :] - pos[:, None] + T - 1).expand(
+            B, H, T, T)) * d ** -0.5
+        mask = mask.masked_fill((pos[None, :] >= lens[:, None])[:, None,
+                                                                None],
+                                float("-inf"))
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(q + u[:, None], k, v,
+                                                  attn_mask=mask)
+
+    out = {}
+    for T in (A1_FRAMES, 511):
+        for batch in A2_BATCHES if T == A1_FRAMES else (8,):
+            ops = a2_operands(batch, T, device, seed=batch + T)
+            ref = conformer_attention_plain(*(
+                o.double() if o.is_floating_point() else o for o in ops))
+            errs = {}
+            for mode, tf32 in (("tf32", True), ("split", False)):
+                with torch.no_grad(), fp32_policy(tf32):
+                    before = conformer_attention.launches_split
+                    errs[mode] = a1_error(conformer_attention(*ops), ref)
+                    if conformer_attention.launches_split - before != \
+                            (not tf32):
+                        raise AssertionError(f"A2 {mode}: not its kernel")
+                if errs[mode] > A2_RTOL[mode]:
+                    raise AssertionError(f"A2 T={T} B={batch} {mode}: error "
+                                         f"{errs[mode]:.3g} > {A2_RTOL[mode]}")
+            errs["bf16"] = a1_error(conformer_attention_plain(*(
+                o.to(torch.bfloat16) if o.is_floating_point() else o
+                for o in ops)), ref)
+            if errs["bf16"] <= A2_RTOL["tf32"]:
+                raise AssertionError(f"A2 T={T} B={batch}: bf16's error "
+                                     f"{errs['bf16']:.3g} within the TF32 "
+                                     f"limit")
+            with torch.no_grad(), fp32_policy(True):
+                alone = queued_ms(conformer_attention, *ops)
+                kern = time_ms(conformer_attention, *ops)
+                lib = time_ms(library, *ops)
+            with torch.no_grad(), fp32_policy(False):
+                plain = time_ms(conformer_attention_plain, *ops)
+            flop, nbytes = a2_work(batch, T)
+            bnd = max(nbytes / HBM_BYTES_S, flop / TF32_FLOP_S) * 1e3
+            out[(T, batch)] = dict(alone_ms=alone, ms=kern, plain_ms=plain,
+                                   library_ms=lib, bound_ms=bnd, **errs)
+            log(f"[A2] T={T} B={batch}: error of max |ref| TF32 "
+                f"{errs['tf32']:.3g} (limit {A2_RTOL['tf32']}), 3xTF32 "
+                f"{errs['split']:.3g} (limit {A2_RTOL['split']}), bf16 plain "
+                f"{errs['bf16']:.3g}; kernel alone {alone:.4f} ms, by events "
+                f"{kern:.4f} ms, plain {plain:.4f} ms, SDPA "
+                f"memory-efficient with the positional term materialised "
+                f"{lib:.4f} ms; bound {bnd:.4f} ms (bytes "
+                f"{nbytes / 1e6:.1f} MB, {flop / 1e9:.2f} GFLOP), "
+                f"{bnd / alone * 100:.1f} % of it")
+    cfg = ConformerConfig()
+    pred = ConformerPredictor(conformer_state_dict(cfg, device), cfg,
+                              device=device)
+    rng = np.random.RandomState(9)
+    launches = 0
+    for batch in A2_BATCHES:
+        x = torch.from_numpy(rng.randn(batch, 40960).astype(np.float32) * 3e3)
+        n = torch.full((batch,), 40960, dtype=torch.int32)
+        with torch.no_grad():
+            xin = wavlm_input_batch(x.to(device), n.to(device))
+            before = conformer_attention.launches
+            pred.apply_model(xin)
+            torch.cuda.synchronize()
+            if conformer_attention.launches - before != \
+                    cfg.num_hidden_layers:
+                raise AssertionError("Conformer forward: not one A2 launch a "
+                                     "layer")
+            launches += conformer_attention.launches - before
+            ms = time_ms(pred.apply_model, xin, reps=3 if batch > 8 else 10,
+                         rounds=3)
+        share = out[(A1_FRAMES, batch)]["ms"] * cfg.num_hidden_layers / ms
+        out[("forward", batch)] = ms
+        log(f"[Conformer] full width, B={batch}: forward {ms:.3f} ms by CUDA "
+            f"events ({batch / ms * 1e3:.0f} windows/s), A2 "
+            f"{share * 100:.1f} % of it (24 launches at its own time), "
+            f"position tables built {pred.model.table_builds} time(s), peak "
+            f"memory {torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
+    if pred.model.table_builds != 1:
+        raise AssertionError(f"Conformer: position tables built "
+                             f"{pred.model.table_builds} times at one length")
+    out["launches"] = launches
+    return out
+
+
 # -- phase 10e: WavLM Large through the multiplexer ---------------------------
 
 WAVLM_STREAMS, WAVLM_WINDOWS, WAVLM_CPU_ROWS = 64, 2, 8
@@ -4601,6 +4782,7 @@ def main() -> int:
     block = phase_block(device)
     attention = phase_attention(device)
     conv_encoder = phase_conv_encoder(device)
+    conformer_attention = phase_conformer_attention(device)
 
     cfg = PipelineConfig()
     mcfg: OverlapModelConfig = cfg.overlap_model
@@ -4720,6 +4902,9 @@ def main() -> int:
               wavlm_launches["a1"], attention[(A1_FRAMES, 64)]),
         entry("wavlm_conv", "wavlm_conv.cu", None, wavlm_launches["e1"],
               conv_encoder[E1_BATCHES[-1]]),
+        entry("conformer_attention", "conformer_attention.cu", None,
+              conformer_attention["launches"],
+              conformer_attention[(A1_FRAMES, 64)]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -87,6 +87,10 @@ CUDA_KERNELS = {
         {"wavlm_conv_samples_launch": [_P, _LL] + [_P] * 5 + [_I] * 6
          + [_F, _P],
          "wavlm_conv_gemm_launch": [_P] * 6 + [_I] * 7 + [_F, _I, _P]}),
+    "conformer_attention": (
+        _PKG / "csrc" / "conformer_attention.cu",
+        {"conformer_attention_launch": [_P] * 8 + [_I] * 3 + [_LL] * 3
+         + [_I, _P]}),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

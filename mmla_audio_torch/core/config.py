@@ -6,8 +6,9 @@ copy of the configuration it uses.  Every class here has the same fields and
 defaults as its JAX counterpart (pinned by ``tests/test_torch_inference.py``);
 ``PipelineConfig`` holds only the parts the overlap and speaker serving
 paths, the two models' training and the device mesh read.
-``WavLMConfig``, the port's own (the JAX package has no WavLM), sizes the
-WavLM overlap detector (``models/wavlm.py``).
+``WavLMConfig`` and ``ConformerConfig``, the port's own (the JAX package
+has neither model), size the WavLM and wav2vec 2.0 Conformer overlap
+detectors (``models/wavlm.py``, ``models/conformer.py``).
 """
 
 from __future__ import annotations
@@ -17,8 +18,9 @@ from typing import Optional, Tuple
 
 __all__ = ["AudioConfig", "OverlapFeatureConfig", "SpeakerFeatureConfig",
            "VadConfig", "DenoiseConfig", "OverlapModelConfig",
-           "SpeakerModelConfig", "WavLMConfig", "OverlapTrainConfig",
-           "SpeakerTrainConfig", "TransferConfig", "MeshConfig",
+           "SpeakerModelConfig", "WavLMConfig", "ConformerConfig",
+           "OverlapTrainConfig", "SpeakerTrainConfig", "TransferConfig",
+           "MeshConfig",
            "PipelineConfig", "DEFAULT"]
 
 
@@ -217,6 +219,38 @@ class WavLMConfig:
     num_conv_pos_embedding_groups: int = 16
     num_buckets: int = 320
     max_bucket_distance: int = 800
+    layer_norm_eps: float = 1e-5
+    use_weighted_layer_sum: bool = True
+    classifier_proj_size: int = 256
+    num_labels: int = 2
+    input_eps: float = 1e-7
+
+
+@dataclasses.dataclass(frozen=True)
+class ConformerConfig:
+    """wav2vec 2.0 Conformer Large with relative position embeddings
+    (``facebook/wav2vec2-conformer-rel-pos-large``; arXiv:2005.08100,
+    2010.05171) under ``Wav2Vec2ConformerForSequenceClassification``'s head,
+    with Hugging Face's key names.  The layer-normed conv encoder
+    (``feat_extract_norm="layer"``), Transformer-XL relative positions
+    (``position_embeddings_type="relative"``) and swish (SiLU) in the
+    feed-forward and conv modules are the only variants the port builds.
+    ``input_eps``: the input normalisation's epsilon (the feature
+    extractor's ``do_normalize``)."""
+
+    hidden_size: int = 1024
+    num_hidden_layers: int = 24
+    num_attention_heads: int = 16
+    intermediate_size: int = 4096
+    conv_dim: Tuple[int, ...] = (512,) * 7
+    conv_kernel: Tuple[int, ...] = (10, 3, 3, 3, 3, 2, 2)
+    conv_stride: Tuple[int, ...] = (5, 2, 2, 2, 2, 2, 2)
+    conv_bias: bool = True
+    feat_extract_norm: str = "layer"
+    hidden_act: str = "swish"
+    conv_depthwise_kernel_size: int = 31
+    position_embeddings_type: str = "relative"
+    max_source_positions: int = 5000
     layer_norm_eps: float = 1e-5
     use_weighted_layer_sum: bool = True
     classifier_proj_size: int = 256

@@ -28,6 +28,9 @@ host.  What differs by kind:
   kernel A1) -> softmax; labelled and logged as the overlap detector.
   ``frame_stats()`` counts the frames its forwards computed and those of
   them that lay within a row's valid frames.
+* ``ConformerPredictor`` (``"conformer"``, the port's own;
+  ``models/conformer.py``): ``WavLMPredictor``'s step and counter with
+  wav2vec 2.0 Conformer Large (attention: kernel A2) in WavLM's place.
 
 The step calls the featurizers through this module's names, so a patch of
 ``inference.<name>`` sees every call.
@@ -54,10 +57,13 @@ from typing import Mapping
 import torch
 
 from mmla_audio_torch.analyze.logs import OVERLAP_LABELS
-from mmla_audio_torch.core.config import (AudioConfig, OverlapFeatureConfig,
+from mmla_audio_torch.core.config import (AudioConfig, ConformerConfig,
+                                          OverlapFeatureConfig,
                                           OverlapModelConfig, PipelineConfig,
                                           SpeakerFeatureConfig,
                                           SpeakerModelConfig, WavLMConfig)
+from mmla_audio_torch.models.conformer import (
+    Wav2Vec2ConformerForSequenceClassification)
 from mmla_audio_torch.models.overlap import OverlapResBLSTM
 from mmla_audio_torch.models.speaker import SpeakerResBLSTM
 from mmla_audio_torch.models.wavlm import (WavLMForSequenceClassification,
@@ -72,7 +78,7 @@ from mmla_audio_torch.precision import fp32_policy
 from mmla_audio_torch.utils.timers import setup_span, span
 
 __all__ = ["SILENT", "Predictor", "OverlapPredictor", "SpeakerPredictor",
-           "WavLMPredictor"]
+           "WavLMPredictor", "ConformerPredictor"]
 
 SILENT = -1  # label index for the silent gate (the log writes "silent")
 
@@ -440,6 +446,7 @@ class WavLMPredictor(Predictor):
     ``AudioConfig().window_samples``) are the model's input."""
 
     kind = "wavlm"
+    model_class = WavLMForSequenceClassification
 
     @setup_span("setup.predictor")
     def __init__(self, state_dict: Mapping[str, torch.Tensor],
@@ -453,7 +460,7 @@ class WavLMPredictor(Predictor):
         model."""
         self.matmul_precision = _resolve_precision(matmul_precision, None)
         self.device = torch.device(device)
-        self.model = WavLMForSequenceClassification(model_cfg)
+        self.model = self.model_class(model_cfg)
         self.model.load_state_dict(state_dict)
         self.model.to(self.device).eval()
         self.cfg = model_cfg
@@ -491,3 +498,17 @@ class WavLMPredictor(Predictor):
         """``wavlm_input_batch`` rows ``(B, 40961)`` of the windows."""
         return wavlm_input_batch(samples[:, : self.window_samples], n,
                                  self.cfg.input_eps)
+
+
+class ConformerPredictor(WavLMPredictor):
+    """Overlap detection with wav2vec 2.0 Conformer Large over (denoised,
+    VAD-trimmed) windows: ``WavLMPredictor``'s input, step, gate, labels
+    and frame counter, the Conformer in WavLM's place
+    (``matmul_precision`` governs kernel A2's dots as it does A1's)."""
+
+    kind = "conformer"
+    model_class = Wav2Vec2ConformerForSequenceClassification
+
+    def __init__(self, state_dict: Mapping[str, torch.Tensor],
+                 model_cfg: ConformerConfig = ConformerConfig(), **kw):
+        super().__init__(state_dict, model_cfg, **kw)

@@ -81,7 +81,7 @@ from mmla_audio_torch.ops.cuda_conv_encoder import (pack_conv_weight,
 from mmla_audio_torch.utils.timers import span
 
 __all__ = ["relative_position_bucket", "wavlm_input_batch", "split_input",
-           "WavLMForSequenceClassification"]
+           "RawWaveformClassifier", "WavLMForSequenceClassification"]
 
 
 def relative_position_bucket(rel: torch.Tensor, num_buckets: int = 320,
@@ -300,20 +300,28 @@ class WavLMEncoder(nn.Module):
                                     for i in range(cfg.num_hidden_layers))
 
 
-class WavLMForSequenceClassification(nn.Module):
-    """``forward(x, n)``: logits ``(B, num_labels)`` of normalised samples
+class RawWaveformClassifier(nn.Module):
+    """What the raw-waveform sequence classifiers (WavLM's here, the
+    Conformer's in ``models/conformer.py``) share: the conv encoder (kernel
+    E1), the feature projection, padded frames zeroed, the encoder's layers
+    under the spans, and the weighted-layer-sum head.  A subclass passes its
+    ``encoder`` (``layers`` and a final ``layer_norm``) and gives
+    ``prepare(h, lens)``: the hidden states the first layer takes, and the
+    arguments each layer takes after them, one tuple a layer.
+
+    ``forward(x, n)``: logits ``(B, num_labels)`` of normalised samples
     ``x (B, L)`` (``wavlm_input_batch``'s rows without their count) and the
     kept counts ``n (B,)``."""
 
-    def __init__(self, cfg: WavLMConfig = WavLMConfig()):
+    def __init__(self, cfg, encoder: nn.Module):
         super().__init__()
         if not cfg.use_weighted_layer_sum:
-            raise ValueError("WavLMForSequenceClassification: the port builds "
-                             "the weighted layer sum's head only")
+            raise ValueError(f"{type(self).__name__}: the port builds the "
+                             f"weighted layer sum's head only")
         self.cfg = cfg
         self.feature_extractor = WavLMFeatureEncoder(cfg)
         self.feature_projection = WavLMFeatureProjection(cfg)
-        self.encoder = WavLMEncoder(cfg)
+        self.encoder = encoder
         n = cfg.num_hidden_layers + 1
         self.layer_weights = nn.Parameter(torch.ones(n) / n)
         self.projector = nn.Linear(cfg.hidden_size, cfg.classifier_proj_size)
@@ -326,22 +334,22 @@ class WavLMForSequenceClassification(nn.Module):
             n = (n - k) // s + 1
         return n
 
+    def prepare(self, h: torch.Tensor, lens: torch.Tensor) -> tuple:
+        raise NotImplementedError
+
     def forward(self, x: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
         with span("model.encoder"):
             h = self.feature_projection(self.feature_extractor(x))
             B, T, _ = h.shape
             lens = self.frames(n.to(h.device)).clamp(1, T).to(torch.int32)
             valid = torch.arange(T, device=h.device)[None, :] < lens[:, None]
-            h = h * valid[..., None]
-            h = h + self.encoder.pos_conv_embed(h)
-            attn0 = self.encoder.layers[0].attention
-            bias = attn0.position_bias(T, h.device)
+            h, args = self.prepare(h * valid[..., None], lens)
             w = torch.softmax(self.layer_weights, dim=0)
             acc = h * w[0]
         with span("model.layers"):
             for i, layer in enumerate(self.encoder.layers):
                 with span("model.layer"):
-                    h = layer(h, bias, lens)
+                    h = layer(h, *args[i])
                     if i + 1 < len(self.encoder.layers):
                         acc = acc + h * w[i + 1]
         with span("model.head"):
@@ -350,3 +358,20 @@ class WavLMForSequenceClassification(nn.Module):
             p = self.projector(acc) * valid[..., None]
             pooled = p.sum(1) / lens[:, None].to(p.dtype)
             return self.classifier(pooled)
+
+
+class WavLMForSequenceClassification(RawWaveformClassifier):
+    """``forward(x, n)``: logits ``(B, num_labels)`` of normalised samples
+    ``x (B, L)`` (``wavlm_input_batch``'s rows without their count) and the
+    kept counts ``n (B,)``."""
+
+    def __init__(self, cfg: WavLMConfig = WavLMConfig()):
+        super().__init__(cfg, WavLMEncoder(cfg))
+
+    def prepare(self, h, lens):
+        """The positional convolution added; every layer takes layer 0's
+        bias table and the key lengths."""
+        h = h + self.encoder.pos_conv_embed(h)
+        bias = self.encoder.layers[0].attention.position_bias(h.shape[1],
+                                                              h.device)
+        return h, [(bias, lens)] * len(self.encoder.layers)

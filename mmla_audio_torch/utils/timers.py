@@ -30,9 +30,10 @@ program's set-up record for the process, which ``PROGRAM.summary()`` and
   ``mux.fetch``, ``mux.log``;
 * predictor (``inference.py``): ``model.features``, ``model.forward``
   (inside it the overlap model's ``model.stage`` a stage and ``model.lstm``,
-  ``models/overlap.py``; WavLM's ``model.encoder``, ``model.layers`` with a
-  ``model.layer`` a layer, and ``model.head``, ``models/wavlm.py``),
-  ``model.labels``;
+  ``models/overlap.py``; WavLM's and the Conformer's ``model.encoder``,
+  ``model.layers`` with a ``model.layer`` a layer, and ``model.head``,
+  ``models/wavlm.py``, and inside each Conformer layer ``model.attention``
+  and ``model.conv_module``, ``models/conformer.py``), ``model.labels``;
 * logs (``analyze/logs.py``): ``logs.reopen``, an append handle opened on
   a miss of the handle LRU;
 * set-up: ``setup.kernels`` (a kernel library built or loaded),
@@ -43,8 +44,11 @@ program's set-up record for the process, which ``PROGRAM.summary()`` and
 The counters beside them are plain integers, always on:
 ``analyze.logs.handle_stats()``, ``Multiplexer.calib_hits`` and
 ``calib_misses``, ``_build.compiles`` and ``_build.found``; kernel A1's
-``wavlm_attention.launches`` and ``WavLMPredictor.frame_stats()`` (frames
-computed and frames within the rows' valid lengths).
+``wavlm_attention.launches``, kernel A2's ``conformer_attention.launches``
+and ``.launches_split``, the Conformer's position-table builds
+(``Wav2Vec2ConformerForSequenceClassification.table_builds``) and
+``WavLMPredictor.frame_stats()`` (frames computed and frames within the
+rows' valid lengths; ``ConformerPredictor``'s too).
 """
 
 from __future__ import annotations

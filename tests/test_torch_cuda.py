@@ -7,7 +7,10 @@ the card against the CPU, the multiplexer's launches, the denoise of a
 window equal in a batch and alone, and the predictor captured as a CUDA
 graph by ``export.aot_compile``; kernel A1 against the attention in
 float64, kernel E1 against the conv encoder's plain version in float64,
-and the full-width WavLM against ``tests/wavlm_reference.py``.
+and the full-width WavLM against ``tests/wavlm_reference.py``; kernel A2
+against the Conformer's attention in float64, its kernels tied to the
+layers in a profile, and the full-width Conformer at four layers against
+``tests/conformer_reference.py``.
 
 This file imports neither JAX nor tests/conftest.py, so it runs where JAX is
 not installed:  python -m pytest --noconftest tests/test_torch_cuda.py
@@ -1406,3 +1409,153 @@ def test_full_width_wavlm_matches_the_reference(device, wavlm_weights,
                 - e1[1]) == (7, 6 if precision == "highest" else 0)
         assert torch.isfinite(got).all()
         assert (got - want).abs().max() <= rtol * scale, precision
+
+
+# -- the Conformer: kernel A2 and the model -----------------------------------
+
+@pytest.mark.parametrize("tf32", [True, False])
+@pytest.mark.parametrize("batch,T", [(1, 127), (8, 127), (64, 127), (8, 511)])
+def test_a2_matches_the_reference_attention(device, batch, T, tf32):
+    """A2 against the attention in float64 (``conformer_attention_plain``),
+    key lengths from 1 to T: one TF32 pass within A2_RTOL["tf32"] of max
+    |ref|, 3xTF32 with TF32 off within A2_RTOL["split"] (A1's limits: the
+    same dots at the same head size, one product more); the plain version
+    in bf16 lies above the TF32 limit, so the limit tells TF32 from bf16."""
+    from chip_smoke import A2_RTOL, a1_error, a2_operands
+    from mmla_audio_torch.ops.cuda_conformer_attention import (
+        conformer_attention, conformer_attention_plain)
+
+    ops = a2_operands(batch, T, device, seed=batch * T)
+    ref = conformer_attention_plain(*(o.double() if o.is_floating_point()
+                                      else o for o in ops))
+    before = conformer_attention.launches, conformer_attention.launches_split
+    with torch.no_grad(), fp32_policy(tf32):
+        got = conformer_attention(*ops)
+    torch.cuda.synchronize()
+    assert (conformer_attention.launches - before[0],
+            conformer_attention.launches_split - before[1]) == (1, not tf32)
+    assert got.shape == ref.shape and got.permute(0, 2, 1, 3).is_contiguous()
+    assert a1_error(got, ref) <= A2_RTOL["tf32" if tf32 else "split"]
+    bf16 = conformer_attention_plain(*(o.to(torch.bfloat16)
+                                       if o.is_floating_point() else o
+                                       for o in ops))
+    assert a1_error(bf16, ref) > A2_RTOL["tf32"]
+
+
+def test_a2_refuses_what_it_does_not_take(device):
+    from chip_smoke import a2_operands
+    from mmla_audio_torch.ops.cuda_conformer_attention import (
+        conformer_attention)
+
+    q, k, v, u, w, p, lens = a2_operands(2, 33, device, seed=1)
+    with pytest.raises(ValueError, match="heads of 64"):
+        conformer_attention(q[..., :32], k[..., :32], v[..., :32],
+                            u[:, :32], w[:, :32], p[..., :32], lens)
+    with pytest.raises(ValueError, match="lens"):
+        conformer_attention(q, k, v, u, w, p, lens.long())
+    with pytest.raises(ValueError, match=r"p must be contiguous"):
+        conformer_attention(q, k, v, u, w, p[:, 1:], lens)
+    with pytest.raises(ValueError, match="share their strides"):
+        conformer_attention(q.contiguous(), k, v, u, w, p, lens)
+
+
+def _conformer(device, layers: int, seed: int = 4):
+    """A full-width Conformer of ``layers`` layers on the card with seeded
+    weights (``chip_smoke.conformer_state_dict``), and its config."""
+    import dataclasses
+
+    from chip_smoke import conformer_state_dict
+    from mmla_audio_torch.core.config import ConformerConfig
+
+    cfg = dataclasses.replace(ConformerConfig(), num_hidden_layers=layers)
+    return conformer_state_dict(cfg, device, seed=seed), cfg
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+def test_conformer_matches_the_reference(device, batch):
+    """The Conformer at full width and 4 layers on the card against
+    ``tests/conformer_reference.py`` (TF32 off): IEEE fp32 (A2 and E1 in
+    3xTF32) within 1e-4 of max |ref| (sums in other orders), TF32 allowed
+    within 2e-2 (one TF32 pass in every product), WavLM's limits; one A2
+    launch a layer, one E1 launch a conv layer, one table build."""
+    from tests import conformer_reference as ref
+    from tests.test_torch_wavlm import windows
+    from mmla_audio_torch.inference import ConformerPredictor
+    from mmla_audio_torch.models.wavlm import wavlm_input_batch
+    from mmla_audio_torch.ops.cuda_conformer_attention import (
+        conformer_attention)
+    from mmla_audio_torch.ops.cuda_conv_encoder import wavlm_conv
+
+    sd, cfg = _conformer(device, 4)
+    kept = np.array([40960, 30000, 4001, 3000, 400, 399, 0, 20000])[:batch]
+    trimmed = windows(kept, seed=batch)
+    want = ref.forward(sd, ref.normalize(trimmed, kept).to(device), kept,
+                       cfg).cpu()
+    x = wavlm_input_batch(torch.from_numpy(trimmed).to(device),
+                          torch.from_numpy(kept).to(device))
+    scale = want.abs().max()
+    for precision, rtol in (("highest", 1e-4), (None, 2e-2)):
+        pred = ConformerPredictor(sd, cfg, device=device,
+                                  matmul_precision=precision)
+        a2 = conformer_attention.launches, conformer_attention.launches_split
+        e1 = wavlm_conv.launches
+        with torch.no_grad():
+            got = pred.apply_model(x).cpu()
+        assert (conformer_attention.launches - a2[0],
+                conformer_attention.launches_split - a2[1]) == \
+            (4, 4 if precision == "highest" else 0)
+        assert wavlm_conv.launches - e1 == 7
+        assert pred.model.table_builds == 1
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max() <= rtol * scale, precision
+
+
+def test_a2_kernels_are_tied_to_the_layers(device):
+    """The profiler ties each of a forward's A2 kernels to the
+    ``mmla_audio::conformer_attention`` operator that launched it, and the
+    operators start inside ``model.layers`` (a ``model.attention`` a
+    layer), so that ``layers_dev_ms.wavlm`` (``perfbench/launched.py``)
+    counts A2; the conv modules' kernels tie to operators inside
+    ``model.conv_module``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmla_audio_torch.inference import ConformerPredictor
+    from mmla_audio_torch.models.wavlm import wavlm_input_batch
+
+    sd, cfg = _conformer(device, 2, seed=6)
+    pred = ConformerPredictor(sd, cfg, device=device)
+    pcm = torch.from_numpy(_audio(2, 40960) * 2e4).to(device)
+    x = wavlm_input_batch(pcm, torch.full((2,), 40960, dtype=torch.int32,
+                                          device=device))
+    with torch.no_grad():
+        pred.apply_model(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            pred.apply_model(x)
+            torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+
+    def spans(name):
+        # the host's spans (a span shows on the card's timeline too)
+        return [(e.time_range.start, e.time_range.end) for e in events
+                if e.name == name and e.device_type == DeviceType.CPU]
+
+    def inside(e, name):
+        return any(s <= e.time_range.start <= t for s, t in spans(name))
+
+    ops = [e for e in events if e.name == "mmla_audio::conformer_attention"]
+    kernels = [k for e in ops for k in e.kernels]
+    assert len(ops) == 2 and len(spans("model.attention")) == 2, \
+        (len(ops), spans("model.attention"))
+    assert len(kernels) == 2 and all(
+        "conformer_attention_kernel" in k.name and k.duration > 0
+        for k in kernels), [(k.name, k.duration) for k in kernels]
+    assert all(inside(e, "model.layers") and inside(e, "model.attention")
+               for e in ops), [e.time_range for e in ops]
+    conv = [k for e in events if e.kernels and inside(e, "model.conv_module")
+            for k in e.kernels]
+    assert len(spans("model.conv_module")) == 2 and len(conv) >= 2 * 6, \
+        (spans("model.conv_module"), [k.name[:60] for k in conv])
