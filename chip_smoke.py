@@ -69,8 +69,15 @@ per source, all at once), then:
    limit; the kernel alone, by CUDA events, the plain version and SDPA's
    memory-efficient path with the positional term materialised (the library
    yardstick) timed; the full-width Conformer forward at B = 1, 8, 64, A2's
-   share of it and its launches (the kernels line's count of A2), the
-   position tables built once;
+   share of it and its launches and C1's (the kernels line's counts of A2
+   and C1), the position tables built and the taps folded once;
+2e. kernel C1 (``csrc/conformer_conv.cu``, the Conformer conv module's
+   GLU, depthwise convolution, folded BatchNorm and swish): against its
+   plain version in float64 at C = 1024, T = 127, B = 1, 8, 64 and T =
+   511, B = 8, within ``C1_RTOL`` and the same bits under either TF32
+   policy, the plain version in bf16 above the limit; the kernel alone, by
+   CUDA events, the plain version and the cuDNN path it replaced (the
+   library yardstick) timed beside the bytes bound;
 3. predictor: the full-width default ``OverlapModelConfig()`` with weights
    from a seeded numpy tree through ``params.py``; B=8 on the card vs the
    same predictor on the CPU, TF32 off;
@@ -4513,7 +4520,8 @@ def phase_conformer_attention(device) -> dict:
     (fp32, TF32 off), and SDPA's memory-efficient path with the positional
     term materialised as its mask (the library yardstick; the port never
     calls it); then the full-width Conformer forward at B = 1, 8, 64 by
-    CUDA events (TF32 allowed), A2's share of it and its launches."""
+    CUDA events (TF32 allowed), A2's share of it, A2's and C1's launches
+    (one each a layer) and the taps folded once a layer."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -4522,6 +4530,7 @@ def phase_conformer_attention(device) -> dict:
     from mmla_audio_torch.models.wavlm import wavlm_input_batch
     from mmla_audio_torch.ops.cuda_conformer_attention import (
         conformer_attention, conformer_attention_plain)
+    from mmla_audio_torch.ops.cuda_conformer_conv import conformer_conv
     from mmla_audio_torch.precision import fp32_policy
 
     def library(q, k, v, u, w, p, lens):
@@ -4584,20 +4593,22 @@ def phase_conformer_attention(device) -> dict:
     pred = ConformerPredictor(conformer_state_dict(cfg, device), cfg,
                               device=device)
     rng = np.random.RandomState(9)
-    launches = 0
+    launches = c1_launches = 0
     for batch in A2_BATCHES:
         x = torch.from_numpy(rng.randn(batch, 40960).astype(np.float32) * 3e3)
         n = torch.full((batch,), 40960, dtype=torch.int32)
         with torch.no_grad():
             xin = wavlm_input_batch(x.to(device), n.to(device))
-            before = conformer_attention.launches
+            before = conformer_attention.launches, conformer_conv.launches
             pred.apply_model(xin)
             torch.cuda.synchronize()
-            if conformer_attention.launches - before != \
-                    cfg.num_hidden_layers:
-                raise AssertionError("Conformer forward: not one A2 launch a "
-                                     "layer")
-            launches += conformer_attention.launches - before
+            if (conformer_attention.launches - before[0],
+                    conformer_conv.launches - before[1]) != \
+                    (cfg.num_hidden_layers,) * 2:
+                raise AssertionError("Conformer forward: not one A2 and one "
+                                     "C1 launch a layer")
+            launches += conformer_attention.launches - before[0]
+            c1_launches += conformer_conv.launches - before[1]
             ms = time_ms(pred.apply_model, xin, reps=3 if batch > 8 else 10,
                          rounds=3)
         share = out[(A1_FRAMES, batch)]["ms"] * cfg.num_hidden_layers / ms
@@ -4607,10 +4618,127 @@ def phase_conformer_attention(device) -> dict:
             f"{share * 100:.1f} % of it (24 launches at its own time), "
             f"position tables built {pred.model.table_builds} time(s), peak "
             f"memory {torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
-    if pred.model.table_builds != 1:
+    folds = [layer.conv_module.fold_builds
+             for layer in pred.model.encoder.layers]
+    if pred.model.table_builds != 1 or folds != [1] * cfg.num_hidden_layers:
         raise AssertionError(f"Conformer: position tables built "
-                             f"{pred.model.table_builds} times at one length")
-    out["launches"] = launches
+                             f"{pred.model.table_builds} times at one "
+                             f"length, taps folded {folds}")
+    out["launches"], out["c1_launches"] = launches, c1_launches
+    return out
+
+
+# -- kernel C1: the Conformer conv module's GLU, depthwise conv, BN, swish ----
+
+C1_BATCHES = (1, 8, 64)
+C1_CHANNELS = 1024                            # the Conformer Large's width
+# C1's error against the float64 plain version, of max |ref| (fp32 FMAs
+# under either TF32 policy; the plain version in bf16 lies far above it)
+C1_RTOL = 2e-6
+
+
+def c1_operands(batch: int, T: int, device, seed: int,
+                C: int = C1_CHANNELS) -> tuple:
+    """``(y, taps, bias, raw)``: a seeded pointwise product ``y (B, T, 2C)``
+    at the scale of a LayerNormed row through a fan-in scaled weight, and
+    the folded taps and bias of a seeded depthwise weight and BatchNorm
+    drawn as ``conformer_state_dict`` draws them; ``raw`` = (weight,
+    running_mean, running_var, gamma, beta)."""
+    from mmla_audio_torch.ops.cuda_conformer_conv import (TAPS,
+                                                          fold_batch_norm)
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    y = 1.3 * torch.randn(batch, T, 2 * C, generator=g, device=device)
+    raw = (torch.randn(C, 1, TAPS, generator=g, device=device) / TAPS ** 0.5,
+           0.1 * torch.randn(C, generator=g, device=device),
+           0.5 + 1.5 * torch.rand(C, generator=g, device=device),
+           1.0 + 0.2 * torch.randn(C, generator=g, device=device),
+           0.1 * torch.randn(C, generator=g, device=device))
+    weight, mean, var, gamma, beta = raw
+    scale = gamma.double() / torch.sqrt(var.double() + 1e-5)
+    return (y, *fold_batch_norm(weight, scale, beta - mean * scale), raw)
+
+
+def c1_work(batch: int, T: int, C: int = C1_CHANNELS) -> tuple:
+    """(FLOPs, bytes) of one launch: the 31 taps' FMAs, the GLU's and
+    swish's products (~4 FLOPs an element each, the exponentials not
+    counted); ``y`` read and the output written once, the taps and bias
+    once."""
+    return (batch * T * C * (2 * 31 + 8),
+            4 * (3 * batch * T * C + 32 * C))
+
+
+def c1_library(y, raw, eps: float = 1e-5):
+    """The path C1 replaced, as the conv module ran it before: ``F.glu``,
+    cuDNN's depthwise ``F.conv2d`` over the channels-last ``(B, C, 1, T)``
+    view, ``F.batch_norm`` on the running statistics, ``F.silu``."""
+    import torch.nn.functional as F
+
+    weight, mean, var, gamma, beta = raw
+    z = F.conv2d(F.glu(y, dim=-1).transpose(1, 2).unsqueeze(2),
+                 weight.unsqueeze(2), padding=(0, weight.shape[-1] // 2),
+                 groups=weight.shape[0])
+    z = F.batch_norm(z, mean, var, gamma, beta, False, 0.0, eps)
+    return F.silu(z).squeeze(2).transpose(1, 2)
+
+
+def phase_conformer_conv(device) -> dict:
+    """C1 against its plain version in float64 at C = 1024, T = 127, B = 1,
+    8, 64 and T = 511, B = 8, under both TF32 policies (the same bits),
+    within ``C1_RTOL``, the plain version in bf16 above it (the path it
+    replaced printed beside); the kernel alone, by CUDA events, the plain
+    version (TF32 off) and that path (cuDNN's grouped direct convolution,
+    aten's GLU, BatchNorm and SiLU; the library yardstick, which the port
+    never calls) timed beside the bound."""
+    from mmla_audio_torch.ops.cuda_conformer_conv import (
+        conformer_conv, conformer_conv_plain)
+    from mmla_audio_torch.precision import fp32_policy
+
+    out = {}
+    for T in (A1_FRAMES, 511):
+        for batch in C1_BATCHES if T == A1_FRAMES else (8,):
+            y, taps, bias, raw = c1_operands(batch, T, device,
+                                             seed=batch + T)
+            ref = conformer_conv_plain(y.double(), taps.double(),
+                                       bias.double())
+            got = {}
+            for tf32 in (True, False):
+                with torch.no_grad(), fp32_policy(tf32):
+                    before = conformer_conv.launches
+                    got[tf32] = conformer_conv(y, taps, bias)
+                    if conformer_conv.launches - before != 1:
+                        raise AssertionError("C1: not its kernel")
+            if not torch.equal(got[True], got[False]):
+                raise AssertionError("C1: the TF32 policy moved its output")
+            errs = dict(fp32=a1_error(got[True], ref),
+                        bf16=a1_error(conformer_conv_plain(
+                            y.bfloat16(), taps.bfloat16(), bias.bfloat16()),
+                            ref))
+            with torch.no_grad(), fp32_policy(False):
+                errs["library"] = a1_error(c1_library(y, raw), ref)
+            if errs["fp32"] > C1_RTOL or errs["bf16"] <= C1_RTOL:
+                raise AssertionError(f"C1 T={T} B={batch}: error "
+                                     f"{errs['fp32']:.3g}, bf16 "
+                                     f"{errs['bf16']:.3g}, limit {C1_RTOL}")
+            with torch.no_grad():
+                alone = queued_ms(conformer_conv, y, taps, bias)
+                kern = time_ms(conformer_conv, y, taps, bias)
+                with fp32_policy(True):
+                    lib = time_ms(c1_library, y, raw)
+                with fp32_policy(False):
+                    plain = time_ms(conformer_conv_plain, y, taps, bias)
+            flop, nbytes = c1_work(batch, T)
+            bnd = max(nbytes / HBM_BYTES_S, flop / FP32_CORE_FLOP_S) * 1e3
+            out[(T, batch)] = dict(alone_ms=alone, ms=kern, plain_ms=plain,
+                                   library_ms=lib, bound_ms=bnd, **errs)
+            log(f"[C1] T={T} B={batch}: error of max |ref| {errs['fp32']:.3g} "
+                f"(limit {C1_RTOL}; the same bits under TF32 and not), the "
+                f"replaced path {errs['library']:.3g}, bf16 plain "
+                f"{errs['bf16']:.3g}; kernel alone {alone:.4f} ms, by events "
+                f"{kern:.4f} ms, plain {plain:.4f} ms, the replaced cuDNN "
+                f"path {lib:.4f} ms; bound {bnd:.4f} ms (bytes "
+                f"{nbytes / 1e6:.1f} MB, {flop / 1e9:.2f} GFLOP), "
+                f"{bnd / alone * 100:.1f} % of it")
     return out
 
 
@@ -4783,6 +4911,7 @@ def main() -> int:
     attention = phase_attention(device)
     conv_encoder = phase_conv_encoder(device)
     conformer_attention = phase_conformer_attention(device)
+    conformer_conv = phase_conformer_conv(device)
 
     cfg = PipelineConfig()
     mcfg: OverlapModelConfig = cfg.overlap_model
@@ -4905,6 +5034,9 @@ def main() -> int:
         entry("conformer_attention", "conformer_attention.cu", None,
               conformer_attention["launches"],
               conformer_attention[(A1_FRAMES, 64)]),
+        entry("conformer_conv", "conformer_conv.cu", None,
+              conformer_attention["c1_launches"],
+              conformer_conv[(A1_FRAMES, 64)]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -91,6 +91,9 @@ CUDA_KERNELS = {
         _PKG / "csrc" / "conformer_attention.cu",
         {"conformer_attention_launch": [_P] * 8 + [_I] * 3 + [_LL] * 3
          + [_I, _P]}),
+    "conformer_conv": (
+        _PKG / "csrc" / "conformer_conv.cu",
+        {"conformer_conv_launch": [_P] * 4 + [_I] * 5 + [_P]}),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

@@ -28,9 +28,14 @@ layer equations of ``modeling_wav2vec2_conformer.py``.  Sizes are
   ``pos_bias_v``): kernel A2 (``ops/cuda_conformer_attention.py``), one
   launch a layer, called through this module's name
   ``conformer_attention``.  Conv module: LN -> pointwise 1024 -> 2048
-  (``F.linear``) -> GLU -> depthwise conv k = 31 (a channels-last
-  ``F.conv2d`` over ``(B, C, 1, T)``) -> BatchNorm on its running
-  statistics -> swish -> pointwise 1024 -> 1024, channels-last throughout.
+  (``F.linear``) -> GLU -> depthwise conv k = 31 -> BatchNorm on its
+  running statistics -> swish -> pointwise 1024 -> 1024, channels-last
+  throughout; GLU to swish as kernel C1 (``ops/cuda_conformer_conv.py``),
+  one launch a layer, called through this module's name
+  ``conformer_conv``, on the depthwise taps with the BatchNorm folded in,
+  made once a device and version of the weights and statistics
+  (``ConformerConvolutionModule.folded``, ``fold_builds`` counts the
+  builds), outside the state dict.
 * A final LayerNorm after the layers, none before them.
 
 Parameter names are Hugging Face's under
@@ -46,18 +51,19 @@ computes none, and ``load_state_dict`` accepts and drops those keys.
 
 Departures from ``modeling_wav2vec2_conformer.py``, all for serving:
 inference only (no dropout, no time masking, so no ``masked_spec_embed``;
-the position tables are made without autograd); WavLM's for rows with no
-whole frame and the weighted layer sum's order (``models/wavlm.py``).  As
-in Hugging Face, padded frames are zeroed before the first layer and
-masked as keys, and are not zeroed again between layers, so the depthwise
+the position tables and C1's folded taps are made without autograd; the
+BatchNorm on its running statistics alone); WavLM's for rows with no whole
+frame and the weighted layer sum's order (``models/wavlm.py``).  As in
+Hugging Face, padded frames are zeroed before the first layer and masked
+as keys, and are not zeroed again between layers, so the depthwise
 convolution sees what the layers left there.
 
-GEMMs are ``F.linear``, the depthwise convolution ``F.conv2d``, under the
-caller's TF32 policy (``precision.fp32_policy``), which E1 and A2 follow
-too (one TF32 pass where it allows TF32, else 3xTF32).  A forward spans
-``model.encoder``, ``model.layers`` with a ``model.layer`` a layer (inside
-it ``model.attention`` and ``model.conv_module``) and ``model.head``
-(``utils.timers``).
+GEMMs are ``F.linear`` under the caller's TF32 policy
+(``precision.fp32_policy``), which E1 and A2 follow too (one TF32 pass
+where it allows TF32, else 3xTF32); C1 computes in fp32 under either.  A
+forward spans ``model.encoder``, ``model.layers`` with a ``model.layer`` a
+layer (inside it ``model.attention`` and ``model.conv_module``) and
+``model.head`` (``utils.timers``).
 """
 
 from __future__ import annotations
@@ -71,6 +77,8 @@ from torch import nn
 from mmla_audio_torch.core.config import ConformerConfig
 from mmla_audio_torch.models.wavlm import RawWaveformClassifier
 from mmla_audio_torch.ops.cuda_conformer_attention import conformer_attention
+from mmla_audio_torch.ops.cuda_conformer_conv import (conformer_conv,
+                                                      fold_batch_norm)
 from mmla_audio_torch.utils.timers import span
 
 __all__ = ["relative_positions", "Wav2Vec2ConformerForSequenceClassification"]
@@ -142,9 +150,10 @@ class ConformerSelfAttention(nn.Module):
 
 class ConformerConvolutionModule(nn.Module):
     """``Wav2Vec2ConformerConvolutionModule`` on channels-last ``(B, T, C)``
-    in and out: the pointwise convolutions as ``F.linear``, the depthwise
-    one over ``(B, C, 1, T)`` in the channels-last memory format (a view of
-    ``(B, T, C)``), BatchNorm and swish on that layout."""
+    in and out: the pointwise convolutions as ``F.linear``; GLU, the
+    depthwise convolution, eval BatchNorm and swish between them as kernel
+    C1 (``conformer_conv``) on the depthwise weights with the BatchNorm
+    folded in (``folded``)."""
 
     def __init__(self, cfg: ConformerConfig):
         super().__init__()
@@ -158,17 +167,35 @@ class ConformerConvolutionModule(nn.Module):
                                         groups=D, bias=False)
         self.batch_norm = nn.BatchNorm1d(D)
         self.pointwise_conv2 = nn.Conv1d(D, D, 1, bias=False)
+        self._folded = None                 # (key, (taps, bias))
+        self.fold_builds = 0
+
+    def folded(self) -> tuple:
+        """C1's ``(taps (K, C), bias (C,))``: the depthwise weights with the
+        BatchNorm folded in (``fold_batch_norm``), made once for each
+        device, ``eps`` and storage and version of the five tensors.  Eval
+        BatchNorm is the map ``x scale + shift`` a channel: its values at 0
+        and 1 (``F.batch_norm`` in float64) give both."""
+        bn = self.batch_norm
+        ts = (self.depthwise_conv.weight, bn.weight, bn.bias,
+              bn.running_mean, bn.running_var)
+        key = (ts[0].device, bn.eps,
+               tuple((t.data_ptr(), t._version) for t in ts))
+        if self._folded is None or self._folded[0] != key:
+            with torch.no_grad():
+                unit = torch.tensor([[0.0], [1.0]], dtype=torch.float64,
+                                    device=ts[0].device)
+                at = F.batch_norm(unit.expand(2, ts[0].shape[0]),
+                                  bn.running_mean.double(),
+                                  bn.running_var.double(), bn.weight.double(),
+                                  bn.bias.double(), False, 0.0, bn.eps)
+            self._folded = (key, fold_batch_norm(ts[0], at[1] - at[0], at[0]))
+            self.fold_builds += 1
+        return self._folded[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.linear(self.layer_norm(x), self.pointwise_conv1.weight[..., 0])
-        y = F.glu(y, dim=-1).transpose(1, 2).unsqueeze(2)        # (B, C, 1, T)
-        conv = self.depthwise_conv
-        y = F.conv2d(y, conv.weight.unsqueeze(2),
-                     padding=(0, conv.padding[0]), groups=conv.groups)
-        bn = self.batch_norm
-        y = F.silu(F.batch_norm(y, bn.running_mean, bn.running_var,
-                                bn.weight, bn.bias, False, 0.0, bn.eps))
-        return F.linear(y.squeeze(2).transpose(1, 2),
+        return F.linear(conformer_conv(y, *self.folded()),
                         self.pointwise_conv2.weight[..., 0])
 
 

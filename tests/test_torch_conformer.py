@@ -5,15 +5,18 @@ seeded random weights: against the plain reference
 ``tests/conformer_reference.py``, which shares no code with the port, on
 rows of different kept counts; the reference against ``transformers``'
 ``Wav2Vec2ConformerForSequenceClassification`` on the same state dict;
-kernel A2's plain version against the rel shift materialised; the position
-tables made once; and the predictor through ``Multiplexer``, ``predict``
-and ``WavLMSession``."""
+kernel A2's plain version against the rel shift materialised; kernel C1's
+plain version with BatchNorm folded into its taps against the unfused GLU,
+convolution, BatchNorm and SiLU; the position tables and the folded taps
+made once; and the predictor through ``Multiplexer``, ``predict`` and
+``WavLMSession``."""
 
 import os
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from mmla_audio_torch import inference
 from mmla_audio_torch.analyze.logs import OVERLAP_LABELS
@@ -25,6 +28,8 @@ from mmla_audio_torch.models.wavlm import split_input, wavlm_input_batch
 from mmla_audio_torch.ops.cuda_attention import wavlm_attention
 from mmla_audio_torch.ops.cuda_conformer_attention import (
     conformer_attention, conformer_attention_plain)
+from mmla_audio_torch.ops.cuda_conformer_conv import (
+    c1_plan, conformer_conv, conformer_conv_plain, fold_batch_norm)
 from mmla_audio_torch.ops.cuda_conv_encoder import wavlm_conv
 from mmla_audio_torch.streaming.capture import PrefilledCapture
 from mmla_audio_torch.streaming.multiplex import Multiplexer
@@ -295,6 +300,115 @@ def test_conv_module_is_the_channels_first_one(model):
                            "encoder.layers.1.conv_module.", 31)
     assert got.is_contiguous() and got.shape == x.shape
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def _conv_operands(B, T, C=64, K=31, seed=0):
+    """The pointwise product ``y (B, T, 2C)``, a depthwise weight and
+    BatchNorm's four tensors with running statistics away from 0 and 1."""
+    g = torch.Generator().manual_seed(seed)
+    y = 2.0 * torch.randn(B, T, 2 * C, generator=g)
+    weight = torch.randn(C, 1, K, generator=g) / K ** 0.5
+    mean = 0.3 * torch.randn(C, generator=g)
+    var = 0.5 + 1.5 * torch.rand(C, generator=g)
+    gamma = 1.0 + 0.2 * torch.randn(C, generator=g)
+    beta = 0.1 * torch.randn(C, generator=g)
+    return y, weight, mean, var, gamma, beta
+
+
+def _fold(weight, mean, var, gamma, beta, eps=1e-5):
+    """C1's taps and bias from BatchNorm's tensors written out."""
+    scale = gamma.double() / torch.sqrt(var.double() + eps)
+    return fold_batch_norm(weight, scale, beta.double() - mean * scale)
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("T", [1, 15, 31, 127])
+def test_c1_plain_version_matches_the_unfused_stack(T, B):
+    """C1's plain version (what its wrapper runs on the CPU) on the folded
+    taps against the path it replaced: GLU, the depthwise ``F.conv2d`` over
+    a channels-last ``(B, C, 1, T)`` view, ``F.batch_norm`` on the running
+    statistics, SiLU; every row convolved, T shorter than the kernel
+    too."""
+    y, weight, mean, var, gamma, beta = _conv_operands(B, T, seed=T + B)
+    C, K = weight.shape[0], weight.shape[-1]
+    z = F.conv2d(F.glu(y, dim=-1).transpose(1, 2).unsqueeze(2),
+                 weight.unsqueeze(2), padding=(0, (K - 1) // 2), groups=C)
+    z = F.batch_norm(z, mean, var, gamma, beta, False, 0.0, 1e-5)
+    want = F.silu(z).squeeze(2).transpose(1, 2)
+    taps, bias = _fold(weight, mean, var, gamma, beta)
+    assert taps.shape == (K, C) and taps.is_contiguous()
+    got = conformer_conv(y, taps, bias)
+    assert torch.equal(got, conformer_conv_plain(y, taps, bias))
+    assert got.shape == (B, T, C) and got.is_contiguous()
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def test_conv_module_folds_once_a_weight_version():
+    """Each conv module folds its BatchNorm into the taps at its first
+    forward and not at later ones; an in-place change of ``running_var``
+    or of the depthwise weight (a new ``_version``), or new weights loaded,
+    folds again; the folded taps stay out of the state dict and the CPU
+    path launches no kernel."""
+    m = Wav2Vec2ConformerForSequenceClassification(TINY).eval()
+    m.load_state_dict(seeded_state_dict())
+    conv = [layer.conv_module for layer in m.encoder.layers]
+    assert [c.fold_builds for c in conv] == [0, 0]
+    before = conformer_conv.launches
+    trimmed = windows(KEPT[:2])
+    first = _logits(m, trimmed, KEPT[:2])
+    for _ in range(2):
+        assert torch.equal(_logits(m, trimmed, KEPT[:2]), first)
+    assert [c.fold_builds for c in conv] == [1, 1]
+    assert conformer_conv.launches == before
+    bn = conv[1].batch_norm
+    taps, bias = conv[1].folded()
+    with torch.no_grad():
+        bn.running_var.mul_(2.0)
+    assert conv[1].folded()[0] is not taps
+    assert [c.fold_builds for c in conv] == [1, 2]
+    want = _fold(conv[1].depthwise_conv.weight, bn.running_mean,
+                 bn.running_var, bn.weight, bn.bias, bn.eps)
+    assert all(torch.allclose(a, b, rtol=1e-6, atol=1e-7)
+               for a, b in zip(conv[1].folded(), want))
+    with torch.no_grad():
+        conv[0].depthwise_conv.weight.add_(0.01)
+    _logits(m, trimmed, KEPT[:2])
+    assert [c.fold_builds for c in conv] == [2, 2]
+    m.load_state_dict(seeded_state_dict())
+    assert torch.equal(_logits(m, trimmed, KEPT[:2]), first)
+    assert [c.fold_builds for c in conv] == [3, 3]
+    assert not any("fold" in k or "taps" in k for k in m.state_dict())
+
+
+@pytest.mark.parametrize("batch,T,sms,want", [
+    (64, 127, 132, (64, 127)), (8, 127, 132, (32, 127)),
+    (1, 1, 132, (32, 1)), (8, 511, 132, (64, 256)), (1, 511, 132, (32, 256)),
+    (2, 300, 1, (64, 150))])
+def test_c1_plan_fills_the_card(batch, T, sms, want):
+    """64 channels a CTA where the grid still gives every multiprocessor a
+    CTA (bucket 64 at C = 1024: 1,024 CTAs), else 32 (bucket 8: 128 CTAs
+    at 64 channels, 256 at 32; bucket 8 at T = 511: 256 at 64); the whole
+    T a CTA up to 256 rows, longer rows in near-equal tiles."""
+    assert c1_plan(batch, T, 1024, sms) == want
+
+
+def test_c1_launches_inside_a_dispatcher_operator():
+    """The card path launches through ``mmla_audio::conformer_conv``, an
+    operator with a CUDA kernel alone; the CPU path never calls it, and a
+    tensor of another device is refused."""
+    from torch._C import _dispatch_has_kernel_for_dispatch_key as has_kernel
+
+    op = torch.ops.mmla_audio.conformer_conv.default
+    assert [a.name for a in op._schema.arguments] == [
+        "y", "taps", "bias", "c_tile", "t_tile"]
+    assert has_kernel("mmla_audio::conformer_conv", "CUDA")
+    assert not has_kernel("mmla_audio::conformer_conv", "CPU")
+    y, weight, mean, var, gamma, beta = _conv_operands(1, 5)
+    taps, bias = _fold(weight, mean, var, gamma, beta)
+    with pytest.raises(NotImplementedError):
+        op(y, taps, bias, 64, 5)
+    with pytest.raises(ValueError, match="unsupported device"):
+        conformer_conv(y.to("meta"), taps.to("meta"), bias.to("meta"))
 
 
 def test_position_tables_are_made_once_a_length():

@@ -10,7 +10,9 @@ float64, kernel E1 against the conv encoder's plain version in float64,
 and the full-width WavLM against ``tests/wavlm_reference.py``; kernel A2
 against the Conformer's attention in float64, its kernels tied to the
 layers in a profile, and the full-width Conformer at four layers against
-``tests/conformer_reference.py``.
+``tests/conformer_reference.py``; kernel C1 against the conv module's
+plain middle in float64, its launches a forward and its kernel tied to its
+operator inside ``model.conv_module``.
 
 This file imports neither JAX nor tests/conftest.py, so it runs where JAX is
 not installed:  python -m pytest --noconftest tests/test_torch_cuda.py
@@ -1557,5 +1559,123 @@ def test_a2_kernels_are_tied_to_the_layers(device):
                for e in ops), [e.time_range for e in ops]
     conv = [k for e in events if e.kernels and inside(e, "model.conv_module")
             for k in e.kernels]
-    assert len(spans("model.conv_module")) == 2 and len(conv) >= 2 * 6, \
+    # LayerNorm, the two pointwise GEMMs and C1 a layer
+    assert len(spans("model.conv_module")) == 2 and len(conv) >= 2 * 4, \
         (spans("model.conv_module"), [k.name[:60] for k in conv])
+
+
+# -- the Conformer's conv module: kernel C1 -----------------------------------
+
+@pytest.mark.parametrize("batch", [1, 8, 64])
+@pytest.mark.parametrize("T", [1, 15, 127, 511])
+def test_c1_matches_the_plain_version(device, T, batch):
+    """C1 against the conv module's middle in float64
+    (``conformer_conv_plain``) at C = 1024: fp32 FMAs within C1_RTOL of max
+    |ref|, the same bits under either TF32 policy; the plain version in
+    bf16 lies above the limit."""
+    from chip_smoke import C1_RTOL, a1_error, c1_operands
+    from mmla_audio_torch.ops.cuda_conformer_conv import (
+        conformer_conv, conformer_conv_plain)
+
+    y, taps, bias, _ = c1_operands(batch, T, device, seed=batch * T)
+    ref = conformer_conv_plain(y.double(), taps.double(), bias.double())
+    got = {}
+    for tf32 in (True, False):
+        before = conformer_conv.launches
+        with torch.no_grad(), fp32_policy(tf32):
+            got[tf32] = conformer_conv(y, taps, bias)
+        torch.cuda.synchronize()
+        assert conformer_conv.launches - before == 1
+    assert torch.equal(got[True], got[False])
+    assert got[True].shape == ref.shape and got[True].is_contiguous()
+    assert a1_error(got[True], ref) <= C1_RTOL
+    bf16 = conformer_conv_plain(y.bfloat16(), taps.bfloat16(),
+                                bias.bfloat16())
+    assert a1_error(bf16, ref) > C1_RTOL
+
+
+def test_c1_refuses_what_it_does_not_take(device):
+    """On a CUDA tensor the wrapper launches C1 or raises: another dtype, a
+    non-contiguous ``y``, another kernel size, channels not in fours."""
+    from chip_smoke import c1_operands
+    from mmla_audio_torch.ops.cuda_conformer_conv import conformer_conv
+
+    y, taps, bias, _ = c1_operands(2, 33, device, seed=1)
+    before = conformer_conv.launches
+    with pytest.raises(ValueError, match="float32"):
+        conformer_conv(y.double(), taps, bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        conformer_conv(y.transpose(0, 1).contiguous().transpose(0, 1), taps,
+                       bias)
+    with pytest.raises(ValueError, match="taps of 31"):
+        conformer_conv(y, taps[:29].contiguous(), bias)
+    with pytest.raises(ValueError, match="fours"):
+        conformer_conv(y[..., :2 * 1022].contiguous(), taps[:, :1022],
+                       bias[:1022])
+    with pytest.raises(ValueError, match="bias"):
+        conformer_conv(y, taps, bias.double())
+    assert conformer_conv.launches == before
+
+
+def test_c1_launches_once_a_layer(device):
+    """The full-width Conformer's 24 layers launch C1 once each a forward,
+    on taps each conv module folds once for every forward."""
+    from mmla_audio_torch.inference import ConformerPredictor
+    from mmla_audio_torch.models.wavlm import wavlm_input_batch
+    from mmla_audio_torch.ops.cuda_conformer_conv import conformer_conv
+
+    sd, cfg = _conformer(device, 24, seed=7)
+    pred = ConformerPredictor(sd, cfg, device=device)
+    pcm = torch.from_numpy(_audio(2, 40960) * 2e4).to(device)
+    x = wavlm_input_batch(pcm, torch.tensor([40960, 9000], dtype=torch.int32,
+                                            device=device))
+    for _ in range(2):
+        before = conformer_conv.launches
+        with torch.no_grad():
+            pred.apply_model(x)
+        assert conformer_conv.launches - before == 24
+    assert [layer.conv_module.fold_builds
+            for layer in pred.model.encoder.layers] == [1] * 24
+
+
+def test_c1_kernel_is_tied_to_the_conv_module(device):
+    """The profiler ties each layer's C1 kernel to the
+    ``mmla_audio::conformer_conv`` operator that launched it, which starts
+    inside ``model.conv_module``, so that ``conv_module_dev_ms.conformer``
+    (``perfbench/launched.py``) counts it; no cuDNN convolution runs there
+    any more."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmla_audio_torch.inference import ConformerPredictor
+    from mmla_audio_torch.models.wavlm import wavlm_input_batch
+
+    sd, cfg = _conformer(device, 2, seed=8)
+    pred = ConformerPredictor(sd, cfg, device=device)
+    pcm = torch.from_numpy(_audio(2, 40960) * 2e4).to(device)
+    x = wavlm_input_batch(pcm, torch.full((2,), 40960, dtype=torch.int32,
+                                          device=device))
+    with torch.no_grad():
+        pred.apply_model(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            pred.apply_model(x)
+            torch.cuda.synchronize()
+    events = prof.events()
+    spans = [(e.time_range.start, e.time_range.end) for e in events
+             if e.name == "model.conv_module"
+             and e.device_type == DeviceType.CPU]
+
+    def inside(e):
+        return any(s <= e.time_range.start <= t for s, t in spans)
+
+    ops = [e for e in events if e.name == "mmla_audio::conformer_conv"]
+    kernels = [k for e in ops for k in e.kernels]
+    assert len(ops) == 2 and len(spans) == 2 and all(map(inside, ops))
+    assert len(kernels) == 2 and all(
+        "conformer_conv_kernel" in k.name and k.duration > 0
+        for k in kernels), [(k.name, k.duration) for k in kernels]
+    conv = [k.name for e in events if e.kernels and inside(e)
+            for k in e.kernels]
+    assert not any("conv2d" in n or "cudnn" in n for n in conv), conv
